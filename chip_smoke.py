@@ -20,9 +20,23 @@ Phases, each raising on any mismatch:
   4. the second half of the main path: Kafka CRCs of 1,024 record
      batches (16 records of 1 KiB each) through models.record.batch_crcs
      on the card, against the CRCs the host computed at build time, and
-     a corrupted staged row that must be the only mismatch.
-The launch counters are zeroed just before each main-path phase and
-read just after; every kernel must have launched there.
+     a corrupted staged row that must be the only mismatch;
+  5. the codec kernels (cell parse, LZ4 and snappy emission) against
+     their plain versions at the fused path's shape (256 rows of 32 KiB
+     bodies read in place after the 40-byte CRC prefix) and the codec
+     shape (16 rows of 64 KiB), and on 64 short, empty and ragged rows:
+     equal parse vectors, equal lengths and equal bytes on [0, out_len);
+     and the fused CRC + codec launch sequences' CRCs against the plain
+     CRC;
+  6. the codec path end to end: 1,024 batches (16 x 1 KiB records, half
+     JSON-like text, half random bytes) through RecordBatch.recompressed
+     (lz4) under RP_CODEC_BACKEND=device, each CRC checked on the card
+     against the host CRC and each frame decoded back here (pure-Python
+     LZ4 and snappy decoders: the image need not carry liblz4 or
+     libsnappy), a flipped wire CRC refused, and 16 x 64 KiB buffers
+     through the registry backend's LZ4 and snappy legs.
+The launch counters are zeroed just before each main-path phase (3, 4
+and 6) and read just after; every kernel must have launched there.
 
 Output: progress lines, the card line, one JSON line of per-kernel
 numbers, and last `{"ok": true, "device": {...}}`. Without a CUDA card
@@ -43,9 +57,12 @@ import time
 
 import numpy as np
 
+from redpanda_tpu_torch.ops import cellparse as parse_ops
 from redpanda_tpu_torch.ops import crc32c as crc_ops
 from redpanda_tpu_torch.ops import health as health_ops
+from redpanda_tpu_torch.ops import lz4 as lz4_ops
 from redpanda_tpu_torch.ops import quorum as quorum_ops
+from redpanda_tpu_torch.ops import snappy as snappy_ops
 
 G, R, RF = 50_000, 8, 3
 M_REPLIES, H_ROWS = 100_000, 50_000
@@ -67,7 +84,17 @@ KERNELS = {
     "build_heartbeats": ("redpanda_tpu_torch/csrc/quorum.cu", "redpanda_tpu/ops/quorum.py:196", quorum_ops.LAUNCHES),
     "health_reduce": ("redpanda_tpu_torch/csrc/health.cu", "redpanda_tpu/ops/health.py:39", health_ops.LAUNCHES),
     "crc32c_device": ("redpanda_tpu_torch/csrc/crc32c.cu", "redpanda_tpu/ops/crc32c.py:226", crc_ops.LAUNCHES),
+    "cell_parse": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/cellparse.py:30", parse_ops.LAUNCHES),
+    "lz4_emit": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/lz4.py:59", lz4_ops.LAUNCHES),
+    "snappy_emit": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/snappy.py:52", snappy_ops.LAUNCHES),
 }
+# codec shapes: the fused path's 256 rows x 32 KiB bodies (alternately seeded
+# random and a repeated pattern, read in place after the 40-byte CRC prefix;
+# bench.py:850-875) and the codec path's 16 x 64 KiB JSON-like rows
+# (bench.py:961-965)
+FUSED_ROWS, FUSED_BODY = 256, 32 * 1024
+CODEC_ROWS, CODEC_BODY = 16, 64 * 1024
+N_BATCHES, RECORDS, RECORD_BYTES = 1024, 16, 1024
 
 
 def log(msg: str) -> None:
@@ -165,16 +192,24 @@ HEALTH_LANES = ("health_max_lag", "health_under", "health_leaderless")
 
 
 @contextlib.contextmanager
-def quorum_backend(name: str):
-    old = os.environ.get("RP_QUORUM_BACKEND")
-    os.environ["RP_QUORUM_BACKEND"] = name
+def env_backend(var: str, name: str):
+    old = os.environ.get(var)
+    os.environ[var] = name
     try:
         yield
     finally:
         if old is None:
-            del os.environ["RP_QUORUM_BACKEND"]
+            del os.environ[var]
         else:
-            os.environ["RP_QUORUM_BACKEND"] = old
+            os.environ[var] = old
+
+
+def quorum_backend(name: str):
+    return env_backend("RP_QUORUM_BACKEND", name)
+
+
+def codec_backend(name: str):
+    return env_backend("RP_CODEC_BACKEND", name)
 
 
 def assert_equal(a, b, what: str) -> None:
@@ -532,6 +567,412 @@ def phase_record_batches(torch) -> dict:
     return {"launches": launches, "ms": secs * 1e3, "stride": stride}
 
 
+# --------------------------------------------------------- codec phases
+def fused_bodies(rows: int = FUSED_ROWS, body: int = FUSED_BODY) -> list:
+    out = []
+    for i in range(rows):
+        if i % 2:
+            out.append(np.random.default_rng(SEED * 997 + i).integers(0, 256, body, dtype=np.uint8).tobytes())
+        else:
+            pat = b"redpanda%d" % i
+            out.append((pat * (body // len(pat) + 1))[:body])
+    return out
+
+
+def json_text(rng, size: int) -> bytes:
+    """Seeded JSON-like records (compressible text with varying fields)."""
+    parts, n = [], 0
+    while n < size:
+        rec = b'{"key":"user-%06d","topic":"orders","seq":%d,"amount":%d.%02d,"flag":%s},' % (
+            int(rng.integers(0, 10**6)), int(rng.integers(0, 10**9)), int(rng.integers(0, 10**4)),
+            int(rng.integers(0, 100)), b"true" if rng.random() < 0.5 else b"false")
+        parts.append(rec)
+        n += len(rec)
+    return b"".join(parts)[:size]
+
+
+def codec_shapes(torch) -> dict:
+    """The two codec shapes as uploaded matrices: (data, valid, n, offset)."""
+    from redpanda_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(SEED + 5)
+    prefixes = [rng.integers(0, 256, fused.PREFIX, dtype=np.uint8).tobytes() for _ in range(FUSED_ROWS)]
+    mat, body_len, n = fused.stage_fused(prefixes, fused_bodies())
+    buffers = [json_text(rng, CODEC_BODY) for _ in range(CODEC_ROWS)]
+    batch, valid, n2 = lz4_ops.stage_chunks(lz4_ops.as_arrays(buffers), "lz4")
+    return {
+        "fused": (torch.from_numpy(mat).cuda(), torch.from_numpy(body_len).cuda(), n, fused.PREFIX),
+        "codec": (torch.from_numpy(batch).cuda(), torch.from_numpy(valid).cuda(), n2, 0),
+    }
+
+
+def codec_edge_rows(torch):
+    """Short, empty and ragged rows (the past-valid-length candidates,
+    the final literal alone, one-byte rows, long literal runs), staged
+    as the fused path stages them: (data, valid, n, offset)."""
+    from redpanda_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(SEED + 7)
+    bodies = [b"", b"Z", b"\x00" * 4096, b"ab" * 24 + b"\x01", bytes(range(16)) * 64,
+              b"the quick brown fox jumps over the lazy dog. " * 90, b"\x00\xff" * 2048]
+    for i in range(57):
+        size = int(rng.integers(0, FUSED_BODY + 1))
+        if i % 2:
+            bodies.append(rng.integers(0, 256, size, dtype=np.uint8).tobytes())
+        else:
+            bodies.append(json_text(rng, size))
+    mat, body_len, n = fused.stage_fused([bytes(fused.PREFIX)] * len(bodies), bodies)
+    return torch.from_numpy(mat).cuda(), torch.from_numpy(body_len).cuda(), n, fused.PREFIX
+
+
+def check_codec_kernels(torch, data, valid, n, offset, label: str):
+    """Parse and both emissions against their plain versions, exact:
+    the seven parse outputs, the lengths, the bytes on [0, out_len).
+    Returns the kernel's parse, the plain parse, each emission's block
+    bytes and each kernel's max_abs_err."""
+    want = parse_ops.cell_parse_plain(data, valid, n, offset)
+    got = parse_ops.launch_parse(data, valid, n, offset)
+    torch.cuda.synchronize()
+    errs = {"cell_parse": max_abs_err(dict(zip(parse_ops.FIELDS, got)), dict(zip(parse_ops.FIELDS, want)))}
+    out_bytes = {}
+    for key, emit, emit_plain in (
+        ("lz4_emit", lz4_ops.lz4_emit, lz4_ops.lz4_emit_plain),
+        ("snappy_emit", snappy_ops.snappy_emit, snappy_ops.snappy_emit_plain),
+    ):
+        p_out, p_len = emit_plain(data, valid, want, n, offset)
+        k_out, k_len = emit(data, valid, got, n, offset)
+        torch.cuda.synchronize()
+        if not torch.equal(p_len, k_len):
+            raise AssertionError(f"{key}@{label}: out_len differs from the plain version")
+        cols = torch.arange(k_out.shape[1], device=k_out.device)[None, :] < k_len[:, None].long()
+        diff = (torch.where(cols, k_out, 0).int() - torch.where(cols, p_out, 0).int()).abs()
+        errs[key] = float(diff.max()) if diff.numel() else 0.0
+        if errs[key] != 0.0:
+            raise AssertionError(f"{key}@{label}: bytes on [0, out_len) differ from the plain version")
+        out_bytes[key] = int(k_len.sum())
+    return got, want, out_bytes, errs
+
+
+def phase_codec_kernels(torch, mem_rate: float) -> dict:
+    """Phase 5: the parse and both emission kernels against their plain
+    versions at the two codec shapes (exact: equal parse vectors, equal
+    out_len and equal bytes on [0, out_len)), and the fused launch
+    sequences' device times."""
+    from redpanda_tpu_torch.ops import fused
+
+    def bound(nbytes):
+        return nbytes / mem_rate * 1e3
+
+    edge = codec_edge_rows(torch)
+    check_codec_kernels(torch, *edge, "edge")
+    log(f"[codec] parse, lz4_emit, snappy_emit on {edge[0].shape[0]} short, empty and ragged rows "
+        f"(n={edge[2]}, offset {edge[3]}): equal to plain, tolerance exact")
+    out = {}
+    for label, (data, valid, n, offset) in codec_shapes(torch).items():
+        b = data.shape[0]
+        nc = n // parse_ops.CELL
+        v_sum = int(valid.sum())
+        shape = f"{label}: B={b} n={n} offset={offset} bytes={v_sum}"
+        got, want, out_bytes, errs = check_codec_kernels(torch, data, valid, n, offset, label)
+        out[f"cell_parse@{label}"] = {
+            "shape": shape, "max_abs_err": errs["cell_parse"],
+            "ms": time_kernel(lambda: parse_ops.launch_parse(data, valid, n, offset), reps=10),
+            "plain_ms": time_plain(lambda: parse_ops.cell_parse_plain(data, valid, n, offset), reps=2),
+            # each row's valid bytes and length read; six [B, nc] vectors
+            # (has 1 B, five int32) and last_end written
+            "bound_ms": bound(v_sum + 4 * b + 21 * b * nc + 4 * b),
+        }
+        lit = int(got[5].sum()) + int((valid - got[6]).clamp(min=0).sum())
+        for key, emit, emit_plain in (
+            ("lz4_emit", lz4_ops.lz4_emit, lz4_ops.lz4_emit_plain),
+            ("snappy_emit", snappy_ops.snappy_emit, snappy_ops.snappy_emit_plain),
+        ):
+            out[f"{key}@{label}"] = {
+                "shape": f"{shape} out={out_bytes[key]}", "max_abs_err": errs[key],
+                "ms": time_kernel(lambda: emit(data, valid, got, n, offset), reps=10),
+                "plain_ms": time_plain(lambda: emit_plain(data, valid, want, n, offset), reps=2),
+                # the parse vectors the emission reads (has, offs, mlen,
+                # lit_start, lit_len: 17 B per cell, plus last_end and
+                # valid), every literal byte once, every block byte once
+                "bound_ms": bound(17 * b * nc + 8 * b + lit + out_bytes[key] + 4 * b),
+                "ratio": v_sum / max(out_bytes[key], 1),
+            }
+        if label == "fused":
+            crc_lens = valid.to(torch.int64) + fused.PREFIX
+            want_crc = crc_ops.crc32c_device_plain(data, crc_lens)
+            for key, seq, emit_plain in (
+                ("fused_lz4", fused._fused, lz4_ops.lz4_emit_plain),
+                ("fused_snappy", fused._fused_snappy, snappy_ops.snappy_emit_plain),
+            ):
+                crc, _, f_len = seq(data, valid, n)
+                torch.cuda.synchronize()
+                crc_err = float((crc - want_crc).abs().max())
+                if crc_err != 0.0:
+                    raise AssertionError(f"{key}: fused CRC differs from the plain CRC")
+
+                def plain(emit_plain=emit_plain):
+                    crc_ops.crc32c_device_plain(data, crc_lens)
+                    emit_plain(data, valid, parse_ops.cell_parse_plain(data, valid, n, offset), n, offset)
+
+                out[key] = {
+                    "shape": shape, "max_abs_err": crc_err,
+                    "ms": time_kernel(lambda: seq(data, valid, n), reps=10),
+                    "plain_ms": time_plain(plain, reps=1),
+                    # prefix and body of every row and lens read once; the
+                    # CRC (int64) and the block bytes and lengths written
+                    "bound_ms": bound(v_sum + fused.PREFIX * b + 8 * b + 8 * b + int(f_len.sum()) + 4 * b),
+                }
+    for name, e in out.items():
+        extra = f", ratio {e['ratio']:.3f}" if "ratio" in e else ""
+        log(
+            f"[codec] {name:<22} {e['shape']}: equal to plain, tolerance exact; "
+            f"kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms{extra}"
+        )
+    return out
+
+# Decoders of our own: the chip machine's image is not known to carry
+# liblz4 / libsnappy, so the frames are read back in plain Python.
+def _lz4_len(src: bytes, i: int, base: int):
+    if base != 15:
+        return base, i
+    while True:
+        x = src[i]
+        i += 1
+        base += x
+        if x != 255:
+            return base, i
+
+
+def lz4_block_decode(src: bytes, limit: int) -> bytes:
+    out, i = bytearray(), 0
+    while i < len(src):
+        tok = src[i]
+        lit, i = _lz4_len(src, i + 1, tok >> 4)
+        out += src[i : i + lit]
+        i += lit
+        if i >= len(src):
+            break
+        off = src[i] | (src[i + 1] << 8)
+        ml, i = _lz4_len(src, i + 2, tok & 15)
+        ml += 4
+        start = len(out) - off
+        if off == 0 or start < 0:
+            raise ValueError("lz4 block: offset out of range")
+        while ml:
+            piece = out[start : start + min(ml, off)]
+            out += piece
+            start += len(piece)
+            ml -= len(piece)
+    if len(out) > limit:
+        raise ValueError("lz4 block: longer than the frame's block size")
+    return bytes(out)
+
+
+def lz4_frame_decode(frame: bytes) -> bytes:
+    from redpanda_tpu_torch.utils.hash import xxh32
+
+    if int.from_bytes(frame[:4], "little") != 0x184D2204:
+        raise ValueError("lz4 frame: bad magic")
+    flg, bd = frame[4], frame[5]
+    i = 6 + (8 if flg & 0x08 else 0)
+    if (xxh32(frame[4:i]) >> 8) & 0xFF != frame[i]:
+        raise ValueError("lz4 frame: bad header checksum")
+    i += 1
+    max_block = 1 << (8 + 2 * ((bd >> 4) & 7))
+    out = bytearray()
+    while True:
+        word = int.from_bytes(frame[i : i + 4], "little")
+        i += 4
+        if word == 0:
+            break
+        size = word & 0x7FFFFFFF
+        blk = frame[i : i + size]
+        i += size
+        out += blk if word & 0x80000000 else lz4_block_decode(blk, max_block)
+    if flg & 0x04:
+        if int.from_bytes(frame[i : i + 4], "little") != xxh32(bytes(out)):
+            raise ValueError("lz4 frame: bad content checksum")
+        i += 4
+    if i != len(frame):
+        raise ValueError("lz4 frame: trailing bytes")
+    return bytes(out)
+
+
+def snappy_raw_decode(src: bytes) -> bytes:
+    size, shift, i = 0, 0, 0
+    while True:
+        x = src[i]
+        i += 1
+        size |= (x & 0x7F) << shift
+        shift += 7
+        if x < 0x80:
+            break
+    out = bytearray()
+    while i < len(src):
+        tag = src[i]
+        i += 1
+        kind = tag & 3
+        if kind == 0:
+            ln = tag >> 2
+            if ln >= 60:
+                nb = ln - 59
+                ln = int.from_bytes(src[i : i + nb], "little")
+                i += nb
+            out += src[i : i + ln + 1]
+            i += ln + 1
+            continue
+        if kind == 1:
+            ln, off = ((tag >> 2) & 7) + 4, ((tag >> 5) << 8) | src[i]
+            i += 1
+        elif kind == 2:
+            ln, off = (tag >> 2) + 1, src[i] | (src[i + 1] << 8)
+            i += 2
+        else:
+            ln, off = (tag >> 2) + 1, int.from_bytes(src[i : i + 4], "little")
+            i += 4
+        start = len(out) - off
+        if off == 0 or start < 0:
+            raise ValueError("snappy: offset out of range")
+        while ln:
+            piece = out[start : start + min(ln, off)]
+            out += piece
+            start += len(piece)
+            ln -= len(piece)
+    if len(out) != size:
+        raise ValueError(f"snappy: {len(out)} bytes, preamble says {size}")
+    return bytes(out)
+
+
+def xerial_decode(stream: bytes) -> bytes:
+    from redpanda_tpu_torch.compression import snappy_codec
+
+    head = snappy_codec.xerial_header()
+    if not stream.startswith(head):
+        raise ValueError("snappy-java stream: bad header")
+    i, out = len(head), bytearray()
+    while i < len(stream):
+        size = int.from_bytes(stream[i : i + 4], "big")
+        out += snappy_raw_decode(stream[i + 4 : i + 4 + size])
+        i += 4 + size
+    return bytes(out)
+
+
+def build_batches(rng, count: int = N_BATCHES) -> list:
+    """`count` uncompressed batches of RECORDS x RECORD_BYTES records:
+    even ones JSON-like text, odd ones random bytes."""
+    from redpanda_tpu_torch.models.record import RecordBatchBuilder
+
+    batches = []
+    for i in range(count):
+        b = RecordBatchBuilder(base_offset=RECORDS * i, timestamp_ms=1_700_000_000_000 + i)
+        for r in range(RECORDS):
+            if i % 2 == 0:
+                value = json_text(rng, RECORD_BYTES)
+            else:
+                value = rng.integers(0, 256, RECORD_BYTES, dtype=np.uint8).tobytes()
+            b.add(value, key=b"key-%d-%d" % (i, r))
+        batches.append(b.build())
+    return batches
+
+
+def phase_recompress(torch) -> dict:
+    """Phase 6, the codec path end to end: 1,024 batches through
+    RecordBatch.recompressed(lz4) under RP_CODEC_BACKEND=device (one
+    synchronous fused call per batch: CRC checked on the card against
+    the wire CRC, LZ4 block, host frame), a flipped wire CRC refused,
+    then 16 x 64 KiB buffers through the registry backend's LZ4 and
+    snappy legs. Every frame is decoded back here."""
+    from redpanda_tpu_torch.compression import CompressionType, tpu_backend
+    from redpanda_tpu_torch.models.record import CrcMismatch
+    from redpanda_tpu_torch.utils import crc as host_crc
+
+    rng = np.random.default_rng(SEED + 6)
+    batches = build_batches(rng)
+    for b in batches:
+        if b.header.crc & 0xFFFFFFFF != host_crc.crc32c(b.body, host_crc.crc32c(b.header.crc_prefix())):
+            raise AssertionError("builder CRC differs from utils/crc")
+    buffers = [json_text(rng, CODEC_BODY) for _ in range(CODEC_ROWS)]
+    with codec_backend("device"):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # the wire CRC is the host utils/crc value the builder stamped;
+        # recompressed raises CrcMismatch unless the card's CRC equals it
+        outs = [b.recompressed(CompressionType.lz4, verify_crc=b.header.crc) for b in batches]
+        secs = time.perf_counter() - t0
+        victim = batches[int(rng.integers(0, len(batches)))]
+        try:
+            victim.recompressed(CompressionType.lz4, verify_crc=victim.header.crc ^ 0x10)
+        except CrcMismatch:
+            pass
+        else:
+            raise AssertionError("a flipped wire CRC was not refused")
+        t1 = time.perf_counter()
+        lz4_frames = tpu_backend.compress_many(buffers)
+        t2 = time.perf_counter()
+        snappy_streams = tpu_backend.compress_many_snappy(buffers)
+        t3 = time.perf_counter()
+        launches = {k: KERNELS[k][2][k] for k in ("crc32c_device", "cell_parse", "lz4_emit", "snappy_emit")}
+    raw_in = comp_out = 0
+    for b, o in zip(batches, outs):
+        if o.header.compression != CompressionType.lz4 or lz4_frame_decode(o.body) != b.body:
+            raise AssertionError("a recompressed frame does not decode to its body")
+        raw_in += len(b.body)
+        comp_out += len(o.body)
+    for buf, frame, stream in zip(buffers, lz4_frames, snappy_streams):
+        if lz4_frame_decode(frame) != buf or xerial_decode(stream) != buf:
+            raise AssertionError("a registry-backend frame does not round-trip")
+    log(
+        f"[recompress] {len(batches)} batches x {RECORDS} x {RECORD_BYTES} B through recompressed(lz4) "
+        f"on the card: CRCs equal to utils/crc, frames decode to their bodies, flipped CRC refused; "
+        f"{secs * 1e3:.3f} ms end to end ({secs * 1e6 / len(batches):.1f} us per batch); "
+        f"{raw_in} -> {comp_out} bytes"
+    )
+    log(
+        f"[recompress] tpu_backend {CODEC_ROWS} x {CODEC_BODY} B: compress_many {(t2 - t1) * 1e3:.3f} ms, "
+        f"compress_many_snappy {(t3 - t2) * 1e3:.3f} ms; both round-trip"
+    )
+    with codec_backend("device"):
+        stages = recompress_stages(torch, batches[:64])
+    log("[recompress] one call, p50 over 64 batches (host clock; device = the fused launch sequence "
+        "on the device clock): " + ", ".join(f"{k} {v:.1f} us" for k, v in stages.items()))
+    return {"launches": launches, "ms": secs * 1e3, "stages_us": stages}
+
+
+def recompress_stages(torch, batches) -> dict:
+    """Where one recompressed(lz4) call's time goes, p50 over `batches`:
+    the whole call, then the fused entry's stages one by one on the
+    host clock (each ending in a synchronize, so they add up to more
+    than the call), and the fused launch sequence on the device clock
+    alone (a spin kernel queued ahead hides the host's enqueue)."""
+    from redpanda_tpu_torch.compression import CompressionType, lz4_codec
+    from redpanda_tpu_torch.ops import fused
+
+    rows = {k: [] for k in ("call", "stage", "h2d", "launches + sync", "d2h", "frame", "device")}
+    for b in batches:
+        body = bytes(b.body)
+        t0 = time.perf_counter()
+        b.recompressed(CompressionType.lz4, verify_crc=b.header.crc)
+        t1 = time.perf_counter()
+        mat, body_len, n = fused.stage_fused([b.header.crc_prefix()], [body])
+        t2 = time.perf_counter()
+        data = torch.from_numpy(mat).cuda()
+        lens = torch.from_numpy(body_len).cuda()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        crc, out, out_len = fused._fused(data, lens, n)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        crc, out, out_len = crc.cpu().numpy(), out.cpu().numpy(), out_len.cpu().numpy()
+        t5 = time.perf_counter()
+        lz4_codec.frame_from_blocks([out[0, : out_len[0]].tobytes()], [body])
+        t6 = time.perf_counter()
+        device_ms = time_kernel(lambda: fused._fused(data, lens, n), reps=1)
+        for k, v in zip(rows, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t6 - t5, device_ms / 1e3)):
+            rows[k].append(v * 1e6)
+    return {k: float(np.median(v)) for k, v in rows.items()}
+
+
 def nvidia_smi() -> str:
     try:
         return subprocess.run(
@@ -571,6 +1012,9 @@ def main() -> int:
     )
 
     results = phase_kernels(torch, MEM_BYTES_PER_S)
+    codec = phase_codec_kernels(torch, MEM_BYTES_PER_S)
+    for name in ("cell_parse", "lz4_emit", "snappy_emit"):
+        results[name] = codec[f"{name}@fused"]
 
     reset_launches()
     s = run_slice(G, TICKS, "cuda")
@@ -589,10 +1033,14 @@ def main() -> int:
     )
     rb = phase_record_batches(torch)
     path_launches["crc32c_device"] = rb["launches"]
-    missing = [k for k, v in path_launches.items() if v <= 0]
+    rc = phase_recompress(torch)
+    for name, count in rc["launches"].items():
+        path_launches[name] = path_launches.get(name, 0) + count
+    missing = [k for k in KERNELS if path_launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    log(f"[launches] main path: {path_launches}")
+    log(f"[launches] main path (batch CRCs: crc32c_device {rb['launches']}; codec path: {rc['launches']}): "
+        f"{path_launches}")
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():

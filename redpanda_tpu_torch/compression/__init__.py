@@ -97,8 +97,8 @@ def _device_codec_not_ported() -> None:
     # the device zstd codec (ops/zstd.py in the JAX package) has no CUDA
     # kernel yet: refuse rather than quietly take the host leg
     raise NotImplementedError(
-        "RP_ZSTD_BACKEND=tpu: the device codecs are not ported to CUDA yet "
-        "(ROADMAP.md, port queue: codecs)"
+        "RP_ZSTD_BACKEND=tpu: the device zstd codec is not ported to CUDA yet "
+        "(ROADMAP.md, queue 1 step 8: zstd)"
     )
 
 

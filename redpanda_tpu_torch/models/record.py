@@ -423,10 +423,13 @@ class RecordBatch:
         Kafka performs when a topic sets compression.type and the
         producer sent uncompressed data.
 
-        Everything runs the host codec registry. The registry gate
-        RP_CODEC_BACKEND=device (the fused CRC + LZ4 device kernel for
-        LZ4 bodies <= 64 KiB) raises NotImplementedError until that
-        kernel is ported to CUDA."""
+        Behind the registry gate (RP_CODEC_BACKEND=device) an LZ4 body
+        <= 64 KiB takes the fused card path (ops/fused.crc_lz4_fused):
+        ONE upload yields the Kafka CRC (validated against `verify_crc`,
+        replacing the host verify pass) AND the compressed block. It
+        runs on ops.fused.DEFAULT_DEVICE, the card, and raises on a
+        machine without one. Everything else runs the host codec
+        registry. The call is synchronous, one batch per call."""
         import os
 
         if self.header.compression == ctype:
@@ -459,25 +462,34 @@ class RecordBatch:
                 return plain  # compression.type=uncompressed
             return plain.recompressed(ctype)
         body = self.body if isinstance(self.body, bytes) else bytes(self.body)
+        frame = None
         if (
             ctype == CompressionType.lz4
             and len(body) <= 65536
             and os.environ.get("RP_CODEC_BACKEND") == "device"
         ):
-            # the fused CRC + LZ4 device program (ops/fused.py in the
-            # JAX package) has no CUDA kernel yet: refuse rather than
-            # quietly take the host leg
-            raise NotImplementedError(
-                "RP_CODEC_BACKEND=device: the fused CRC+codec kernels are "
-                "not ported to CUDA yet (ROADMAP.md, port queue: codecs)"
+            from ..compression import lz4_codec
+            from ..ops.fused import crc_lz4_fused
+
+            crcs, blocks = crc_lz4_fused(
+                [self.header.crc_prefix()], [body]
             )
-        if verify_crc is not None and self.compute_crc() != (
-            verify_crc & 0xFFFFFFFF
-        ):
-            raise CrcMismatch(
-                f"kafka batch crc mismatch: wire={verify_crc:#x}"
-            )
-        frame = compression_mod.compress(body, ctype)
+            if verify_crc is not None and int(crcs[0]) != (
+                verify_crc & 0xFFFFFFFF
+            ):
+                raise CrcMismatch(
+                    f"kafka batch crc mismatch (device): "
+                    f"wire={verify_crc:#x} computed={int(crcs[0]):#x}"
+                )
+            frame = lz4_codec.frame_from_blocks([blocks[0]], [body])
+        else:
+            if verify_crc is not None and self.compute_crc() != (
+                verify_crc & 0xFFFFFFFF
+            ):
+                raise CrcMismatch(
+                    f"kafka batch crc mismatch: wire={verify_crc:#x}"
+                )
+            frame = compression_mod.compress(body, ctype)
         header = dataclasses.replace(
             self.header,
             attrs=(self.header.attrs & ~_COMPRESSION_MASK) | int(ctype),

@@ -3,13 +3,18 @@
 - quorum: the 50k-group reply fold, commit sweep and heartbeat gather
 - health: the per-row partition-health reduction
 - crc32c: batched record-batch CRC validation
+- cellparse, lz4, snappy: the cell-grid LZ77 parse and LZ4 / snappy
+  block emission; fused: CRC + codec from one upload
 
 Each module holds a kernel wrapper and its plain PyTorch version; the
 sources live in `csrc/` and `_build` compiles them on first use.
 """
 
+from .cellparse import cell_parse
 from .crc32c import crc32c_batch_device, crc32c_device
+from .fused import crc_lz4_fused, crc_snappy_fused
 from .health import health_reduce, tick_frame_health
+from .lz4 import lz4_emit
 from .quorum import (
     build_heartbeats,
     fold_replies,
@@ -17,15 +22,21 @@ from .quorum import (
     quorum_commit_step,
     tick_frame,
 )
+from .snappy import snappy_emit
 
 __all__ = [
     "build_heartbeats",
+    "cell_parse",
     "crc32c_batch_device",
     "crc32c_device",
+    "crc_lz4_fused",
+    "crc_snappy_fused",
     "fold_replies",
     "health_reduce",
     "heartbeat_tick",
+    "lz4_emit",
     "quorum_commit_step",
+    "snappy_emit",
     "tick_frame",
     "tick_frame_health",
 ]

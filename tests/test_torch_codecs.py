@@ -1,0 +1,620 @@
+"""Port vs reference: the device LZ4 / snappy codecs and the fused CRC.
+
+Seeded inputs go through the JAX package (JAX on the CPU, as
+tests/test_device_lz4.py runs it) and through redpanda_tpu_torch on the
+CPU (the plain PyTorch versions). Every output is integer or bytes, so
+every comparison is exact: the seven per-cell parse vectors, the
+[B, out_bound(n)] block matrices and their lengths, the fused CRCs and
+blocks, and the broker's recompressed frames are byte-equal.
+
+The CUDA kernels of csrc/codec.cu cannot run here. Their schemes are
+replayed in Python below, step for step (the warp's tile-wise
+latest-occurrence walk with its match_any groups, the block scans as
+warp shuffles, the per-thread 16-byte emission rounds), and held
+against the plain versions, the way test_torch_crc32c.py replays its
+segment scheme.
+"""
+
+import random
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from redpanda_tpu import compression as jcompression
+from redpanda_tpu.compression import tpu_backend as jbackend
+from redpanda_tpu.models import record as jrecord
+from redpanda_tpu.ops import cellparse as jcp
+from redpanda_tpu.ops import fused as jfused
+from redpanda_tpu.ops import lz4 as jlz4
+from redpanda_tpu.ops import snappy as jsnappy
+from redpanda_tpu_torch import compression as tcompression
+from redpanda_tpu_torch.compression import CompressionType, lz4_codec, snappy_codec
+from redpanda_tpu_torch.compression import tpu_backend as tbackend
+from redpanda_tpu_torch.models import record as trecord
+from redpanda_tpu_torch.ops import cellparse as tcp
+from redpanda_tpu_torch.ops import fused as tfused
+from redpanda_tpu_torch.ops import lz4 as tlz4
+from redpanda_tpu_torch.ops import snappy as tsnappy
+from redpanda_tpu_torch.utils import crc as host_crc
+
+CELL = tcp.CELL
+
+
+def _payloads():
+    """The payload set of tests/test_device_lz4.py."""
+    rng = random.Random(7)
+    return {
+        "empty": b"",
+        "one": b"Z",
+        "zeros": b"\x00" * 4096,
+        "rle_mix": b"".join(bytes([i % 11]) * (i % 29 + 1) for i in range(200)),
+        "text": b"the quick brown fox jumps over the lazy dog. " * 90,
+        "json": b'{"k":"aaaa","v":123,"flag":true},' * 120,
+        "random": bytes(rng.getrandbits(8) for _ in range(3000)),
+        "cell_edge": b"ab" * (CELL // 2) * 3 + b"\x01",
+        "period_cell": bytes(range(CELL)) * 64,
+        "alt": (b"\x00\xff" * 2048),
+    }
+
+
+def _ragged(seed, count=12, max_len=6000):
+    """Ragged lengths, a mix of random bytes and repeated text."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        size = int(rng.integers(0, max_len))
+        if i % 3 == 0:
+            out.append(rng.integers(0, 256, size, dtype=np.uint8).tobytes())
+        else:
+            words = [b"redpanda", b"kafka", b"%d" % i, b'{"k":', b"raft ", b"\x00\x01"]
+            buf = b"".join(words[int(w)] for w in rng.integers(0, len(words), size // 4 + 1))
+            out.append(buf[:size])
+    return out
+
+
+def _full_row():
+    """One full 64 KiB row: JSON-like records with seeded fields."""
+    rng = np.random.default_rng(64)
+    parts, size = [], 0
+    while size < 65536:
+        rec = b'{"key":"user-%06d","topic":"orders","seq":%d,"flag":%s},' % (
+            int(rng.integers(0, 10**6)), int(rng.integers(0, 10**9)),
+            b"true" if rng.random() < 0.5 else b"false")
+        parts.append(rec)
+        size += len(rec)
+    return b"".join(parts)[:65536]
+
+
+CASES = {
+    "payloads": lambda: list(_payloads().values()),
+    "ragged": lambda: _ragged(3),
+    "full_64k": lambda: [_full_row()],
+}
+
+
+def _stage(chunks):
+    batch, valid, n = tlz4.stage_chunks(tlz4.as_arrays(chunks), "lz4")
+    return batch, valid, n
+
+
+_jax_parse = jax.jit(jcp.cell_parse, static_argnums=2)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cell_parse_matches_jax(case):
+    batch, valid, n = _stage(CASES[case]())
+    got = tcp.cell_parse(torch.from_numpy(batch), torch.from_numpy(valid), n)
+    assert len(got) == len(tcp.FIELDS)
+    for i in range(batch.shape[0]):
+        want = _jax_parse(jnp.asarray(batch[i]), jnp.int32(valid[i]), n)
+        for name, w, g in zip(tcp.FIELDS, want, got):
+            np.testing.assert_array_equal(g[i].numpy(), np.asarray(w), err_msg=f"{case} row {i} {name}")
+
+
+@pytest.mark.parametrize("codec", ["lz4", "snappy"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_compress_chunks_match_jax(codec, case):
+    jmod, tmod = {"lz4": (jlz4, tlz4), "snappy": (jsnappy, tsnappy)}[codec]
+    batch, valid, n = _stage(CASES[case]())
+    out, out_len = tmod._compress_chunks(torch.from_numpy(batch), torch.from_numpy(valid), n)
+    jout, jlen = jmod._compress_chunks(jnp.asarray(batch), jnp.asarray(valid), n)
+    assert tuple(out.shape) == (batch.shape[0], tmod.out_bound(n))
+    np.testing.assert_array_equal(out_len.numpy(), np.asarray(jlen))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_entries_match_jax_and_decode_with_system_libs(case):
+    chunks = CASES[case]()
+    lz4_blocks = tlz4.compress_chunks(chunks, device="cpu")
+    snappy_blocks = tsnappy.compress_chunks(chunks, device="cpu")
+    assert lz4_blocks == jlz4.compress_chunks(chunks)
+    assert snappy_blocks == jsnappy.compress_chunks(chunks)
+    for raw, lz, sn in zip(chunks, lz4_blocks, snappy_blocks):
+        if raw:
+            assert lz4_codec.decompress_block(lz, len(raw)) == raw
+        assert snappy_codec.decompress_raw(sn) == raw
+
+
+def _adversarial():
+    """Dense sequence emission: alternating unmatchable / matchable
+    cells, so every other cell emits a sequence."""
+    rng = random.Random(1)
+    bad = []
+    for _ in range(8):
+        buf = bytearray()
+        while len(buf) < 2048:
+            buf += bytes(rng.getrandbits(8) for _ in range(CELL))
+            buf += buf[-CELL:]
+        bad.append(bytes(buf))
+    return bad
+
+
+@pytest.mark.parametrize("codec", ["lz4", "snappy"])
+def test_out_bound_holds_on_adversarial_input(codec):
+    tmod, jmod = {"lz4": (tlz4, jlz4), "snappy": (tsnappy, jsnappy)}[codec]
+    bad = _adversarial()
+    blocks = tmod.compress_chunks(bad, device="cpu")  # asserts out_bound inside
+    assert blocks == jmod.compress_chunks(bad)
+    for raw, blk in zip(bad, blocks):
+        if codec == "lz4":
+            assert len(blk) <= tmod.out_bound(len(raw))
+            assert lz4_codec.decompress_block(blk, len(raw)) == raw
+        else:
+            assert snappy_codec.decompress_raw(blk) == raw
+
+
+def test_chunk_limit():
+    with pytest.raises(ValueError):
+        tlz4.compress_chunks([b"x" * 65537], device="cpu")
+    with pytest.raises(ValueError):
+        tsnappy.compress_chunks([b"x" * 65537], device="cpu")
+    with pytest.raises(ValueError):
+        tfused.crc_lz4_fused([b"\x00" * 40], [b"x" * 65537], device="cpu")
+
+
+def _fused_inputs(seed):
+    bodies = _ragged(seed, count=10, max_len=5000) + [b"", b"abc" * 700]
+    rng = np.random.default_rng(seed + 1)
+    prefixes = [rng.integers(0, 256, tfused.PREFIX, dtype=np.uint8).tobytes() for _ in bodies]
+    return prefixes, bodies
+
+
+@pytest.mark.parametrize("codec", ["lz4", "snappy"])
+def test_fused_matches_jax_and_host_crc(codec):
+    prefixes, bodies = _fused_inputs(5)
+    tfn = {"lz4": tfused.crc_lz4_fused, "snappy": tfused.crc_snappy_fused}[codec]
+    jfn = {"lz4": jfused.crc_lz4_fused, "snappy": jfused.crc_snappy_fused}[codec]
+    crcs, blocks = tfn(prefixes, bodies, device="cpu")
+    jcrcs, jblocks = jfn(prefixes, bodies)
+    assert crcs.dtype == np.uint32
+    np.testing.assert_array_equal(crcs, np.asarray(jcrcs))
+    assert blocks == jblocks
+    for p, b, c in zip(prefixes, bodies, crcs):
+        assert int(c) == host_crc.crc32c(b, host_crc.crc32c(p))
+
+
+def test_fused_reads_bodies_in_place():
+    """The parse at column offset PREFIX of the fused rows equals the
+    parse of the same bodies staged alone."""
+    prefixes, bodies = _fused_inputs(9)
+    mat, body_len, n = tfused.stage_fused(prefixes, bodies)
+    got = tcp.cell_parse(torch.from_numpy(mat), torch.from_numpy(body_len), n, tfused.PREFIX)
+    alone = np.zeros((len(bodies), n + CELL), np.uint8)
+    alone[:, : n] = mat[:, tfused.PREFIX : tfused.PREFIX + n]
+    want = tcp.cell_parse(torch.from_numpy(alone), torch.from_numpy(body_len), n)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _batch(mod, seed, text=True):
+    rng = np.random.default_rng(seed)
+    b = mod.RecordBatchBuilder(base_offset=7, timestamp_ms=1_700_000_000_000)
+    for i in range(16):
+        if text:
+            v = b'{"id":%d,"name":"user-%d","tags":["a","b"]},' % (i, int(rng.integers(0, 99))) * 24
+        else:
+            v = rng.integers(0, 256, 1024, dtype=np.uint8).tobytes()
+        b.add(v, key=b"k%d" % i)
+    return b.build()
+
+
+@pytest.mark.parametrize("text", [True, False], ids=["json", "random"])
+def test_recompressed_matches_jax(monkeypatch, text):
+    monkeypatch.setattr(tfused, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setenv("RP_CODEC_BACKEND", "device")
+    tb, jb = _batch(trecord, 11), _batch(jrecord, 11)
+    if not text:
+        tb, jb = _batch(trecord, 12, text=False), _batch(jrecord, 12, text=False)
+    assert tb.header.crc == jb.header.crc
+    got = tb.recompressed(CompressionType.lz4, verify_crc=tb.header.crc)
+    want = jb.recompressed(jcompression.CompressionType.lz4, verify_crc=jb.header.crc)
+    assert got.body == want.body
+    assert got.header.crc == want.header.crc
+    assert got.header.compression == CompressionType.lz4
+    assert [r.value for r in got.records()] == [r.value for r in tb.records()]
+    bad = tb.header.crc ^ 0x1
+    with pytest.raises(trecord.CrcMismatch):
+        tb.recompressed(CompressionType.lz4, verify_crc=bad)
+    with pytest.raises(jrecord.CrcMismatch):
+        jb.recompressed(jcompression.CompressionType.lz4, verify_crc=bad)
+
+
+def test_recompressed_device_without_cuda_raises(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: this checks a machine without one")
+    monkeypatch.setenv("RP_CODEC_BACKEND", "device")
+    batch = _batch(trecord, 13)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batch.recompressed(CompressionType.lz4, verify_crc=batch.header.crc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbackend.compress_many([b"x" * 100])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbackend.compress_many_snappy([b"x" * 100])
+
+
+def test_backend_registry_round_trips(monkeypatch):
+    monkeypatch.setattr(tlz4, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(tsnappy, "DEFAULT_DEVICE", "cpu")
+    bufs = list(_payloads().values()) + [_full_row() * 2 + b"tail"]
+    assert tbackend.compress_many(bufs) == jbackend.compress_many(bufs)
+    assert tbackend.compress_many_snappy(bufs) == jbackend.compress_many_snappy(bufs)
+    tbackend.enable()
+    try:
+        for data in bufs:
+            for ctype in (CompressionType.lz4, CompressionType.snappy):
+                frame = tcompression.compress(data, ctype)
+                assert tcompression.uncompress(frame, ctype) == data
+        assert lz4_codec.decompress_frame(tbackend.compress(bufs[-1])) == bufs[-1]
+        assert snappy_codec.decompress_java(tbackend.compress_snappy(bufs[-1])) == bufs[-1]
+    finally:
+        tbackend.disable()
+    assert tcompression.compress(b"abc", CompressionType.lz4) == lz4_codec.compress_frame(b"abc")
+
+
+# ------------------------------------------------------------- replays
+FULL = 0xFFFFFFFF
+
+
+def _shfl(vals, o, down):
+    if down:
+        return [vals[l + o] if l + o < 32 else vals[l] for l in range(32)]
+    return [vals[l - o] if l >= o else vals[l] for l in range(32)]
+
+
+def _block_scan_excl(xs, op, identity, suffix):
+    """csrc/codec.cu block_scan_excl over one value per thread."""
+    nw = len(xs) // 32
+    incs = []
+    for w in range(nw):
+        inc = list(xs[32 * w : 32 * w + 32])
+        o = 1
+        while o < 32:
+            y = _shfl(inc, o, suffix)
+            inc = [op(inc[l], y[l]) if (l + o < 32 if suffix else l >= o) else inc[l] for l in range(32)]
+            o <<= 1
+        incs.append(inc)
+    sh = [inc[0 if suffix else 31] for inc in incs]
+    w = [sh[l] if l < nw else identity for l in range(32)]
+    o = 1
+    while o < 32:
+        y = _shfl(w, o, suffix)
+        w = [op(w[l], y[l]) if (l + o < 32 if suffix else l >= o) else w[l] for l in range(32)]
+        o <<= 1
+    we = _shfl(w, 1, suffix)
+    we[31 if suffix else 0] = identity
+    out = []
+    for wi, inc in enumerate(incs):
+        te = _shfl(inc, 1, suffix)
+        te[31 if suffix else 0] = identity
+        out.extend(op(we[wi], te[l]) for l in range(32))
+    return out
+
+
+def _hash(d, p):
+    gram = int(d[p]) | int(d[p + 1]) << 8 | int(d[p + 2]) << 16 | int(d[p + 3]) << 24
+    return ((gram * 2654435761) & FULL) >> 16
+
+
+def _replay_candidates(d, walk_end):
+    """The warp's walk: 32-position tiles, match_any groups, a 2^16
+    last-seen table with 0xFFFF for none."""
+    table = [0xFFFF] * 65536
+    cand = [0xFFFF] * walk_end
+    for base in range(0, walk_end, 32):
+        keys = [_hash(d, base + l) if base + l < walk_end else 0x10000 + l for l in range(32)]
+        peers = [sum(1 << m for m in range(32) if keys[m] == keys[l]) for l in range(32)]
+        got = []
+        for l in range(32):
+            below = peers[l] & ((1 << l) - 1)
+            got.append(base + below.bit_length() - 1 if below else table[keys[l]] if keys[l] < 65536 else 0xFFFF)
+        for l in range(32):
+            p = base + l
+            if p < walk_end:
+                if peers[l] & ~((2 << l) - 1) & FULL == 0:
+                    table[keys[l]] = p
+                cand[p] = got[l]
+    return cand
+
+
+def _replay_parse(d, v, n, threads=1024, items=4):
+    """csrc/codec.cu cell_parse_kernel on one row d (n + CELL bytes)."""
+    v = min(max(v, 0), n)
+    walk_end = min(v + 1, n)
+    cand_s = _replay_candidates(d, walk_end)
+
+    def cand_at(p):
+        if p < 0:
+            return -1
+        if p >= walk_end:
+            return p - 1
+        return -1 if cand_s[p] == 0xFFFF else cand_s[p]
+
+    def verify(p, q, cap):
+        return q >= 0 and all(d[p + k] == d[q + k] for k in range(cap))
+
+    nc = n // CELL
+    has_s, j_s, offs_s = [0] * nc, [0] * nc, [0] * nc
+    for c in range(nc):
+        cstart = c * CELL
+        j, sel, found = 0, -1, False
+        if cstart + CELL <= v - 12:
+            for jj in range(CELL - 3):
+                p, cap = cstart + jj, CELL - jj
+                c1 = cand_at(p)
+                c2 = cand_at(c1) if c1 >= 0 else -1
+                c3 = cand_at(c2) if c2 >= 0 else -1
+                for q in (c1, c2, c3):
+                    if verify(p, q, cap):
+                        sel, found, j = q, True, jj
+                        break
+                if found:
+                    break
+        if not found:
+            c1 = cand_at(cstart)
+            c2 = cand_at(c1) if c1 >= 0 else -1
+            sel = cand_at(c2) if c2 >= 0 else -1
+        has_s[c], j_s[c], offs_s[c] = found, j, cstart + j - sel
+
+    heads, bnds, jvs, aggs = [], [], [], []
+    for t in range(threads):
+        h_t, b_t, j_t = [], [], []
+        for i in range(items):
+            c = t * items + i
+            h = ab = False
+            jv = 0
+            if c < nc:
+                h, jv = has_s[c], j_s[c]
+                ab = c > 0 and h and has_s[c - 1] and jv == 0 and offs_s[c] == offs_s[c - 1]
+            h_t.append(h and not ab)
+            b_t.append(c if c < nc and not ab else nc)
+            j_t.append(jv)
+        heads.append(h_t), bnds.append(b_t), jvs.append(j_t), aggs.append(min(b_t))
+    after = _block_scan_excl(aggs, min, nc, suffix=True)
+    nbs, contribs, aggm = [], [], []
+    for t in range(threads):
+        run, nb = after[t], [0] * items
+        for i in reversed(range(items)):
+            nb[i] = run
+            run = min(run, bnds[t][i])
+        co = [nb[i] * CELL if heads[t][i] else 0 for i in range(items)]
+        nbs.append(nb), contribs.append(co), aggm.append(max(co))
+    before = _block_scan_excl(aggm, max, 0, suffix=False)
+    out = {f: [0] * nc for f in tcp.FIELDS[:-1]}
+    last_end = None
+    for t in range(threads):
+        prev_end = before[t]
+        for i in range(items):
+            c = t * items + i
+            if c >= nc:
+                break
+            hd, jv, nb = heads[t][i], jvs[t][i], nbs[t][i]
+            mstart = c * CELL + jv
+            out["has"][c] = hd
+            out["mstart"][c] = mstart
+            out["offs"][c] = offs_s[c]
+            out["mlen"][c] = (nb - c) * CELL - jv if hd else 0
+            out["lit_start"][c] = prev_end
+            out["lit_len"][c] = mstart - prev_end if hd else 0
+            prev_end = max(prev_end, contribs[t][i])
+            if c == nc - 1:
+                last_end = prev_end
+    return out, last_end
+
+
+def _lz4_seq_byte(r, lit, mlen, offs, lit_at):
+    n_extra = lambda x: (x - 15) // 255 + 1 if x >= 15 else 0
+    extra = lambda x, i: min(max(x - 15 - 255 * i, 0), 255)
+    a1 = 1 + n_extra(lit)
+    a2 = a1 + lit
+    if r == 0:
+        return (min(lit, 15) << 4) | min(max(mlen - 4, 0), 15)
+    if r < a1:
+        return extra(lit, r - 1)
+    if r < a2:
+        return lit_at(r - a1)
+    if r == a2:
+        return offs & 255
+    if r == a2 + 1:
+        return (offs >> 8) & 255
+    return extra(mlen - 4, r - (a2 + 2))
+
+
+def _lz4_final_byte(fo, f_lit, lit_at):
+    a1 = 1 + ((f_lit - 15) // 255 + 1 if f_lit >= 15 else 0)
+    if fo == 0:
+        return min(f_lit, 15) << 4
+    if fo < a1:
+        return min(max(f_lit - 15 - 255 * (fo - 1), 0), 255)
+    return lit_at(fo - a1)
+
+
+def _sn_lit_extra(x):
+    return 0 if x <= 60 else (1 if x <= 256 else 2)
+
+
+def _sn_lit_byte(r, length, lit_at):
+    ex = _sn_lit_extra(length)
+    if r == 0:
+        return (length - 1) << 2 if ex == 0 else (240 if ex == 1 else 244)
+    if r - 1 < ex:
+        return ((length - 1) >> (8 * (r - 1))) & 255
+    return lit_at(r - 1 - ex)
+
+
+def _sn_seq_byte(r, lit, mlen, offs, lit_at):
+    ls = 1 + _sn_lit_extra(lit) + lit if lit > 0 else 0
+    if r < ls:
+        return _sn_lit_byte(r, lit, lit_at)
+    c = r - ls
+    ci, role = c // 3, c % 3
+    clen = min(max(mlen - 64 * ci, 1), 64)
+    if role == 0:
+        return 2 | ((clen - 1) << 2)
+    return offs & 255 if role == 1 else (offs >> 8) & 255
+
+
+REPLAY_CODECS = {
+    "lz4": (
+        lambda has, lit, mlen: 1 + ((lit - 15) // 255 + 1 if lit >= 15 else 0) + lit + 2
+        + ((mlen - 19) // 255 + 1 if mlen - 4 >= 15 else 0) if has else 0,
+        lambda f_lit: 1 + ((f_lit - 15) // 255 + 1 if f_lit >= 15 else 0) + f_lit,
+        _lz4_seq_byte,
+        _lz4_final_byte,
+        tlz4.out_bound,
+    ),
+    "snappy": (
+        lambda has, lit, mlen: ((1 + _sn_lit_extra(lit) + lit if lit > 0 else 0)
+                                + 3 * ((mlen + 63) // 64)) if has else 0,
+        lambda f_lit: 1 + _sn_lit_extra(f_lit) + f_lit if f_lit > 0 else 0,
+        _sn_seq_byte,
+        lambda fo, f_lit, lit_at: _sn_lit_byte(fo, f_lit, lit_at),
+        tsnappy.out_bound,
+    ),
+}
+
+
+def _replay_emit(codec, d, v, parse, n, threads=512, items=8, nbytes=16):
+    """csrc/codec.cu emit_kernel on one row: the size scan, then each
+    thread's 16-byte rounds (binary search, then walk forward)."""
+    size_fn, final_size, seq_byte, final_byte, bound = REPLAY_CODECS[codec]
+    has, _, offs, mlen, lit_start, lit_len, last_end = parse
+    nc = n // CELL
+    m = bound(n)
+    v = min(max(v, 0), n)
+    sz = [[size_fn(has[c], lit_len[c], mlen[c]) if (c := t * items + i) < nc else 0
+           for i in range(items)] for t in range(threads)]
+    run = _block_scan_excl([sum(s) for s in sz], lambda a, b: a + b, 0, suffix=False)
+    starts, total = [0] * nc, None
+    for t in range(threads):
+        r = run[t]
+        for i in range(items):
+            c = t * items + i
+            if c < nc:
+                starts[c] = r
+            r += sz[t][i]
+            if c == nc - 1:
+                total = r
+    f_lit = max(v - last_end, 0)
+    out_len = total + final_size(f_lit)
+    end = min(out_len, m)
+    out = bytearray(end)
+
+    def clip(x):
+        return min(max(x, 0), n - 1)
+
+    for t in range(threads):
+        for o0 in range(t * nbytes, end, threads * nbytes):
+            s = -1
+            if o0 < total:
+                lo, hi = 0, nc
+                while lo < hi:
+                    mid = (lo + hi) >> 1
+                    if starts[mid] <= o0:
+                        lo = mid + 1
+                    else:
+                        hi = mid
+                s = lo - 1
+            for k in range(nbytes):
+                o = o0 + k
+                if o >= end:
+                    break
+                if o < total:
+                    while s + 1 < nc and starts[s + 1] <= o:
+                        s += 1
+                    base = lit_start[s]
+                    out[o] = seq_byte(o - starts[s], lit_len[s], mlen[s], offs[s],
+                                      lambda i: int(d[clip(base + i)]))
+                else:
+                    out[o] = final_byte(o - total, f_lit, lambda i: int(d[clip(last_end + i)]))
+    return bytes(out), out_len
+
+
+def test_kernel_walk_matches_sorted_candidates():
+    """The tile-wise latest-occurrence walk gives the sort's cand on
+    every walked position (including hash collisions inside a tile)."""
+    rows = [b"abcd" * 300, bytes(range(256)) * 4, _ragged(21, count=1, max_len=1)[0] + b"x" * 40]
+    rng = np.random.default_rng(2)
+    rows.append(rng.integers(0, 4, 1200, dtype=np.uint8).tobytes())  # dense collisions
+    rows.append(rng.integers(0, 256, 2000, dtype=np.uint8).tobytes())
+    for raw in rows:
+        batch, valid, n = _stage([raw])
+        d = batch[0]
+        h = tcp._hash(torch.from_numpy(batch).to(torch.int64), n)
+        want = tcp._candidates(h)[0].numpy()
+        walk_end = min(int(valid[0]) + 1, n)
+        got = np.array(_replay_candidates(d, walk_end), np.int64)
+        got[got == 0xFFFF] = -1
+        np.testing.assert_array_equal(got, want[:walk_end])
+        # past the walk the row is zeros: cand[p] = p - 1
+        np.testing.assert_array_equal(want[walk_end + 1 :], np.arange(walk_end, n - 1))
+
+
+@pytest.mark.parametrize("which", ["payloads", "ragged"])
+def test_kernel_replay_matches_plain(which):
+    chunks = {"payloads": lambda: list(_payloads().values())[:8],
+              "ragged": lambda: _ragged(17, count=4, max_len=2000)}[which]()
+    batch, valid, n = _stage(chunks)
+    plain = tcp.cell_parse(torch.from_numpy(batch), torch.from_numpy(valid), n)
+    blocks = {
+        "lz4": tlz4._compress_chunks(torch.from_numpy(batch), torch.from_numpy(valid), n),
+        "snappy": tsnappy._compress_chunks(torch.from_numpy(batch), torch.from_numpy(valid), n),
+    }
+    for i in range(batch.shape[0]):
+        fields, last_end = _replay_parse(batch[i], int(valid[i]), n)
+        for name, g in zip(tcp.FIELDS[:-1], plain[:-1]):
+            np.testing.assert_array_equal(np.array(fields[name], np.int64),
+                                          g[i].numpy().astype(np.int64), err_msg=f"row {i} {name}")
+        assert last_end == int(plain[-1][i])
+        parse = [fields[f] for f in tcp.FIELDS[:-1]] + [last_end]
+        for codec, (out, out_len) in blocks.items():
+            got, got_len = _replay_emit(codec, batch[i], int(valid[i]), parse, n)
+            assert got_len == int(out_len[i]), (codec, i)
+            assert got == out[i, :got_len].numpy().tobytes(), (codec, i)
+
+
+def test_chip_smoke_decoders_read_port_frames(monkeypatch):
+    """chip_smoke.py decodes the card's frames without liblz4/libsnappy:
+    its decoders must read what the port writes."""
+    import chip_smoke
+
+    monkeypatch.setattr(tlz4, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(tsnappy, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(tfused, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setenv("RP_CODEC_BACKEND", "device")
+    bufs = list(_payloads().values()) + [_full_row()]
+    for data, frame, stream in zip(
+        bufs, tbackend.compress_many(bufs), tbackend.compress_many_snappy(bufs)
+    ):
+        assert chip_smoke.lz4_frame_decode(frame) == data
+        assert chip_smoke.xerial_decode(stream) == data
+        assert chip_smoke.xerial_decode(snappy_codec.compress_java(data)) == data
+    batches = chip_smoke.build_batches(np.random.default_rng(1), count=4)
+    for b in batches:
+        out = b.recompressed(CompressionType.lz4, verify_crc=b.header.crc)
+        assert chip_smoke.lz4_frame_decode(out.body) == b.body
+    with pytest.raises(ValueError):
+        chip_smoke.lz4_frame_decode(b"\x00" * 16)

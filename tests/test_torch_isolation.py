@@ -6,7 +6,8 @@
 * Without a CUDA device, the default device path raises instead of
   running the plain versions on the CPU, and chip_smoke.py exits
   non-zero without printing a result.
-* Seams whose device programs are not ported yet raise.
+* Seams whose device programs are not ported yet (the zstd codec, the
+  mesh backend) raise NotImplementedError naming their ROADMAP step.
 """
 
 import ast
@@ -126,8 +127,8 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 
 def test_unported_seams_raise(monkeypatch):
     from redpanda_tpu_torch import compression
-    from redpanda_tpu_torch.compression import CompressionType
-    from redpanda_tpu_torch.models.record import RecordBatchBuilder
+    from redpanda_tpu_torch.compression import CompressionType, tpu_backend
+    from redpanda_tpu_torch.ops import fused
     from redpanda_tpu_torch.raft.shard_state import ShardGroupArrays
 
     monkeypatch.setenv("RP_QUORUM_BACKEND", "mesh")
@@ -138,9 +139,43 @@ def test_unported_seams_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         arrays.health_refresh()
     monkeypatch.setenv("RP_ZSTD_BACKEND", "tpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*zstd"):
         compression.compress(b"x" * 64, CompressionType.zstd)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*zstd"):
+        fused.crc_zstd_fused([b"\x00" * 40], [b"x" * 64], device="cpu")
+    for entry in (tpu_backend.compress_zstd, tpu_backend.uncompress_zstd):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*zstd"):
+            entry(b"x" * 64)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*zstd"):
+        tpu_backend.compress_many_zstd([b"x" * 64])
+
+
+def test_default_codec_device_raises_without_cuda(monkeypatch):
+    _require_no_cuda()
+    from redpanda_tpu_torch.compression import CompressionType, tpu_backend
+    from redpanda_tpu_torch.models.record import RecordBatchBuilder
+    from redpanda_tpu_torch.ops import fused, lz4, snappy
+
+    for call in (
+        lambda: lz4.compress_chunks([b"abc" * 50]),
+        lambda: snappy.compress_chunks([b"abc" * 50]),
+        lambda: lz4.compress_chunks([b"abc" * 50], device="cuda"),
+        lambda: fused.crc_lz4_fused([b"\x00" * 40], [b"abc" * 50]),
+        lambda: fused.crc_snappy_fused([b"\x00" * 40], [b"abc" * 50], device="cuda"),
+        lambda: tpu_backend.compress(b"abc" * 50),
+        lambda: tpu_backend.compress_snappy(b"abc" * 50),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
     monkeypatch.setenv("RP_CODEC_BACKEND", "device")
     batch = RecordBatchBuilder(timestamp_ms=0).add(b"v" * 100).build()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         batch.recompressed(CompressionType.lz4)
+
+
+def test_codec_wrappers_have_no_fallback():
+    """A CUDA tensor launches its kernel or raises: the codec wrappers
+    hold no try statement that could route it to the plain version."""
+    for name in ("cellparse", "lz4", "snappy", "fused"):
+        tree = ast.parse((PKG / "ops" / f"{name}.py").read_text())
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], name
