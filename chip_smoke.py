@@ -34,9 +34,23 @@ Phases, each raising on any mismatch:
      against the host CRC and each frame decoded back here (pure-Python
      LZ4 and snappy decoders: the image need not carry liblz4 or
      libsnappy), a flipped wire CRC refused, and 16 x 64 KiB buffers
-     through the registry backend's LZ4 and snappy legs.
-The launch counters are zeroed just before each main-path phase (3, 4
-and 6) and read just after; every kernel must have launched there.
+     through the registry backend's LZ4 and snappy legs;
+  7. the zstd kernels (lengths, emission, decode) against their plain
+     versions, exact on every output: 32 full-width 64 KiB chunks of the
+     phase 8 segment, edge rows at every bucket n = 256 ... 65536, the
+     fused CRC + encode at the fused shape, and tampered, truncated and
+     regen = 0 streams (the decode error names the same stream);
+  8. the tiered segment path at full size: one 128 MiB segment of
+     serialized record batches (a quarter JSON-like values, a quarter
+     random, half zipf-skewed) through compression.compress / uncompress
+     (zstd) under RP_ZSTD_BACKEND=tpu, three passes, byte-exact with no
+     punt to the host codec, 8 blocks checked by the pure-Python
+     reference decoder, the stage split, and each zstd kernel at the
+     path's shapes against its plain version;
+  8b. 1,024 batches through recompressed(zstd) and .records() under
+     RP_ZSTD_BACKEND=tpu, records equal to the originals'.
+The launch counters are zeroed just before each main-path phase (3, 4,
+6, 8 and 8b) and read just after; every kernel must have launched there.
 
 Output: progress lines, the card line, one JSON line of per-kernel
 numbers, and last `{"ok": true, "device": {...}}`. Without a CUDA card
@@ -63,6 +77,7 @@ from redpanda_tpu_torch.ops import health as health_ops
 from redpanda_tpu_torch.ops import lz4 as lz4_ops
 from redpanda_tpu_torch.ops import quorum as quorum_ops
 from redpanda_tpu_torch.ops import snappy as snappy_ops
+from redpanda_tpu_torch.ops import zstd as zstd_ops
 
 G, R, RF = 50_000, 8, 3
 M_REPLIES, H_ROWS = 100_000, 50_000
@@ -87,6 +102,9 @@ KERNELS = {
     "cell_parse": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/cellparse.py:30", parse_ops.LAUNCHES),
     "lz4_emit": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/lz4.py:59", lz4_ops.LAUNCHES),
     "snappy_emit": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/snappy.py:52", snappy_ops.LAUNCHES),
+    "zstd_lengths": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:190", zstd_ops.LAUNCHES),
+    "zstd_emit": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:190", zstd_ops.LAUNCHES),
+    "zstd_decode": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:274", zstd_ops.LAUNCHES),
 }
 # codec shapes: the fused path's 256 rows x 32 KiB bodies (alternately seeded
 # random and a repeated pattern, read in place after the 40-byte CRC prefix;
@@ -95,6 +113,11 @@ KERNELS = {
 FUSED_ROWS, FUSED_BODY = 256, 32 * 1024
 CODEC_ROWS, CODEC_BODY = 16, 64 * 1024
 N_BATCHES, RECORDS, RECORD_BYTES = 1024, 16, 1024
+# the tiered path: one log segment at the segment.bytes default
+# (redpanda_tpu/kafka/server_admin.py:52, storage/log.py:23), compressed and
+# hydrated in 64 KiB zstd blocks (compression/tpu_backend.py RP_ZSTD_BLOCK)
+SEGMENT_BYTES, ZSTD_BLOCK, ZSTD_CHECK_CHUNKS = 134_217_728, 65536, 32
+KINDS = ("json", "random", "zipf", "zipf")
 
 
 def log(msg: str) -> None:
@@ -476,6 +499,7 @@ def phase_kernels(torch, mem_rate: float) -> dict:
         # max_lag and two flags written
         "bound_ms": bound(G * R * (8 + 1 + 1) + G * (8 + 3) + G * (8 + 2)),
     }
+    sequences(torch, out, work, reset, replies, hb_idx, known, active, fresh, uniq, uniq_fresh, bound)
     # -- crc32c_device at the ragged record-batch shape and the bench shape
     for label, (n, stride, min_len) in (
         ("ragged", (1024, 16_800, 16_000)),
@@ -508,6 +532,45 @@ def phase_kernels(torch, mem_rate: float) -> dict:
             f"kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms"
         )
     return out
+
+
+def sequences(torch, out, work, reset, replies, hb_idx, known, active, fresh, uniq, uniq_fresh,
+              bound) -> None:
+    """The launch sequences of the tick (heartbeat_tick, tick_frame,
+    tick_frame_health) on the device clock at the path's shapes, beside
+    the bytes each must move as one function: the replies (group, slot,
+    seq of every entry; dirty, flushed of every fresh one), last_seq once
+    per addressed pair, match / flushed / both voter masks over [G, R]
+    and four [G] lanes read once, the fresh pairs' three lanes and two
+    [G] lanes written; the heartbeat gather adds hb_idx and term read and
+    four fields written per row; the health reduction adds two [G] flags
+    read and max_lag plus two flags written."""
+    m, nf = len(replies[0]), int(fresh.sum())
+    tick = (24 * m + 16 * nf + 8 * uniq + G * R * (8 + 8 + 1 + 1) + G * (1 + 8 + 8 + 8)
+            + 24 * uniq_fresh + 16 * G)
+    hb = H_ROWS * (8 + 8 + 4 * 8)
+    health = G * 2 + G * (8 + 2)
+
+    def plain_tick(hb_rows=None, health_lanes=False):
+        state = quorum_ops.quorum_commit_step_plain(quorum_ops.fold_replies_plain(work, *replies))
+        if hb_rows is not None:
+            quorum_ops.build_heartbeats_plain(state, hb_rows)
+        if health_lanes:
+            health_ops.health_reduce_plain(state.match_index, state.commit_index, state.is_voter,
+                                           state.is_voter_old, state.is_leader, known, active)
+
+    for name, fn, plain, nbytes in (
+        ("heartbeat_tick", lambda: quorum_ops.heartbeat_tick(work, *replies), plain_tick, tick),
+        ("tick_frame", lambda: quorum_ops.tick_frame(work, *replies, hb_idx),
+         lambda: plain_tick(hb_idx), tick + hb),
+        ("tick_frame_health", lambda: health_ops.tick_frame_health(work, *replies, hb_idx, known, active),
+         lambda: plain_tick(hb_idx, True), tick + hb + health),
+    ):
+        out[name] = {
+            "shape": f"G={G} R={R} M={m} H={H_ROWS}", "max_abs_err": 0.0,
+            "ms": time_kernel(fn, reset), "plain_ms": time_plain(plain, reset),
+            "bound_ms": bound(nbytes),
+        }
 
 
 def padded_slot_counts(torch, rng) -> None:
@@ -973,6 +1036,535 @@ def recompress_stages(torch, batches) -> dict:
     return {k: float(np.median(v)) for k, v in rows.items()}
 
 
+# ----------------------------------------------------------- zstd phases
+def json_values(rng, count: int, size: int = RECORD_BYTES) -> list:
+    """`count` JSON-like values of `size` bytes: json_text's records,
+    their fields drawn in bulk."""
+    per = size // 60 + 2
+    m = count * per
+    fields = zip(rng.integers(0, 10**6, m).tolist(), rng.integers(0, 10**9, m).tolist(),
+                 rng.integers(0, 10**4, m).tolist(), rng.integers(0, 100, m).tolist(),
+                 (rng.random(m) < 0.5).tolist())
+    recs = [b'{"key":"user-%06d","topic":"orders","seq":%d,"amount":%d.%02d,"flag":%s},'
+            % (u, q, a, c, b"true" if f else b"false") for u, q, a, c, f in fields]
+    return [b"".join(recs[i * per : (i + 1) * per])[:size] for i in range(count)]
+
+
+def zipf_bytes(rng, size: int) -> np.ndarray:
+    """iid zipf-skewed bytes, skew 1.3 (bench.py:1045 _zstd_entropy_corpus)."""
+    w = 1.0 / np.arange(1, 257) ** 1.3
+    return rng.choice(256, size, p=w / w.sum()).astype(np.uint8)
+
+
+def build_segment(rng, size: int = SEGMENT_BYTES) -> bytes:
+    """One log segment of exactly `size` bytes as the storage layer
+    writes it (storage/segment.py:4): serialized record batches of
+    RECORDS x RECORD_BYTES records, back to back. Values come in runs of
+    four batches: JSON-like, uniform random, zipf, zipf; so a quarter of
+    the values are JSON-like, a quarter random, half zipf-skewed, and a
+    64 KiB chunk holds one kind or a mix of two. The last batch holds
+    one record sized so the segment ends at `size`."""
+    from redpanda_tpu_torch.models.record import RecordBatchBuilder
+
+    est = size // (RECORDS * RECORD_BYTES) + 8
+    kinds = [KINDS[(i // 4) % 4] for i in range(est)]
+    need = {k: RECORDS * kinds.count(k) for k in set(KINDS)}
+    pools = {
+        "json": iter(json_values(rng, need["json"])),
+        "random": iter(rng.integers(0, 256, (need["random"], RECORD_BYTES), dtype=np.uint8)),
+        "zipf": iter(zipf_bytes(rng, need["zipf"] * RECORD_BYTES).reshape(-1, RECORD_BYTES)),
+    }
+
+    def batch(i, values):
+        b = RecordBatchBuilder(base_offset=RECORDS * i, timestamp_ms=1_700_000_000_000 + i)
+        for r, v in enumerate(values):
+            b.add(bytes(v), key=b"key-%d-%d" % (i, r))
+        return b.build().serialize()
+
+    parts, total = [], 0
+    for i, kind in enumerate(kinds):
+        ser = batch(i, [next(pools[kind]) for _ in range(RECORDS)])
+        if total + len(ser) > size - 256:
+            break
+        parts.append(ser)
+        total += len(ser)
+    rest = size - total
+    x = rest - 100
+    for _ in range(8):
+        last = batch(len(parts), [b"\x00" * x])
+        if len(last) == rest:
+            break
+        x += rest - len(last)
+    assert len(last) == rest, "could not size the segment's last batch"
+    segment = b"".join(parts) + last
+    assert len(segment) == size
+    return segment
+
+
+def zstd_edge_rows(rng, n: int) -> list:
+    """Short lengths around the huff0 floor and the 4-stream split, one-
+    and two-symbol rows, a uniform 256-symbol row, 200 rare symbols
+    beside one dominant, a row whose Kraft seed overshoots (the down
+    loop halves 100 symbols), and skewed and random rows of length n."""
+    w = 1.0 / np.arange(1, 257) ** 1.3
+    p = w / w.sum()
+    rows = []
+    for k, size in enumerate(x for x in (0, 1, 2, 63, 64, 65, 255, 256, 257) if x <= n):
+        if k % 2:
+            rows.append(rng.integers(0, 256, size, dtype=np.uint8).tobytes())
+        else:
+            rows.append(rng.choice(256, size, p=p).astype(np.uint8).tobytes())
+    rows.append(b"\x41" * min(n, 300))
+    rows.append(b"\x00" * min(n, 77))
+    rows.append(bytes(rng.choice([0x30, 0xB1], n).astype(np.uint8)))
+    rows.append(bytes(range(256)) * (n // 256))
+    rare = np.full(n, 250, np.uint8)
+    rare[rng.choice(n, 200, replace=False)] = np.arange(200, dtype=np.uint8)
+    rows.append(rare.tobytes())
+    if n >= 2048:
+        rows.append(kraft_down_row(rng, n))
+    rows.append(rng.choice(256, n, p=p).astype(np.uint8).tobytes())
+    rows.append(rng.integers(0, 256, n, dtype=np.uint8).tobytes())
+    return rows
+
+
+def kraft_down_row(rng, n: int) -> bytes:
+    """n >= 2048 bytes: 200 rare symbols at 1.5 slot units each (seeded
+    at 2 slots) beside power-of-two shares summing to 1,748 units, so the
+    Kraft seed overshoots 2,048 by 100 and the down loop halves 100 rare
+    symbols one by one."""
+    unit = n // 2048
+    syms = []
+    for s, share in zip(range(6), (1024, 512, 128, 64, 16, 4)):
+        syms += [s] * (unit * share)
+    for s in range(50, 250):
+        syms += [s] * (unit + unit // 2)
+    return rng.permutation(np.array(syms, np.uint8)).tobytes()
+
+
+def pad_rows(rows, n: int):
+    """(uint8 [len(rows), n] zero-padded matrix, int32 lengths)."""
+    mat = np.zeros((len(rows), n), np.uint8)
+    valid = np.zeros(len(rows), np.int32)
+    for i, r in enumerate(rows):
+        mat[i, : len(r)] = np.frombuffer(r, np.uint8)
+        valid[i] = len(r)
+    return mat, valid
+
+
+def stage_rows(torch, rows, n: int):
+    """`pad_rows` uploaded to the card."""
+    return tuple(torch.from_numpy(a).cuda() for a in pad_rows(rows, n))
+
+
+ENC_FIELDS = ("nbits", "streams", "bits")
+
+
+def check_encode(torch, data, valid, n: int, offset: int = 0) -> tuple:
+    """The encode kernels against the plain version, exact on all three
+    outputs (every stream byte up to SB). Returns the kernel's outputs."""
+    want = zstd_ops._encode_chunks_plain(data, valid, n, offset)
+    got = zstd_ops._encode_chunks(data, valid, n, offset)
+    torch.cuda.synchronize()
+    max_abs_err(dict(zip(ENC_FIELDS, got)), dict(zip(ENC_FIELDS, want)))
+    return got
+
+
+def stream_items(rows, nbits, streams, bits) -> list:
+    """(stream bytes, regenerated size, decode table) of every stream of
+    the rows that a compressed block could carry."""
+    from redpanda_tpu_torch.compression import zstd_frame as zf
+
+    out = []
+    for r, nb, st, bt in zip(rows, nbits, streams, bits):
+        if len(set(r)) < 2 or len(r) < zf.MIN_HUFFMAN_LEN:
+            continue
+        tbl = zf.decode_table(nb.astype(np.int64))
+        for k, rg in enumerate(zf.stream_splits(len(r))):
+            out.append((st[k, : bt[k] // 8 + 1].tobytes(), rg, tbl))
+    return out
+
+
+def check_decode(torch, items) -> tuple:
+    """The decode kernel against the plain version on the same staged
+    streams, exact on out and end. Returns (end, the staged tensors)."""
+    *mats, sbytes, rmax = zstd_ops.stage_streams(*zip(*items))
+    args = [torch.from_numpy(m).cuda() for m in mats] + [sbytes, rmax]
+    want = zstd_ops._decode_streams_plain(*args)
+    got = zstd_ops._decode_streams(*args)
+    torch.cuda.synchronize()
+    max_abs_err(dict(zip(("out", "end"), got)), dict(zip(("out", "end"), want)))
+    return got[1].cpu().numpy(), args
+
+
+def decode_error(fn) -> str:
+    try:
+        fn()
+    except ValueError as e:
+        if type(e) is not ValueError:
+            raise AssertionError(f"decode raised {type(e).__name__}, not a plain ValueError")
+        return str(e)
+    raise AssertionError("a corrupt stream was not refused")
+
+
+def phase_zstd_kernels(torch, segment: bytes, mem_rate: float) -> dict:
+    """Phase 7: the zstd kernels against their plain versions on the
+    card, exact: 32 full-width 64 KiB chunks of the segment, the edge
+    rows at every bucket n = 256 ... 65536, the fused CRC + encode at the
+    fused shape, and the decode on those chunks' streams plus tampered,
+    truncated and regen = 0 streams."""
+    from redpanda_tpu_torch.ops import fused
+    from redpanda_tpu_torch.utils.crc import crc32c_batch
+
+    rng = np.random.default_rng(SEED + 8)
+    step = SEGMENT_BYTES // ZSTD_BLOCK // ZSTD_CHECK_CHUNKS
+    rows = [segment[o : o + ZSTD_BLOCK] for o in range(0, SEGMENT_BYTES, step * ZSTD_BLOCK)]
+    data, valid = stage_rows(torch, rows, ZSTD_BLOCK)
+    nbits, streams, bits = (t.cpu().numpy() for t in check_encode(torch, data, valid, ZSTD_BLOCK))
+    log(f"[zstd] zstd_lengths, zstd_emit on {len(rows)} full-width 64 KiB chunks of the segment: "
+        f"equal to plain, tolerance exact (nbits, all {zstd_ops.stream_byte_bound(ZSTD_BLOCK)} stream "
+        f"bytes, bits); bits per chunk {int(bits.sum(1).min())}..{int(bits.sum(1).max())}")
+    items = stream_items(rows, nbits, streams, bits)
+    edge_items = []
+    for n in [256 << k for k in range(9)]:
+        erows = zstd_edge_rows(rng, n)
+        out = [t.cpu().numpy() for t in check_encode(torch, *stage_rows(torch, erows, n), n)]
+        edge_items += stream_items(erows, *out)[:12]
+    log("[zstd] zstd_lengths, zstd_emit on the edge rows (lengths 0-257, one and two symbols, "
+        "uniform, 200 rare, Kraft down loop, full skewed and random rows) at every bucket "
+        "n = 256 ... 65536: equal to plain, tolerance exact")
+    (s0, r0, t0), (s1, r1, t1), (s2, _, t2) = items[:3]
+    traps = [(s0 + b"\x05", r0, t0), (s1[len(s1) // 2 :], r1, t1), (s2, 0, t2)]
+    end, _ = check_decode(torch, items + edge_items + traps)
+    k = len(items) + len(edge_items)
+    if end[:k].any() or end[k] == 0 or end[k + 1] != 0 or end[k + 2] == 0:
+        raise AssertionError(f"decode ends: valid {end[:k].any()}, traps {end[k:].tolist()}")
+    log(f"[zstd] zstd_decode on {k} streams of those rows and 3 trap streams: equal to plain, "
+        f"tolerance exact (out, end); tampered end {end[k]}, truncated sticks at 0, "
+        f"regen 0 end {end[k + 2]}")
+    batch = items[:5] + [traps[0]] + items[5:9]
+    *mats, sbytes, rmax = zstd_ops.stage_streams(*zip(*batch))
+    cuda_args = [torch.from_numpy(m).cuda() for m in mats] + [sbytes, rmax]
+    got = decode_error(lambda: zstd_ops.decode_streams(*map(list, zip(*batch)), device="cuda"))
+    want = decode_error(lambda: zstd_ops.check_ends(zstd_ops._decode_streams_plain(*cuda_args)[1].cpu().numpy()))
+    if got != want or not got.startswith("huffman stream 5 "):
+        raise AssertionError(f"decode error {got!r} != plain {want!r}")
+    log(f"[zstd] decode_streams refuses the tampered stream as the plain version does: {got!r}")
+
+    # -- the fused CRC + encode at the fused path's shape
+    prefixes = [rng.integers(0, 256, fused.PREFIX, dtype=np.uint8).tobytes() for _ in range(FUSED_ROWS)]
+    mat, body_len, n = fused.stage_fused(prefixes, fused_bodies(FUSED_ROWS), fused._zstd_width)
+    assert n == FUSED_BODY
+    fdata, fvalid = torch.from_numpy(mat).cuda(), torch.from_numpy(body_len).cuda()
+    crc_lens = fvalid.to(torch.int64) + fused.PREFIX
+    crc, *enc = fused._fused_zstd(fdata, fvalid, FUSED_BODY)
+    want = zstd_ops._encode_chunks_plain(fdata, fvalid, FUSED_BODY, fused.PREFIX)
+    torch.cuda.synchronize()
+    max_abs_err(dict(zip(ENC_FIELDS, enc)), dict(zip(ENC_FIELDS, want)))
+    crc_err = max_abs_err({"crc": crc}, {"crc": crc_ops.crc32c_device_plain(fdata, crc_lens)})
+    host = crc32c_batch(fdata.cpu().numpy(), crc_lens.cpu().numpy().astype(np.uint64))
+    assert_equal(crc.cpu().numpy().astype(np.uint32), host, "fused zstd crc vs host")
+    v_sum = int(fvalid.sum())
+    sb = zstd_ops.stream_byte_bound(FUSED_BODY)
+
+    def plain():
+        crc_ops.crc32c_device_plain(fdata, crc_lens)
+        zstd_ops._encode_chunks_plain(fdata, fvalid, FUSED_BODY, fused.PREFIX)
+
+    out = {"fused_zstd": {
+        "shape": f"B={FUSED_ROWS} n={FUSED_BODY} offset={fused.PREFIX} bytes={v_sum}",
+        "max_abs_err": crc_err,
+        "ms": time_kernel(lambda: fused._fused_zstd(fdata, fvalid, FUSED_BODY), reps=10),
+        "plain_ms": time_plain(plain, reps=1),
+        # prefix and body of every row and lens read once; the CRC (int64),
+        # nbits, all SB bytes of the four streams and bits written
+        "bound_ms": (v_sum + fused.PREFIX * FUSED_ROWS + 8 * FUSED_ROWS + 8 * FUSED_ROWS
+                     + FUSED_ROWS * (256 + 4 * sb + 16)) / mem_rate * 1e3,
+    }}
+    log(f"[zstd] fused_zstd {out['fused_zstd']['shape']}: CRCs equal to the plain CRC and the host's, "
+        f"encode equal to plain, tolerance exact; sequence {out['fused_zstd']['ms']:.4f} ms, "
+        f"bound {out['fused_zstd']['bound_ms']:.4f} ms, plain {out['fused_zstd']['plain_ms']:.3f} ms")
+    return out
+
+
+def block_kinds(blob: bytes) -> tuple:
+    """({raw, rle, compressed} block counts, [(offset, header) of every
+    block]) of a single-frame zstd blob."""
+    from redpanda_tpu_torch.compression import zstd_frame as zf
+
+    _, pos = zf.parse_frame_header(blob)
+    counts = {"raw": 0, "rle": 0, "compressed": 0}
+    blocks, last = [], False
+    while not last:
+        bh = int.from_bytes(blob[pos : pos + 3], "little")
+        last, btype, size = bool(bh & 1), (bh >> 1) & 3, bh >> 3
+        counts[("raw", "rle", "compressed")[btype]] += 1
+        blocks.append((pos, bh))
+        pos += 3 + (1 if btype == 1 else size)
+    return counts, blocks
+
+
+def one_block_frame(blob: bytes, pos: int, bh: int, chunk_len: int) -> bytes:
+    """The block at `pos` of `blob` as a frame of its own (last flag set)."""
+    from redpanda_tpu_torch.compression import zstd_frame as zf
+
+    btype, size = (bh >> 1) & 3, bh >> 3
+    body = blob[pos + 3 : pos + 3 + (1 if btype == 1 else size)]
+    return zf.frame_header(chunk_len) + (bh | 1).to_bytes(3, "little") + body
+
+
+class Recorder:
+    """Wraps an entry: records its last call's arguments and the host
+    clock at its entry and exit."""
+
+    def __init__(self, fn):
+        self.fn, self.args, self.t_in, self.t_out = fn, None, 0.0, 0.0
+
+    def __call__(self, *args, **kwargs):
+        self.args = args
+        self.t_in = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.t_out = time.perf_counter()
+
+
+def device_ms(torch, fn) -> float:
+    start, end = _events()
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def libzstd_yardstick(segment: bytes) -> str:
+    import ctypes
+    import ctypes.util
+
+    name = ctypes.util.find_library("zstd")
+    if not name:
+        return "libzstd absent"
+    lib = ctypes.CDLL(name)
+    lib.ZSTD_compressBound.restype = ctypes.c_size_t
+    lib.ZSTD_compressBound.argtypes = [ctypes.c_size_t]
+    lib.ZSTD_compress.restype = ctypes.c_size_t
+    lib.ZSTD_compress.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+                                  ctypes.c_size_t, ctypes.c_int]
+    cap = lib.ZSTD_compressBound(len(segment))
+    buf = ctypes.create_string_buffer(cap)
+    t0 = time.perf_counter()
+    r = lib.ZSTD_compress(buf, cap, segment, len(segment), 3)
+    secs = time.perf_counter() - t0
+    return f"libzstd level 3 on the host: {secs * 1e3:.1f} ms, {r} bytes (ratio {r / len(segment):.4f})"
+
+
+def phase_segment(torch, segment: bytes, mem_rate: float) -> dict:
+    """Phase 8, the tiered segment path at full size: one 128 MiB
+    segment through compression.compress / uncompress(zstd) under
+    RP_ZSTD_BACKEND=tpu, as cloud/archiver.py compresses every uploaded
+    segment and cloud/remote_partition.py hydrates it. Three passes
+    each, p50; no frame may punt to the host codec; 8 sampled blocks
+    decoded by the pure-Python reference decoder. Then the kernels timed
+    at the path's own shapes against their plain versions."""
+    from redpanda_tpu_torch import compression
+    from redpanda_tpu_torch.compression import CompressionType
+    from redpanda_tpu_torch.compression import zstd_frame as zf
+
+    def no_punt(_data):
+        raise AssertionError("a device zstd frame punted to the host codec")
+
+    enc_rec = Recorder(zstd_ops.encode_chunks)
+    dec_rec = Recorder(zstd_ops.decode_streams)
+    saved = (compression._zstd_uncompress_host, zstd_ops.encode_chunks, zstd_ops.decode_streams)
+    compression._zstd_uncompress_host = no_punt
+    zstd_ops.encode_chunks, zstd_ops.decode_streams = enc_rec, dec_rec
+    comp_s, decomp_s, comp_split, decomp_split = [], [], [], []
+    try:
+        with env_backend("RP_ZSTD_BACKEND", "tpu"):
+            reset_launches()
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                blob = compression.compress(segment, CompressionType.zstd)
+                t1 = time.perf_counter()
+                comp_s.append(t1 - t0)
+                comp_split.append((enc_rec.t_in - t0, enc_rec.t_out - enc_rec.t_in, t1 - enc_rec.t_out))
+                back = compression.uncompress(blob, CompressionType.zstd)
+                t2 = time.perf_counter()
+                decomp_s.append(t2 - t1)
+                decomp_split.append((dec_rec.t_in - t1, dec_rec.t_out - dec_rec.t_in, t2 - dec_rec.t_out))
+                if back != segment:
+                    raise AssertionError("the hydrated segment differs from the segment")
+            launches = {k: zstd_ops.LAUNCHES[k] for k in zstd_ops.LAUNCHES}
+    finally:
+        compression._zstd_uncompress_host, zstd_ops.encode_chunks, zstd_ops.decode_streams = saved
+    kinds, blocks = block_kinds(blob)
+    comp = [i for i, (_, bh) in enumerate(blocks) if (bh >> 1) & 3 == 2]
+    picks = [comp[j * len(comp) // 8] for j in range(min(8, len(comp)))]
+    for i in picks:
+        pos, bh = blocks[i]
+        chunk = segment[i * ZSTD_BLOCK : (i + 1) * ZSTD_BLOCK]
+        if zf.reference_decompress(one_block_frame(blob, pos, bh, len(chunk))) != chunk:
+            raise AssertionError(f"block {i}: the reference decoder disagrees")
+    n_streams = len(dec_rec.args[0])
+    log(f"[segment] {SEGMENT_BYTES} B segment ({len(blocks)} chunks of 64 KiB): compress and hydrate "
+        f"under RP_ZSTD_BACKEND=tpu byte-exact, no punt; blocks {kinds}; stored/logical "
+        f"{len(blob) / SEGMENT_BYTES:.4f} ({len(blob)} B); {n_streams} huff0 streams in one decode "
+        f"launch; reference decoder agrees on blocks {picks}")
+    log(f"[segment] compress p50 {pct(comp_s, 50) * 1e3:.1f} ms (passes "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in comp_s)}), hydrate p50 {pct(decomp_s, 50) * 1e3:.1f} ms "
+        f"(passes {', '.join(f'{x * 1e3:.1f}' for x in decomp_s)}); host clock")
+    log(f"[segment] {libzstd_yardstick(segment)}")
+    stages = segment_stages(torch, enc_rec.args[0], dec_rec.args, comp_split, decomp_split)
+    log("[segment] where the time goes, p50 of the three passes (host clock, each stage ending in a "
+        "sync; kernels on the device clock): " + "; ".join(
+            f"{k}: " + ", ".join(f"{s} {v:.1f} ms" for s, v in st.items()) for k, st in stages.items()))
+    out = segment_kernels(torch, enc_rec.args[0], dec_rec.args, mem_rate)
+    return {"launches": launches, "compress_ms": pct(comp_s, 50) * 1e3,
+            "hydrate_ms": pct(decomp_s, 50) * 1e3, "kernels": out}
+
+
+def segment_stages(torch, chunks, dec_args, comp_split, decomp_split) -> dict:
+    """The encode and decode entries' inner stages, replayed once on the
+    inputs the segment path gave them, beside the splits recorded around
+    them in the three passes."""
+    t0 = time.perf_counter()
+    batch, valid = pad_rows(chunks, ZSTD_BLOCK)
+    t1 = time.perf_counter()
+    data, vt = torch.from_numpy(batch).cuda(), torch.from_numpy(valid).cuda()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    enc = []
+    kern = device_ms(torch, lambda: enc.extend(zstd_ops._encode_chunks(data, vt, ZSTD_BLOCK)))
+    t3 = time.perf_counter()
+    host = [t.cpu().numpy() for t in enc]
+    t4 = time.perf_counter()
+    zstd_ops.streams_of(*host, len(chunks))
+    t5 = time.perf_counter()
+    compress = {
+        "split": pct([c[0] for c in comp_split], 50) * 1e3,
+        "encode_chunks": pct([c[1] for c in comp_split], 50) * 1e3,
+        "of which chunk/pad": (t1 - t0) * 1e3, "h2d": (t2 - t1) * 1e3,
+        "kernels (device)": kern, "launch + sync": (t3 - t2) * 1e3, "d2h": (t4 - t3) * 1e3,
+        "cut streams": (t5 - t4) * 1e3,
+        "build_block + frame": pct([c[2] for c in comp_split], 50) * 1e3,
+    }
+    streams, regens, tables = dec_args[:3]
+    t0 = time.perf_counter()
+    *mats, sbytes, rmax = zstd_ops.stage_streams(streams, regens, tables)
+    t1 = time.perf_counter()
+    args = [torch.from_numpy(m).cuda() for m in mats]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    res = []
+    kern = device_ms(torch, lambda: res.extend(zstd_ops._decode_streams(*args, sbytes, rmax)))
+    t3 = time.perf_counter()
+    zstd_ops.check_ends(res[1].cpu().numpy())
+    res[0].cpu().numpy()
+    t4 = time.perf_counter()
+    hydrate = {
+        "host walk (split_compressed_block, decode_table)": pct([c[0] for c in decomp_split], 50) * 1e3,
+        "decode_streams": pct([c[1] for c in decomp_split], 50) * 1e3,
+        "of which stage": (t1 - t0) * 1e3, "h2d": (t2 - t1) * 1e3,
+        "kernel + checks (device)": kern, "launch + sync": (t3 - t2) * 1e3, "d2h": (t4 - t3) * 1e3,
+        "join": pct([c[2] for c in decomp_split], 50) * 1e3,
+    }
+    return {"compress": compress, "hydrate": hydrate}
+
+
+def segment_kernels(torch, chunks, dec_args, mem_rate: float) -> dict:
+    """Each zstd kernel at the segment path's shape: device ms beside its
+    bytes bound and the plain version (equal, exact, at the full shape)."""
+    data, vt = stage_rows(torch, chunks, ZSTD_BLOCK)
+    b, v_sum = len(chunks), int(vt.sum())
+    sb = zstd_ops.stream_byte_bound(ZSTD_BLOCK)
+    t0 = time.perf_counter()
+    check_encode(torch, data, vt, ZSTD_BLOCK)
+    check_s = time.perf_counter() - t0
+    nbits, codes = zstd_ops.launch_lengths(data, vt, ZSTD_BLOCK, 0)
+    p_nbits, p_codes = zstd_ops._lengths_plain(data, vt, ZSTD_BLOCK)
+    torch.cuda.synchronize()
+    max_abs_err({"nbits": nbits, "codes": codes}, {"nbits": p_nbits, "codes": p_codes})
+    shape = f"B={b} n={ZSTD_BLOCK} bytes={v_sum}"
+    out = {
+        "zstd_lengths": {
+            "shape": shape, "max_abs_err": 0.0,
+            "ms": time_kernel(lambda: zstd_ops.launch_lengths(data, vt, ZSTD_BLOCK, 0), reps=10),
+            "plain_ms": time_plain(lambda: zstd_ops._lengths_plain(data, vt, ZSTD_BLOCK), reps=1),
+            # valid bytes and lengths read; nbits (1 B) and codes (4 B) written
+            "bound_ms": (v_sum + 4 * b + 5 * 256 * b) / mem_rate * 1e3,
+        },
+        "zstd_emit": {
+            "shape": f"{shape} streams={b * 4}x{sb}", "max_abs_err": 0.0,
+            "ms": time_kernel(lambda: zstd_ops.launch_emit(data, vt, nbits, codes, ZSTD_BLOCK, 0), reps=10),
+            "plain_ms": time_plain(lambda: zstd_ops._emit_plain(data, vt, nbits, codes, ZSTD_BLOCK), reps=1),
+            # valid bytes, lengths, nbits and codes read; all SB bytes of the
+            # four streams and the bit counts written
+            "bound_ms": (v_sum + 4 * b + 5 * 256 * b + b * 4 * (sb + 4)) / mem_rate * 1e3,
+        },
+    }
+    streams, regens, tables = dec_args[:3]
+    t0 = time.perf_counter()
+    end, args = check_decode(torch, list(zip(streams, regens, tables)))
+    check_s += time.perf_counter() - t0
+    s_n, sbytes, rmax = len(streams), args[-2], args[-1]
+    stream_bytes = sum(len(x) for x in streams)
+    out["zstd_decode"] = {
+        "shape": f"S={s_n} sbytes={sbytes} rmax={rmax} stream_bytes={stream_bytes} regen={sum(regens)}",
+        "max_abs_err": 0.0,
+        "ms": time_kernel(lambda: zstd_ops.launch_decode(*args), reps=10),
+        "plain_ms": time_plain(lambda: zstd_ops._decode_streams_plain(*args), reps=1),
+        # the valid stream bytes, tbits and regen, the tables as passed
+        # (uint8 sym + int32 nb per entry) read; out [S, rmax] and end written
+        "bound_ms": (stream_bytes + 8 * s_n + s_n * zstd_ops.TSIZE * 5 + s_n * rmax + 4 * s_n) / mem_rate * 1e3,
+    }
+    for name, e in out.items():
+        log(f"[segment] {name:<13} {e['shape']}: equal to plain at the full shape, tolerance exact; "
+            f"kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms")
+    log(f"[segment] the full-shape equality checks took {check_s:.1f} s")
+    return out
+
+
+def phase_zstd_recompress(torch) -> dict:
+    """Phase 8b: produce to and fetch from a zstd topic. Phase 6's 1,024
+    batches through recompressed(zstd, verify_crc=...) and back through
+    .records(), under RP_ZSTD_BACKEND=tpu; records equal to the
+    originals'."""
+    from redpanda_tpu_torch import compression
+    from redpanda_tpu_torch.compression import CompressionType
+
+    def no_punt(_data):
+        raise AssertionError("a device zstd frame punted to the host codec")
+
+    batches = build_batches(np.random.default_rng(SEED + 6))
+    want = [[(r.key, r.value) for r in b.records()] for b in batches]
+    saved = compression._zstd_uncompress_host
+    compression._zstd_uncompress_host = no_punt
+    try:
+        with env_backend("RP_ZSTD_BACKEND", "tpu"):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = [b.recompressed(CompressionType.zstd, verify_crc=b.header.crc) for b in batches]
+            t1 = time.perf_counter()
+            got = [[(r.key, r.value) for r in o.records()] for o in outs]
+            t2 = time.perf_counter()
+            launches = {k: zstd_ops.LAUNCHES[k] for k in zstd_ops.LAUNCHES}
+    finally:
+        compression._zstd_uncompress_host = saved
+    if got != want or any(o.header.compression != CompressionType.zstd for o in outs):
+        raise AssertionError("a zstd batch does not round-trip through recompressed / records")
+    raw_in, comp_out = sum(len(b.body) for b in batches), sum(len(o.body) for o in outs)
+    log(f"[zstd-batches] {len(batches)} batches x {RECORDS} x {RECORD_BYTES} B through "
+        f"recompressed(zstd) and .records() under RP_ZSTD_BACKEND=tpu: records equal, no punt; "
+        f"produce {(t1 - t0) * 1e6 / len(batches):.1f} us per batch, fetch "
+        f"{(t2 - t1) * 1e6 / len(batches):.1f} us per batch (host clock); {raw_in} -> {comp_out} bytes")
+    return {"launches": launches, "produce_us": (t1 - t0) * 1e6 / len(batches),
+            "fetch_us": (t2 - t1) * 1e6 / len(batches)}
+
+
 def nvidia_smi() -> str:
     try:
         return subprocess.run(
@@ -1036,11 +1628,22 @@ def main() -> int:
     rc = phase_recompress(torch)
     for name, count in rc["launches"].items():
         path_launches[name] = path_launches.get(name, 0) + count
+    t0 = time.perf_counter()
+    segment = build_segment(np.random.default_rng(SEED + 9))
+    log(f"[segment] built {len(segment)} B of serialized record batches in {time.perf_counter() - t0:.1f} s")
+    phase_zstd_kernels(torch, segment, MEM_BYTES_PER_S)
+    seg = phase_segment(torch, segment, MEM_BYTES_PER_S)
+    del segment
+    zr = phase_zstd_recompress(torch)
+    results.update(seg["kernels"])
+    for launches in (seg["launches"], zr["launches"]):
+        for name, count in launches.items():
+            path_launches[name] = path_launches.get(name, 0) + count
     missing = [k for k in KERNELS if path_launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    log(f"[launches] main path (batch CRCs: crc32c_device {rb['launches']}; codec path: {rc['launches']}): "
-        f"{path_launches}")
+    log(f"[launches] main path (batch CRCs: crc32c_device {rb['launches']}; codec path: {rc['launches']}; "
+        f"segment path: {seg['launches']}; zstd batches: {zr['launches']}): {path_launches}")
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():

@@ -66,8 +66,8 @@ def _zstd_ctx() -> tuple:
     return ctx
 
 
-# zstd leg selection (the device-codec seam): RP_ZSTD_BACKEND=tpu selects
-# the device kernel, which raises until it is ported to CUDA; "host" — the
+# zstd leg selection (the device-codec seam): RP_ZSTD_BACKEND=tpu routes
+# through the device kernels (ops/zstd.py via tpu_backend); "host" — the
 # default and the differential oracle — keeps the zstandard contexts.
 # Read at call time so tests and the bench A/B can flip it per-call.
 def _zstd_backend() -> str:
@@ -93,18 +93,11 @@ def zstd_declared_size(data: bytes) -> "int | None":
     return zstd_frame.frame_content_size(data)
 
 
-def _device_codec_not_ported() -> None:
-    # the device zstd codec (ops/zstd.py in the JAX package) has no CUDA
-    # kernel yet: refuse rather than quietly take the host leg
-    raise NotImplementedError(
-        "RP_ZSTD_BACKEND=tpu: the device zstd codec is not ported to CUDA yet "
-        "(ROADMAP.md, queue 1 step 8: zstd)"
-    )
-
-
 def _zstd_compress(data: bytes) -> bytes:
     if _zstd_backend() == "tpu":
-        _device_codec_not_ported()
+        from . import tpu_backend
+
+        return tpu_backend.compress_zstd(data)
     return _zstd_compress_host(data)
 
 
@@ -114,7 +107,9 @@ def _zstd_compress_host(data: bytes) -> bytes:
 
 def _zstd_uncompress(data: bytes) -> bytes:
     if _zstd_backend() == "tpu":
-        _device_codec_not_ported()
+        from . import tpu_backend
+
+        return tpu_backend.uncompress_zstd(data)
     return _zstd_uncompress_host(data)
 
 

@@ -1,4 +1,4 @@
-"""The device codec backend: card-batched LZ4 and snappy behind the registry.
+"""The device codec backend: card-batched LZ4, snappy and zstd behind the registry.
 
 Reference seam: src/v/compression/compression.cc gates codecs by type;
 the device backend slot registers compressors whose blocks come from
@@ -16,13 +16,17 @@ on the card, and reassembles frames. The entries take no device
 argument: they run on ops.lz4.DEFAULT_DEVICE / ops.snappy.DEFAULT_DEVICE
 (the card), and raise on a machine without one.
 
-The zstd leg (device huff0, redpanda_tpu/compression/tpu_backend.py
-`compress_zstd`, `compress_many_zstd`, `uncompress_zstd`) is not ported
-yet: its entries raise.
+The zstd leg (selected by RP_ZSTD_BACKEND=tpu through the registry's
+_zstd_* entries) compresses with the device huff0 encode of ops/zstd.py
+and decompresses profile frames with its device decode: the host walks
+the block scaffolding, then every huff0 stream of every compressed block
+decodes in one launch. Its entries take no device argument either: they
+run on ops.zstd.DEFAULT_DEVICE.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 
 from . import lz4_codec
@@ -112,15 +116,148 @@ def compress_many_snappy(buffers: list[bytes]) -> list[bytes]:
     return out
 
 
-# ---- zstd leg: not ported yet ----------------------------------------
-def _zstd_not_ported(*_args, **_kwargs):
-    raise NotImplementedError(
-        "device zstd (ops/zstd.py huff0 encode/decode) is not ported to CUDA yet "
-        "(ROADMAP.md, queue 1 step 8: zstd)"
+# ---- zstd leg (single-segment frames over device huff0 blocks) ------
+# Selected by RP_ZSTD_BACKEND=tpu via the registry's _zstd_* entries —
+# NOT by enable() — so the host leg stays the default differential
+# oracle and the stand-down (RP_ZSTD_BACKEND=host) needs no
+# re-registration. Frames are stock RFC 8878: raw/RLE/compressed
+# blocks with 4-stream huff0 literals (see compression/zstd_frame.py),
+# so plain libzstd decodes them.
+
+_ZSTD_BLOCK = _BLOCK  # 64 KiB default, same plan shape as the LZ4 leg
+
+
+def _zstd_block_size() -> int:
+    """Encode-side chunking knob (RP_ZSTD_BLOCK, default 64 KiB).
+
+    Smaller chunks quarantine incompressible spans (a poisoned chunk
+    goes raw, its neighbours still compress) at the cost of per-block
+    scaffolding and a wider device batch. Clamped to [1 KiB, 64 KiB] —
+    the upper bound is the kernel's bucket ceiling."""
+    v = int(os.environ.get("RP_ZSTD_BLOCK", _ZSTD_BLOCK))
+    return max(1 << 10, min(v, _ZSTD_BLOCK))
+
+
+def _zstd_split(data: bytes) -> "list[bytes]":
+    blk = _zstd_block_size()
+    return [data[o : o + blk] for o in range(0, len(data), blk)] or [b""]
+
+
+def compress_zstd(data: bytes) -> bytes:
+    return compress_many_zstd([data])[0]
+
+
+def compress_many_zstd(buffers: "list[bytes]") -> "list[bytes]":
+    """Batch-compress buffers into zstd frames whose entropy stage ran
+    as ONE lengths + emission launch over every chunk (ops/zstd.py);
+    block choice (raw vs RLE vs compressed) is byte-counting host work."""
+    from . import zstd_frame as zf
+    from ..ops.zstd import encode_chunks
+
+    plan = [_zstd_split(b) for b in buffers]
+    flat = [c for chunks in plan for c in chunks if c]
+    encs = iter(encode_chunks(flat))
+    out = []
+    for buf, chunks in zip(buffers, plan):
+        frame = bytearray(zf.frame_header(len(buf)))
+        real = [c for c in chunks if c]
+        if not real:  # empty buffer still needs one (empty raw) block
+            frame += zf.raw_block(b"", True)
+        for i, c in enumerate(real):
+            nbits, streams = next(encs)
+            frame += zf.build_block(c, nbits, streams, i == len(real) - 1)
+        out.append(bytes(frame))
+    return out
+
+
+def _decompress_device(frame: bytes) -> bytes:
+    """Profile-frame decode: host walks the block/literals scaffolding,
+    then EVERY huff0 stream of every compressed block decodes in one
+    launch on the card. Raises ZstdFormatError on shapes outside the
+    profile (caller punts to the host codec byte-for-byte) and
+    ValueError on size-cap violations (the decompress bomb guard —
+    checked from declared sizes BEFORE any output is materialized)."""
+    from . import _zstd_nosize_limit, zstd_frame as zf
+    from ..ops.zstd import decode_streams
+
+    declared, pos = zf.parse_frame_header(frame)
+    if int.from_bytes(frame[:4], "little") != zf.MAGIC or frame[4] & 3:
+        raise zf.ZstdFormatError("skippable/dictionary frame (punt)")
+    limit = declared if declared is not None else _zstd_nosize_limit()
+    pieces: "list[bytes | int]" = []  # literal bytes, or stream index
+    bufs, regs, tbls = [], [], []
+    total = 0
+    last = False
+    while not last:
+        if pos + 3 > len(frame):
+            raise zf.ZstdFormatError("truncated block header")
+        bh = int.from_bytes(frame[pos : pos + 3], "little")
+        pos += 3
+        last = bool(bh & 1)
+        btype = (bh >> 1) & 3
+        size = bh >> 3
+        if btype == 0:
+            if pos + size > len(frame):
+                raise zf.ZstdFormatError("truncated raw block")
+            pieces.append(frame[pos : pos + size])
+            pos += size
+            total += size
+        elif btype == 1:
+            if pos + 1 > len(frame):
+                raise zf.ZstdFormatError("truncated RLE block")
+            total += size
+            if total <= limit:  # guard before the *size multiplication
+                pieces.append(frame[pos : pos + 1] * size)
+            pos += 1
+        elif btype == 2:
+            nbits, streams = zf.split_compressed_block(
+                frame[pos : pos + size]
+            )
+            pos += size
+            tbl = zf.decode_table(nbits)
+            for buf, rg in streams:
+                pieces.append(len(bufs))
+                bufs.append(buf)
+                regs.append(rg)
+                tbls.append(tbl)
+                total += rg
+        else:
+            raise zf.ZstdFormatError("reserved block type")
+        if total > limit:
+            if declared is not None:
+                raise ValueError(
+                    f"zstd frame inflates past its declared size "
+                    f"({declared}): corrupt or hostile frame"
+                )
+            raise ValueError(
+                f"zstd frame has no declared content size and inflates "
+                f"past the configured limit ({limit})"
+            )
+    if pos != len(frame):
+        raise zf.ZstdFormatError("trailing bytes after last block")
+    if declared is not None and total != declared:
+        raise ValueError(
+            f"zstd frame regenerates {total} bytes, header declared "
+            f"{declared}"
+        )
+    decoded = decode_streams(bufs, regs, tbls) if bufs else []
+    return b"".join(
+        p if isinstance(p, bytes) else decoded[p] for p in pieces
     )
 
 
-compress_zstd = compress_many_zstd = uncompress_zstd = _zstd_not_ported
+def uncompress_zstd(data: bytes) -> bytes:
+    """Device-side zstd decompress with byte-for-byte host punt for any
+    frame shape outside the kernel profile (dict frames, FSE trees,
+    sequences, 1-stream literals, multi-frame inputs). Only the host
+    walk's ZstdFormatError punts: decode_streams raises a plain
+    ValueError and a kernel failure a KernelError, and both propagate."""
+    from . import _zstd_uncompress_host, zstd_frame as zf
+
+    try:
+        return _decompress_device(data)
+    except zf.ZstdFormatError:
+        return _zstd_uncompress_host(data)
 
 
 def enable() -> None:

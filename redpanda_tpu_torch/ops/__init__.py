@@ -4,7 +4,10 @@
 - health: the per-row partition-health reduction
 - crc32c: batched record-batch CRC validation
 - cellparse, lz4, snappy: the cell-grid LZ77 parse and LZ4 / snappy
-  block emission; fused: CRC + codec from one upload
+  block emission
+- zstd: the huff0 literals encode (code lengths, canonical codes, four
+  reversed bitstreams) and the huff0 stream decode of the zstd codec
+- fused: CRC + LZ4 / snappy / zstd from one upload
 
 Each module holds a kernel wrapper and its plain PyTorch version; the
 sources live in `csrc/` and `_build` compiles them on first use.
@@ -12,7 +15,7 @@ sources live in `csrc/` and `_build` compiles them on first use.
 
 from .cellparse import cell_parse
 from .crc32c import crc32c_batch_device, crc32c_device
-from .fused import crc_lz4_fused, crc_snappy_fused
+from .fused import crc_lz4_fused, crc_snappy_fused, crc_zstd_fused
 from .health import health_reduce, tick_frame_health
 from .lz4 import lz4_emit
 from .quorum import (
@@ -23,6 +26,7 @@ from .quorum import (
     tick_frame,
 )
 from .snappy import snappy_emit
+from .zstd import decode_streams, encode_chunks
 
 __all__ = [
     "build_heartbeats",
@@ -31,6 +35,9 @@ __all__ = [
     "crc32c_device",
     "crc_lz4_fused",
     "crc_snappy_fused",
+    "crc_zstd_fused",
+    "decode_streams",
+    "encode_chunks",
     "fold_replies",
     "health_reduce",
     "heartbeat_tick",

@@ -1,6 +1,7 @@
-"""Fused CRC-32C + LZ4 / snappy over record-batch bodies: ONE upload.
+"""Fused CRC-32C + LZ4 / snappy / zstd over record-batch bodies: ONE upload.
 
-Replaces redpanda_tpu/ops/fused.py:42 `_fused` and :69 `_fused_snappy`.
+Replaces redpanda_tpu/ops/fused.py:42 `_fused`, :69 `_fused_snappy` and
+:89 `_fused_zstd`.
 Validation and compression share one host->device copy of the rows,
 so the transfer is paid once for both.
 
@@ -16,8 +17,10 @@ barrier. The parse and emission kernels then read each body in place,
 at column offset PREFIX of the same rows: no second upload, no copy.
 All three launches go on the current stream, back to back.
 
-`crc_zstd_fused` (the zstd leg, redpanda_tpu/ops/fused.py:89) is not
-ported yet and raises.
+The zstd leg uses the JAX program's row width, PREFIX + n rounded up to
+512 bytes (no CELL guard: the huff0 encode reads only [0, n) of the
+body), and runs the CRC, then `rp_zstd_lengths` and `rp_zstd_emit`
+(csrc/zstd.cu) on the body at column offset PREFIX.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from ..models.consensus_state import check_device
-from . import lz4, snappy
+from . import lz4, snappy, zstd
 from .cellparse import CELL
 from .crc32c import crc32c_device
 
@@ -51,9 +54,19 @@ def _fused_snappy(data: torch.Tensor, body_len: torch.Tensor, n: int):
     return crc, out, out_len
 
 
-def stage_fused(prefixes, bodies):
-    """(matrix [rows, PREFIX + n + CELL], body lengths, n) with n the
-    power of two >= 512 that holds the longest body."""
+def _lz4_width(n: int) -> int:
+    return PREFIX + n + CELL
+
+
+def _zstd_width(n: int) -> int:
+    return ((PREFIX + n + 511) // 512) * 512
+
+
+def stage_fused(prefixes, bodies, width=_lz4_width):
+    """(matrix [rows, width(n)], body lengths, n) with n the power of two
+    >= 512 that holds the longest body. The LZ4 / snappy rows end in a
+    CELL guard; the zstd rows take the JAX program's 512-byte-aligned
+    width."""
     arrs = lz4.as_arrays(bodies)
     longest = max(a.size for a in arrs)
     if longest > 65536:
@@ -61,7 +74,7 @@ def stage_fused(prefixes, bodies):
     n = 512
     while n < longest:
         n *= 2
-    batch = np.zeros((len(arrs), PREFIX + n + CELL), np.uint8)
+    batch = np.zeros((len(arrs), width(n)), np.uint8)
     body_len = np.zeros(len(arrs), np.int32)
     for i, (p, a) in enumerate(zip(prefixes, arrs)):
         assert len(p) == PREFIX, f"prefix must be {PREFIX} bytes"
@@ -107,8 +120,39 @@ def crc_snappy_fused(prefixes: "list[bytes]", bodies: "list", device=None):
                         snappy._preamble, device)
 
 
-def crc_zstd_fused(prefixes, bodies, device=None):
-    raise NotImplementedError(
-        "crc_zstd_fused: the zstd device codec (ops/zstd.py, _fused_zstd) is not "
-        "ported to CUDA yet (ROADMAP.md, queue 1 step 8: zstd)"
+def _fused_zstd(data: torch.Tensor, body_len: torch.Tensor, n: int):
+    """data [B, ceil((PREFIX + n) / 512) * 512] uint8; body_len int32
+    [B]. Returns (crc int64 [B] over prefix || body, and the body's zstd
+    entropy stage: nbits uint8 [B, 256], streams uint8 [B, 4, SB], bits
+    int32 [B, 4])."""
+    crc = crc32c_device(data, body_len.to(torch.int64) + PREFIX)
+    nbits, streams, bits = zstd._encode_chunks(data, body_len, n, PREFIX)
+    return crc, nbits, streams, bits
+
+
+def crc_zstd_fused(prefixes: "list[bytes]", bodies: "list", device=None):
+    """One upload: per-row Kafka CRC (over prefix || body) and the
+    body's zstd entropy stage; each body comes back as a complete
+    single-block zstd frame (raw / RLE / compressed, stock-decodable).
+    Bodies must be <= 64 KiB like the LZ4 leg; larger buffers go
+    through compression.tpu_backend.compress_many_zstd. Returns
+    (np.uint32 [B], frames)."""
+    from ..compression import zstd_frame as zf
+
+    assert len(prefixes) == len(bodies)
+    if not bodies:
+        return np.empty(0, np.uint32), []
+    dev = check_device(device or DEFAULT_DEVICE)
+    batch, body_len, n = stage_fused(prefixes, bodies, _zstd_width)
+    crc, nbits, streams, bits = _fused_zstd(
+        torch.from_numpy(batch).to(dev), torch.from_numpy(body_len).to(dev), n
     )
+    crc = crc.cpu().numpy().astype(np.uint32)
+    encs = zstd.streams_of(nbits.cpu().numpy(), streams.cpu().numpy(), bits.cpu().numpy(), len(bodies))
+    frames = []
+    for a, (nb, sl) in zip(lz4.as_arrays(bodies), encs):
+        if a.size == 0:
+            frames.append(zf.frame_header(0) + zf.raw_block(b"", True))
+            continue
+        frames.append(zf.frame_header(a.size) + zf.build_block(a.tobytes(), nb, sl, True))
+    return crc, frames

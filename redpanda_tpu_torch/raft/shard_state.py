@@ -86,7 +86,7 @@ def term_at_batch_cached(arrays, cache, rows, prevs):
 def _mesh_not_ported():
     raise NotImplementedError(
         "RP_QUORUM_BACKEND=mesh: the multi-device programs are not ported "
-        "to CUDA yet (ROADMAP.md, port queue: multi-device)"
+        "to CUDA yet (ROADMAP.md, queue 1 step 9: multi-device)"
     )
 
 

@@ -6,8 +6,10 @@
 * Without a CUDA device, the default device path raises instead of
   running the plain versions on the CPU, and chip_smoke.py exits
   non-zero without printing a result.
-* Seams whose device programs are not ported yet (the zstd codec, the
-  mesh backend) raise NotImplementedError naming their ROADMAP step.
+* Seams whose device programs are not ported yet (the mesh backend)
+  raise NotImplementedError naming their ROADMAP step.
+* The zstd leg's punt to the host codec sees only the host walk's
+  ZstdFormatError: a decode failure propagates.
 """
 
 import ast
@@ -126,28 +128,15 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 
 
 def test_unported_seams_raise(monkeypatch):
-    from redpanda_tpu_torch import compression
-    from redpanda_tpu_torch.compression import CompressionType, tpu_backend
-    from redpanda_tpu_torch.ops import fused
     from redpanda_tpu_torch.raft.shard_state import ShardGroupArrays
 
     monkeypatch.setenv("RP_QUORUM_BACKEND", "mesh")
     arrays = ShardGroupArrays(capacity=8, device="cpu")
     empty = np.empty(0, np.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*step 9"):
         arrays.device_tick(empty, empty, empty, empty, empty)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*step 9"):
         arrays.health_refresh()
-    monkeypatch.setenv("RP_ZSTD_BACKEND", "tpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*zstd"):
-        compression.compress(b"x" * 64, CompressionType.zstd)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*zstd"):
-        fused.crc_zstd_fused([b"\x00" * 40], [b"x" * 64], device="cpu")
-    for entry in (tpu_backend.compress_zstd, tpu_backend.uncompress_zstd):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*zstd"):
-            entry(b"x" * 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*zstd"):
-        tpu_backend.compress_many_zstd([b"x" * 64])
 
 
 def test_default_codec_device_raises_without_cuda(monkeypatch):
@@ -171,11 +160,81 @@ def test_default_codec_device_raises_without_cuda(monkeypatch):
     batch = RecordBatchBuilder(timestamp_ms=0).add(b"v" * 100).build()
     with pytest.raises(RuntimeError, match="CUDA"):
         batch.recompressed(CompressionType.lz4)
+    _zstd_entries_raise(monkeypatch, batch)
+
+
+def _compressed_zstd_frame() -> bytes:
+    """A frame holding one compressed block, so its decode launches:
+    a raw-only or RLE-only frame decodes on the host in the reference
+    as in the port."""
+    from redpanda_tpu_torch.compression import zstd_frame as zf
+    from redpanda_tpu_torch.ops import zstd
+
+    data = b'{"key":"user-000001","topic":"orders","seq":12345},' * 40
+    nbits, streams = zstd.encode_chunks([data], device="cpu")[0]
+    frame = zf.frame_header(len(data)) + zf.build_block(data, nbits, streams, True)
+    assert (int.from_bytes(frame[zf.parse_frame_header(frame)[1]:][:3], "little") >> 1) & 3 == 2
+    return frame
+
+
+def _zstd_entries_raise(monkeypatch, batch):
+    """The zstd device entries, the registry under RP_ZSTD_BACKEND=tpu
+    and recompressed(zstd) raise on a machine without CUDA."""
+    from redpanda_tpu_torch import compression
+    from redpanda_tpu_torch.compression import CompressionType, tpu_backend
+    from redpanda_tpu_torch.ops import fused, zstd
+
+    frame = _compressed_zstd_frame()
+    data = b"abc" * 50
+    for call in (
+        lambda: zstd.encode_chunks([data]),
+        lambda: zstd.decode_streams([b"\x01"], [1], [(np.zeros(2048, np.uint8), np.ones(2048, np.int32))]),
+        lambda: fused.crc_zstd_fused([b"\x00" * 40], [data]),
+        lambda: tpu_backend.compress_zstd(data),
+        lambda: tpu_backend.compress_many_zstd([data]),
+        lambda: tpu_backend.uncompress_zstd(frame),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    monkeypatch.setenv("RP_ZSTD_BACKEND", "tpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compression.compress(data, CompressionType.zstd)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compression.uncompress(frame, CompressionType.zstd)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batch.recompressed(CompressionType.zstd)
+
+
+def test_zstd_decode_failure_is_not_punted(monkeypatch):
+    """uncompress_zstd hands only the host walk's ZstdFormatError to the
+    host codec: a ValueError from decode_streams (a corrupt stream)
+    propagates, and so does a kernel's RuntimeError."""
+    from redpanda_tpu_torch import compression
+    from redpanda_tpu_torch.compression import tpu_backend
+    from redpanda_tpu_torch.compression import zstd_frame as zf
+    from redpanda_tpu_torch.ops import _build, zstd
+
+    def no_punt(_data):
+        raise AssertionError("punted to the host codec")
+
+    monkeypatch.setattr(compression, "_zstd_uncompress_host", no_punt)
+    monkeypatch.setattr(zstd, "DEFAULT_DEVICE", "cpu")
+    frame = _compressed_zstd_frame()
+    assert tpu_backend.uncompress_zstd(frame) == zf.reference_decompress(frame)
+    for err in (ValueError("huffman stream 0 did not consume its bits exactly (3 left)"),
+                _build.KernelError("zstd_decode: CUDA error 700")):
+        def failing(*_args, err=err):
+            raise err
+
+        monkeypatch.setattr(zstd, "decode_streams", failing)
+        with pytest.raises(type(err)) as got:
+            tpu_backend.uncompress_zstd(frame)
+        assert got.value is err
 
 
 def test_codec_wrappers_have_no_fallback():
     """A CUDA tensor launches its kernel or raises: the codec wrappers
     hold no try statement that could route it to the plain version."""
-    for name in ("cellparse", "lz4", "snappy", "fused"):
+    for name in ("cellparse", "lz4", "snappy", "fused", "zstd"):
         tree = ast.parse((PKG / "ops" / f"{name}.py").read_text())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], name

@@ -1,0 +1,608 @@
+"""Port vs reference: the device zstd codec (huff0 encode and decode).
+
+Seeded inputs go through the JAX package (its jitted programs on the
+CPU, as tests/test_zstd_device.py runs them) and through
+redpanda_tpu_torch on the CPU (the plain PyTorch versions, with the
+port's DEFAULT_DEVICE set to "cpu"). Every output is integer or bytes,
+so every comparison is exact: code lengths, all SB bytes of every
+stream, stream bit counts, decoded rows and `end` on every row, the
+decode errors, frames, fused CRCs and recompressed record batches.
+
+The CUDA kernels of csrc/zstd.cu cannot run here. Their schemes are
+replayed in Python below and held against the plain versions: the
+warp's Kraft loops with composite arg-min / arg-max keys, the
+emission's per-thread symbol runs with one placement per code, and the
+decoder's backward walk with its 128-bit window.
+"""
+
+import ctypes
+import ctypes.util
+import random
+import struct
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from redpanda_tpu import compression as jcompression
+from redpanda_tpu.compression import tpu_backend as jbackend
+from redpanda_tpu.models import record as jrecord
+from redpanda_tpu.ops import fused as jfused
+from redpanda_tpu.ops import zstd as jz
+from redpanda_tpu_torch import compression as tcompression
+from redpanda_tpu_torch.compression import CompressionType
+from redpanda_tpu_torch.compression import tpu_backend as tbackend
+from redpanda_tpu_torch.compression import zstd_frame as zf
+from redpanda_tpu_torch.models import record as trecord
+from redpanda_tpu_torch.ops import fused as tfused
+from redpanda_tpu_torch.ops import zstd as tz
+from redpanda_tpu_torch.utils import crc as host_crc
+
+BUCKETS = (256, 4096, 65536)
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    monkeypatch.setattr(tz, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(tfused, "DEFAULT_DEVICE", "cpu")
+
+
+class _LibZstd:
+    """Minimal ctypes bridge to the system libzstd, the stock decoder."""
+
+    def __init__(self, lib: ctypes.CDLL) -> None:
+        lib.ZSTD_isError.restype = ctypes.c_uint
+        lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
+        lib.ZSTD_decompress.restype = ctypes.c_size_t
+        lib.ZSTD_decompress.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_size_t,
+        ]
+        self._lib = lib
+
+    def decompress(self, frame: bytes, capacity: int) -> bytes:
+        buf = ctypes.create_string_buffer(max(capacity, 1))
+        r = self._lib.ZSTD_decompress(buf, capacity, frame, len(frame))
+        if self._lib.ZSTD_isError(r):
+            raise ValueError(f"libzstd decompress error ({r})")
+        return buf.raw[:r]
+
+
+def _load_libzstd():
+    name = ctypes.util.find_library("zstd")
+    if not name:
+        return None
+    try:
+        return _LibZstd(ctypes.CDLL(name))
+    except OSError:
+        return None
+
+
+_LIB = _load_libzstd()
+
+_JSON = b'{"key":"user-000001","topic":"orders","seq":12345,"flag":true},'
+
+
+def _varinted(base: bytes, rng: random.Random, gap: int = 137) -> bytes:
+    b = bytearray(base)
+    for i in range(0, len(b), gap):
+        b[i] = 0x80 | rng.randrange(128)
+    return bytes(b)
+
+
+def _payloads() -> dict:
+    """The payload set of tests/test_zstd_device.py."""
+    rng = random.Random(7)
+    return {
+        "empty": b"",
+        "one": b"Z",
+        "below_huffman_min": b"ab" * 31,
+        "rle": b"\x00" * 4096,
+        "rle_high": b"\xfe" * 70000,
+        "text": b"the quick brown fox jumps over the lazy dog. " * 90,
+        "json": _JSON * 120,
+        "json_varint": _varinted(_JSON * 120, rng),
+        "random": bytes(rng.getrandbits(8) for _ in range(3000)),
+        "wide_alphabet": bytes(rng.choice(range(120, 256)) for _ in range(2000)),
+        "block_edge": _JSON * (65536 // len(_JSON) + 1),
+        "multi_block": _varinted((_JSON * 4000)[:200000], rng),
+    }
+
+
+def _seed_sum(row: bytes) -> int:
+    """sum(u) after the Kraft seed, before either repair loop."""
+    counts = np.bincount(np.frombuffer(row, np.uint8), minlength=256)
+    v = max(len(row), 1)
+    q = np.clip((counts * 2048 + v - 1) // v, 1, 2048)
+    u = np.where(counts > 0, np.minimum(1 << np.floor(np.log2(q)).astype(int), 1024), 0)
+    return int(u.sum())
+
+
+def _edge_rows(n: int, seed: int = 0) -> list:
+    """chip_smoke's edge rows of one bucket: short lengths around the
+    huff0 floor and the 4-stream split, one- and two-symbol rows, a
+    uniform 256-symbol row, 200 rare symbols, the Kraft down-loop row,
+    skewed and random full rows."""
+    return chip_smoke.zstd_edge_rows(np.random.default_rng(seed + n), n)
+
+
+def _stage(rows, n: int):
+    batch = np.zeros((len(rows), n), np.uint8)
+    valid = np.zeros(len(rows), np.int32)
+    for i, r in enumerate(rows):
+        batch[i, : len(r)] = np.frombuffer(r, np.uint8)
+        valid[i] = len(r)
+    return batch, valid
+
+
+def _encode_both(rows, n):
+    batch, valid = _stage(rows, n)
+    got = [t.numpy() for t in tz._encode_chunks(torch.from_numpy(batch), torch.from_numpy(valid), n)]
+    want = [np.asarray(a) for a in jz._encode_chunks(jnp.asarray(batch), jnp.asarray(valid), n)]
+    return got, want
+
+
+def test_down_loop_row_overshoots():
+    """The edge rows of the larger buckets hold a row whose Kraft seed
+    overshoots 2,048 slots by 100, so the down loop runs 100 steps."""
+    for n in (4096, 65536):
+        assert _seed_sum(chip_smoke.kraft_down_row(np.random.default_rng(0), n)) == 2148
+        assert 2148 in [_seed_sum(r) for r in _edge_rows(n)]
+
+
+@pytest.mark.parametrize("n", BUCKETS)
+def test_encode_matches_jax(n):
+    rows = _edge_rows(n)
+    (nbits, streams, bits), (jnbits, jstreams, jbits) = _encode_both(rows, n)
+    assert streams.shape == (len(rows), 4, tz.stream_byte_bound(n))
+    np.testing.assert_array_equal(nbits, jnbits)
+    np.testing.assert_array_equal(bits, jbits)
+    np.testing.assert_array_equal(streams, jstreams)
+    # every row of two or more symbols gets code lengths that fill the 2^11 slots exactly
+    for r, nb in zip(rows, nbits.astype(np.int64)):
+        if len(set(r)) >= 2:
+            assert int((1 << (11 - nb[nb > 0])).sum()) == 2048
+
+
+def _stream_set(rows, n):
+    """Every stream of the rows' blocks that the host would compress,
+    with its regenerated size and decode table."""
+    (nbits, streams, bits), _ = _encode_both(rows, n)
+    return chip_smoke.stream_items(rows, nbits, streams, bits)
+
+
+def _decode_both(items):
+    mats = tz.stage_streams(*zip(*items))
+    *m, sbytes, rmax = mats
+    got = [t.numpy() for t in tz._decode_streams(*(torch.from_numpy(a) for a in m), sbytes, rmax)]
+    want = [np.asarray(a) for a in jz._decode_streams(*(jnp.asarray(a) for a in m), sbytes, rmax)]
+    return got, want
+
+
+def _trap_streams(items):
+    """A tampered stream (an extra byte past the marker: end != 0), a
+    truncated one (its top half: it runs out and sticks at bit 0), a
+    regen = 0 stream with tbits > 0, and a stream asked for more symbols
+    than it holds."""
+    (s0, rg0, t0), (s1, rg1, t1), (s2, _, t2), (s3, rg3, t3) = items[:4]
+    return [
+        (s0 + b"\x05", rg0, t0),
+        (s1[len(s1) // 2 :], rg1, t1),
+        (s2, 0, t2),
+        (s3, rg3 + 40, t3),
+    ]
+
+
+@pytest.mark.parametrize("n", BUCKETS)
+def test_decode_matches_jax(n):
+    items = _stream_set(_edge_rows(n), n)
+    items += _trap_streams(items)
+    (out, end), (jout, jend) = _decode_both(items)
+    np.testing.assert_array_equal(out, jout)
+    np.testing.assert_array_equal(end, jend)
+    k = len(items) - 4
+    assert not end[:k].any()
+    assert end[k] != 0  # tampered
+    assert end[k + 1] == 0 and out[k + 1, items[k + 1][1] - 1] == out[k + 1, items[k + 1][1] - 2]
+    assert end[k + 2] > 0  # regen 0 reports f[tbits]
+    assert not out[k + 2].any()
+
+
+def test_decode_errors_match_jax():
+    items = _stream_set(_edge_rows(4096), 4096)
+    traps = _trap_streams(items)
+    batch = items[:5] + [traps[0]] + items[5:9] + [traps[2]]
+    args = [list(x) for x in zip(*batch)]
+    with pytest.raises(ValueError) as got:
+        tz.decode_streams(*args)
+    with pytest.raises(ValueError) as want:
+        jz.decode_streams(*args)
+    assert str(got.value) == str(want.value)
+    assert str(got.value).startswith("huffman stream 5 did not consume its bits exactly")
+    assert type(got.value) is ValueError  # never a ZstdFormatError, which would punt
+    # truncation sticks at 0 and is not an error, in the reference as in the port
+    trunc = [list(x) for x in zip(items[0], traps[1])]
+    assert tz.decode_streams(*trunc) == jz.decode_streams(*trunc)
+    for bad in (b"", items[0][0][:-1] + b"\x00"):
+        args = [[bad], [10], [items[0][2]]]
+        with pytest.raises(ValueError, match="missing its end marker") as got:
+            tz.decode_streams(*args)
+        with pytest.raises(ValueError, match="missing its end marker"):
+            jz.decode_streams(*args)
+
+
+def test_encode_entry_matches_jax_and_limit():
+    rows = _edge_rows(4096, seed=3)
+    got = tz.encode_chunks(rows)
+    want = jz.encode_chunks(rows)
+    assert len(got) == len(want)
+    for (nb, st), (jnb, jst) in zip(got, want):
+        np.testing.assert_array_equal(nb, jnb)
+        assert st == jst
+    with pytest.raises(ValueError, match="device zstd chunks must be <= 64 KiB"):
+        tz.encode_chunks([b"x" * 65537])
+    assert tz.encode_chunks([]) == [] and tz.decode_streams([], [], []) == []
+
+
+def test_encode_reads_rows_in_place():
+    """The encode at column offset 40 of wider rows equals the encode of
+    the same chunks staged alone."""
+    rows = _edge_rows(4096, seed=5)
+    batch, valid = _stage(rows, 4096)
+    wide = np.full((len(rows), 40 + 4096 + 472), 0x5A, np.uint8)
+    wide[:, 40 : 40 + 4096] = batch
+    got = tz._encode_chunks(torch.from_numpy(wide), torch.from_numpy(valid), 4096, 40)
+    want = tz._encode_chunks(torch.from_numpy(batch), torch.from_numpy(valid), 4096)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_frames_match_jax_and_decode():
+    payloads = _payloads()
+    frames = tbackend.compress_many_zstd(list(payloads.values()))
+    jframes = jbackend.compress_many_zstd(list(payloads.values()))
+    assert frames == jframes
+    for (name, data), frame in zip(payloads.items(), frames):
+        assert tbackend.compress_zstd(data) == frame, name
+        assert zf.reference_decompress(frame) == data, name
+        assert tbackend._decompress_device(frame) == data, name
+        assert jbackend._decompress_device(frame) == data, name
+        if _LIB is not None:
+            assert _LIB.decompress(frame, len(data)) == data, name
+
+
+def test_block_size_knob_matches_jax(monkeypatch):
+    data = _varinted(_JSON * 200, random.Random(5))
+    for knob, size in (("1024", 1024), ("7", 1024), (str(1 << 22), 65536)):
+        monkeypatch.setenv("RP_ZSTD_BLOCK", knob)
+        assert tbackend._zstd_block_size() == jbackend._zstd_block_size() == size
+    monkeypatch.setenv("RP_ZSTD_BLOCK", "1024")
+    frame = tbackend.compress_zstd(data)
+    assert frame == jbackend.compress_zstd(data)
+    assert tbackend._decompress_device(frame) == data
+
+
+def test_fused_matches_jax_and_host_crc():
+    rng = np.random.default_rng(11)
+    bodies = [b""]
+    for i in range(13):
+        if i % 3 == 0:
+            bodies.append(rng.integers(0, 256, int(rng.integers(32, 4000)), dtype=np.uint8).tobytes())
+        else:
+            bodies.append((b"abcd%d," % i) * int(rng.integers(8, 500)))
+    prefixes = [rng.integers(0, 256, 40, dtype=np.uint8).tobytes() for _ in bodies]
+    crcs, frames = tfused.crc_zstd_fused(prefixes, bodies)
+    jcrcs, jframes = jfused.crc_zstd_fused(prefixes, bodies)
+    assert crcs.dtype == np.uint32
+    np.testing.assert_array_equal(crcs, np.asarray(jcrcs))
+    assert frames == jframes
+    for p, b, c, frame in zip(prefixes, bodies, crcs, frames):
+        assert int(c) == host_crc.crc32c(b, host_crc.crc32c(p))
+        assert zf.reference_decompress(frame) == b
+    with pytest.raises(ValueError, match="fused codec bodies must be <= 64 KiB"):
+        tfused.crc_zstd_fused([b"\x00" * 40], [b"x" * 65537])
+
+
+def test_fused_encode_equals_plain_encode():
+    """_fused_zstd's encode outputs at offset 40 equal `_encode_chunks`
+    of the bodies alone, and its CRC the host's."""
+    rows = _edge_rows(4096, seed=9)
+    width = ((40 + 4096 + 511) // 512) * 512
+    mat = np.zeros((len(rows), width), np.uint8)
+    mat[:, :40] = 0x11
+    for i, r in enumerate(rows):
+        mat[i, 40 : 40 + len(r)] = np.frombuffer(r, np.uint8)
+    batch, valid = _stage(rows, 4096)
+    crc, *enc = tfused._fused_zstd(torch.from_numpy(mat), torch.from_numpy(valid), 4096)
+    want = tz._encode_chunks(torch.from_numpy(batch), torch.from_numpy(valid), 4096)
+    for g, w in zip(enc, want):
+        assert torch.equal(g, w)
+    assert [int(c) for c in crc] == [host_crc.crc32c(r, host_crc.crc32c(b"\x11" * 40)) for r in rows]
+
+
+BAD_FRAMES = ("skippable", "dictionary", "multi_frame", "reserved_block", "truncated",
+              "not_zstd", "declared_lies", "no_size", "size_mismatch")
+
+
+def _bad_frame(case: str) -> bytes:
+    frame = jbackend.compress_zstd(_JSON * 40)
+    bad = bytearray(zf.frame_header(0) + zf.raw_block(b"", True))
+    bad[-3:] = struct.pack("<I", 1 | (3 << 1))[:3]
+    header = struct.pack("<IBB", zf.MAGIC, 0, 0x88)  # no content size
+    return {
+        "skippable": struct.pack("<II", 0x184D2A50, 4) + b"\x00" * 4,
+        "dictionary": frame[:4] + bytes([frame[4] | 1]) + b"\x07" + frame[5:],
+        "multi_frame": frame + frame,
+        "reserved_block": bytes(bad),
+        "truncated": frame[: len(frame) - 5],
+        "not_zstd": b"\x00" * 16,
+        "declared_lies": zf.frame_header(16) + zf.rle_block(0x41, 1 << 20, True),
+        "no_size": header + zf.rle_block(0x42, 1 << 20, True),
+        "size_mismatch": zf.frame_header(1 << 20) + zf.rle_block(0x43, 100, True),
+    }[case]
+
+
+@pytest.mark.parametrize("case", BAD_FRAMES)
+def test_punt_and_bomb_guards_match_jax(monkeypatch, case):
+    monkeypatch.setenv("RP_ZSTD_NOSIZE_LIMIT", "65536")
+    frame = _bad_frame(case)
+    with pytest.raises(ValueError) as got:
+        tbackend._decompress_device(frame)
+    with pytest.raises(ValueError) as want:
+        jbackend._decompress_device(frame)
+    assert type(got.value).__name__ == type(want.value).__name__
+    assert str(got.value) == str(want.value)
+    punts = isinstance(got.value, zf.ZstdFormatError)
+    assert punts == (case not in ("declared_lies", "no_size", "size_mismatch"))
+
+
+def test_no_size_frame_under_the_limit(monkeypatch):
+    header = struct.pack("<IBB", zf.MAGIC, 0, 0x88)
+    frame = header + zf.rle_block(0x42, 1 << 20, True)
+    monkeypatch.setenv("RP_ZSTD_NOSIZE_LIMIT", str(1 << 21))
+    assert tbackend._decompress_device(frame) == b"\x42" * (1 << 20)
+
+
+def test_kernel_value_error_is_not_punted(monkeypatch):
+    """A stream that fails the exact-consumption check raises a plain
+    ValueError out of uncompress_zstd: the host codec is never asked.
+    The frame holds one compressed block whose first stream carries an
+    extra byte past its marker, so the host walk parses it and only the
+    decode's end check fails."""
+    data = _varinted(_JSON * 300, random.Random(2))
+    nbits, streams = tz.encode_chunks([data])[0]
+    desc = zf.direct_weights_desc(nbits) or zf.fse_weights_desc(nbits)
+    frame = zf.frame_header(len(data)) + zf.compressed_block(
+        len(data), desc, [streams[0] + b"\x05"] + streams[1:], True)
+
+    def no_punt(_data):
+        raise AssertionError("punted to the host codec")
+
+    monkeypatch.setattr(tcompression, "_zstd_uncompress_host", no_punt)
+    with pytest.raises(ValueError, match="huffman stream 0 did not consume its bits exactly") as got:
+        tbackend.uncompress_zstd(frame)
+    assert not isinstance(got.value, zf.ZstdFormatError)
+    with pytest.raises(ValueError, match="did not consume its bits exactly"):
+        jbackend.uncompress_zstd(frame)
+    monkeypatch.setenv("RP_ZSTD_BACKEND", "tpu")
+    with pytest.raises(ValueError, match="did not consume its bits exactly"):
+        tcompression.uncompress(frame, CompressionType.zstd)
+
+
+def test_registry_routes_tpu(monkeypatch):
+    monkeypatch.setenv("RP_ZSTD_BACKEND", "tpu")
+    data = _varinted(_JSON * 300, random.Random(2))
+    frame = tcompression.compress(data, CompressionType.zstd)
+    assert frame == tbackend.compress_zstd(data)
+    assert tcompression.uncompress(frame, CompressionType.zstd) == data
+
+
+def _zstd_batch(mod, seed):
+    rng = np.random.default_rng(seed)
+    b = mod.RecordBatchBuilder(base_offset=7, timestamp_ms=1_700_000_000_000)
+    for i in range(16):
+        if i % 2:
+            v = rng.integers(0, 256, 1024, dtype=np.uint8).tobytes()
+        else:
+            v = b'{"id":%d,"name":"user-%d","tags":["a","b"]},' % (i, int(rng.integers(0, 99))) * 24
+        b.add(v, key=b"k%d" % i)
+    return b.build()
+
+
+def test_recompressed_zstd_matches_jax(monkeypatch):
+    monkeypatch.setenv("RP_ZSTD_BACKEND", "tpu")
+    tb, jb = _zstd_batch(trecord, 21), _zstd_batch(jrecord, 21)
+    assert tb.header.crc == jb.header.crc
+    got = tb.recompressed(CompressionType.zstd, verify_crc=tb.header.crc)
+    want = jb.recompressed(jcompression.CompressionType.zstd, verify_crc=jb.header.crc)
+    assert got.body == want.body
+    assert got.header.crc == want.header.crc
+    assert got.header.compression == CompressionType.zstd
+    assert [(r.key, r.value) for r in got.records()] == [(r.key, r.value) for r in tb.records()]
+    with pytest.raises(trecord.CrcMismatch):
+        tb.recompressed(CompressionType.zstd, verify_crc=tb.header.crc ^ 1)
+
+
+def _fuzz_cases(count: int):
+    rng = random.Random(1234)
+    cases = []
+    for i in range(count):
+        kind = i % 5
+        if kind == 0:
+            n = rng.randrange(1, 1500)
+            cases.append(_varinted((_JSON * (n // len(_JSON) + 1))[:n], rng, gap=rng.randrange(60, 300)))
+        elif kind == 1:
+            alpha = rng.sample(range(256), rng.randrange(2, 40))
+            cases.append(bytes(rng.choice(alpha) for _ in range(rng.randrange(1, 800))))
+        elif kind == 2:
+            alpha = rng.sample(range(256), rng.randrange(40, 257))
+            cases.append(bytes(rng.choice(alpha) for _ in range(rng.randrange(1, 800))))
+        elif kind == 3:
+            pat = bytes(rng.getrandbits(8) for _ in range(rng.randrange(1, 9)))
+            cases.append(pat * rng.randrange(1, 300))
+        else:
+            n = rng.choice([0, 1, 2, 63, 64, 65, 255, 256, 257])
+            cases.append(bytes(rng.getrandbits(8) for _ in range(n)))
+    return cases
+
+
+def test_differential_fuzz_2k():
+    """2,000 mixed frames from the port: every one decoded by libzstd
+    (when present), a sample by the pure-Python reference decoder and
+    by the port's own device-path decode."""
+    cases = _fuzz_cases(2000)
+    order = sorted(range(len(cases)), key=lambda i: len(cases[i]))
+    frames = {}
+    for at in range(0, len(order), 500):
+        idx = order[at : at + 500]
+        for i, frame in zip(idx, tbackend.compress_many_zstd([cases[i] for i in idx])):
+            frames[i] = frame
+    sample = list(range(0, len(cases), 25))
+    for i, data in enumerate(cases):
+        if _LIB is not None:
+            assert _LIB.decompress(frames[i], len(data)) == data, i
+    for i in sample:
+        assert zf.reference_decompress(frames[i]) == cases[i], i
+    got = [tbackend._decompress_device(frames[i]) for i in sample[::4]]
+    assert got == [cases[i] for i in sample[::4]]
+
+
+# ------------------------------------------------------ kernel replays
+def _replay_kraft(counts: np.ndarray, v: int) -> np.ndarray:
+    """rp_zstd_lengths' warp loops: lane l holds symbols 8l..8l+7; each
+    step reduces a composite key over the 32 lanes."""
+    u = np.zeros(256, np.int64)
+    vv = max(v, 1)
+    for s in range(256):
+        if counts[s]:
+            q = min(max((int(counts[s]) * 2048 + vv - 1) // vv, 1), 2048)
+            u[s] = min(1 << (q.bit_length() - 1), 1024)
+    lanes = u.reshape(32, 8)
+    cc = counts.reshape(32, 8)
+    sym = np.arange(256).reshape(32, 8)
+    while lanes.sum() > 2048:
+        keys = np.where((cc > 0) & (lanes >= 2), cc * 256 + sym, 0xFFFFFFFF)
+        best = int(keys.min(axis=1).min())  # per-lane min, then __reduce_min_sync
+        if best == 0xFFFFFFFF:
+            break
+        lanes[(best & 255) // 8, (best & 255) % 8] >>= 1
+    while lanes.sum() < 2048:
+        d = 2048 - lanes.sum()
+        keys = np.where((cc > 0) & (lanes <= d) & (lanes < 1024), lanes * 256 + (255 - sym), -1)
+        best = int(keys.max(axis=1).max())
+        if best < 0:
+            break
+        s = 255 - (best & 255)
+        lanes[s // 8, s % 8] <<= 1
+    return np.where(counts > 0, 11 - np.floor(np.log2(np.maximum(u, 1))).astype(np.int64), 0)
+
+
+def _replay_codes(nbits: np.ndarray) -> np.ndarray:
+    rc = np.bincount(nbits[nbits > 0], minlength=12)
+    codes = np.zeros(256, np.int64)
+    for s in range(256):
+        nb = int(nbits[s])
+        if nb:
+            base = sum(int(rc[j]) << (11 - j) for j in range(nb + 1, 12))
+            rank = int((nbits[:s] == nb).sum())
+            codes[s] = (base >> (11 - nb)) + rank
+    return codes
+
+
+def _replay_emit(row: bytes, n: int, nbits: np.ndarray, codes: np.ndarray, threads: int = 512):
+    """rp_zstd_emit for the four streams of one row: per-thread symbol
+    runs, an exclusive scan of their lengths, one placement per code into
+    32-bit words, the marker, then all SB bytes."""
+    d = np.zeros(n, np.int64)
+    d[: len(row)] = np.frombuffer(row, np.uint8)
+    v = len(row)
+    sb = tz.stream_byte_bound(n)
+    m4 = (v + 3) // 4
+    out, tbs = [], []
+    for st in range(4):
+        slen = m4 if st < 3 else max(v - 3 * m4, 0)
+        syms = d[np.minimum(st * m4 + np.arange(slen), n - 1)]
+        per = -(-slen // threads)
+        runs = [syms[t * per : (t + 1) * per] for t in range(threads)]
+        local = np.array([int(nbits[r].sum()) for r in runs])
+        excl = np.concatenate([[0], np.cumsum(local)[:-1]])
+        tb = int(local.sum())
+        img = np.zeros((sb + 3) // 4, np.uint64)
+        for run, c in zip(runs, excl):
+            for s in run:
+                nb = int(nbits[s])
+                c += nb
+                if nb:
+                    bp = tb - c
+                    code = int(codes[s]) & ((1 << nb) - 1)
+                    img[bp >> 5] |= np.uint64((code << (bp & 31)) & 0xFFFFFFFF)
+                    if (bp & 31) + nb > 32:
+                        img[(bp >> 5) + 1] |= np.uint64(code >> (32 - (bp & 31)))
+        img[tb >> 5] |= np.uint64(1 << (tb & 31))
+        out.append(img.astype("<u4").tobytes()[:sb])
+        tbs.append(tb)
+    return out, tbs
+
+
+def _replay_decode(buf: bytes, tb: int, rg: int, sym, nb, rmax: int):
+    """rp_zstd_decode for one stream: a 128-bit window of two aligned
+    64-bit words (reloaded when the window's low word moves), bits below
+    0 read as zero, min(rg, rmax) symbols, zero fill, end."""
+    sbytes = len(buf)
+    words = np.frombuffer(buf, "<u8").astype(object)
+    wk, lo, hi = -2, 0, 0
+
+    def peek(p):
+        nonlocal wk, lo, hi
+        if p < 11:
+            return (int(words[0]) << (11 - p)) & 2047
+        k = (p - 11) >> 6
+        if k != wk:
+            hi = lo if k == wk - 1 else (int(words[k + 1]) if k + 1 < sbytes // 8 else 0)
+            lo, wk = int(words[k]), k
+        off = p - 11 - 64 * k
+        x = lo >> off
+        if off > 53:
+            x |= hi << (64 - off)
+        return x & 2047
+
+    k_n = min(max(rg, 0), rmax)
+    out = bytearray(rmax)
+    p = tb
+    for k in range(k_n):
+        e = peek(p)
+        out[k] = int(sym[e])
+        p = max(p - int(nb[e]), 0)
+    if k_n == 0:
+        p = max(tb - int(nb[peek(tb)]), 0)
+    return bytes(out), p
+
+
+@pytest.mark.parametrize("n", (256, 4096))
+def test_kernel_replay_encode_matches_plain(n):
+    rows = _edge_rows(n, seed=13)
+    batch, valid = _stage(rows, n)
+    nbits, streams, bits = (t.numpy() for t in tz._encode_chunks(
+        torch.from_numpy(batch), torch.from_numpy(valid), n))
+    for i, r in enumerate(rows):
+        counts = np.bincount(np.frombuffer(r, np.uint8), minlength=256).astype(np.int64)
+        nb = _replay_kraft(counts, len(r))
+        np.testing.assert_array_equal(nb, nbits[i].astype(np.int64), err_msg=f"row {i}")
+        got, tbs = _replay_emit(r, n, nb, _replay_codes(nb))
+        assert tbs == list(bits[i]), i
+        assert got == [streams[i, s].tobytes() for s in range(4)], i
+
+
+def test_kernel_replay_decode_matches_plain():
+    items = _stream_set(_edge_rows(4096, seed=17), 4096)
+    items += _trap_streams(items)
+    *m, sbytes, rmax = tz.stage_streams(*zip(*items))
+    m[1][-1] = 0  # regen 0 with tbits 0
+    m[1][-2] = rmax + 9  # more symbols than the row holds
+    out, end = (t.numpy() for t in tz._decode_streams(*(torch.from_numpy(a) for a in m), sbytes, rmax))
+    bufs, tbits, regen, tsym, tnb = m
+    for i in range(len(items)):
+        o, e = _replay_decode(bufs[i].tobytes(), int(tbits[i]), int(regen[i]), tsym[i], tnb[i], rmax)
+        assert o == out[i].tobytes(), i
+        assert e == end[i], i
