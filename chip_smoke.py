@@ -48,9 +48,25 @@ Phases, each raising on any mismatch:
      reference decoder, the stage split, and each zstd kernel at the
      path's shapes against its plain version;
   8b. 1,024 batches through recompressed(zstd) and .records() under
-     RP_ZSTD_BACKEND=tpu, records equal to the originals'.
+     RP_ZSTD_BACKEND=tpu, records equal to the originals';
+  9. the mesh backend (RP_QUORUM_BACKEND=mesh, RP_MESH_FULL=1) at
+     1,000,000 rows over D=8 chip blocks on the card, a quarter of the
+     rows in joint consensus: 10 windows of 512 replies and 2 of 8,192
+     (duplicates, stale seqs) through a TickFrame and one
+     health_refresh, against the numpy host leg built from the same
+     seed (lanes, advanced rows, health lanes, fleet totals), then at
+     D=3 on 100,003 rows (padding rows); health_totals against its plain
+     version and the frame's launch sequence on the device clock;
+  10. the RF=3 ring cluster at 1,000,000 groups over D=8 blocks, resident
+     on the card: __graft_entry__.dryrun_multichip's scenario with its
+     assertions, then 20 seeded ticks (elections every fifth tick,
+     retention stranding mirrors) with every lane, elected, the terms
+     and both totals equal to the plain versions after every call; the
+     cluster kernels and the two follower-side quorum rules (no main-path
+     caller, held against their plain versions) on the device clock.
 The launch counters are zeroed just before each main-path phase (3, 4,
-6, 8 and 8b) and read just after; every kernel must have launched there.
+6, 8, 8b, 9 and 10) and read just after; every kernel must have
+launched there, except follower_commit_step and local_append_update.
 
 Output: progress lines, the card line, one JSON line of per-kernel
 numbers, and last `{"ok": true, "device": {...}}`. Without a CUDA card
@@ -78,6 +94,7 @@ from redpanda_tpu_torch.ops import lz4 as lz4_ops
 from redpanda_tpu_torch.ops import quorum as quorum_ops
 from redpanda_tpu_torch.ops import snappy as snappy_ops
 from redpanda_tpu_torch.ops import zstd as zstd_ops
+from redpanda_tpu_torch.parallel import cluster_step as cluster_ops
 
 G, R, RF = 50_000, 8, 3
 M_REPLIES, H_ROWS = 100_000, 50_000
@@ -105,6 +122,11 @@ KERNELS = {
     "zstd_lengths": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:190", zstd_ops.LAUNCHES),
     "zstd_emit": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:190", zstd_ops.LAUNCHES),
     "zstd_decode": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:274", zstd_ops.LAUNCHES),
+    "health_totals": ("redpanda_tpu_torch/csrc/health.cu", "redpanda_tpu/parallel/mesh_frame.py:63", health_ops.LAUNCHES),
+    "cluster_tick": ("redpanda_tpu_torch/csrc/cluster.cu", "redpanda_tpu/parallel/cluster_step.py:105", cluster_ops.LAUNCHES),
+    "election_round": ("redpanda_tpu_torch/csrc/cluster.cu", "redpanda_tpu/parallel/cluster_step.py:232", cluster_ops.LAUNCHES),
+    "follower_commit_step": ("redpanda_tpu_torch/csrc/quorum.cu", "redpanda_tpu/ops/quorum.py:154", quorum_ops.LAUNCHES),
+    "local_append_update": ("redpanda_tpu_torch/csrc/quorum.cu", "redpanda_tpu/ops/quorum.py:211", quorum_ops.LAUNCHES),
 }
 # codec shapes: the fused path's 256 rows x 32 KiB bodies (alternately seeded
 # random and a repeated pattern, read in place after the 40-byte CRC prefix;
@@ -118,6 +140,18 @@ N_BATCHES, RECORDS, RECORD_BYTES = 1024, 16, 1024
 # hydrated in 64 KiB zstd blocks (compression/tpu_backend.py RP_ZSTD_BLOCK)
 SEGMENT_BYTES, ZSTD_BLOCK, ZSTD_CHECK_CHUNKS = 134_217_728, 65536, 32
 KINDS = ("json", "random", "zipf", "zipf")
+# the mesh backend at bench.py:478 bench_mesh_flat's scale (1,000,000
+# partitions, 8 devices, 512-reply windows) plus windows at and past
+# MESH_FULL_THRESHOLD (4,096), and once at 3 blocks on a row count they
+# do not divide; the ring cluster of __graft_entry__.dryrun_multichip at
+# the same scale (RF = 3), 20 seeded ticks
+MESH_G, MESH_D = 1_000_000, 8
+MESH_WINDOW, MESH_WINDOWS, MESH_BIG_WINDOW, MESH_BIG_WINDOWS = 512, 10, 8192, 2
+MESH_PAD_G, MESH_PAD_D = 100_003, 3
+CLUSTER_G, CLUSTER_TICKS = 1_000_000, 20
+# kernels with no caller on a main path (as in the reference): held against
+# their plain versions at the cluster shape, launched 0 times on the paths
+OFF_PATH = ("follower_commit_step", "local_append_update")
 
 
 def log(msg: str) -> None:
@@ -1565,6 +1599,530 @@ def phase_zstd_recompress(torch) -> dict:
             "fetch_us": (t2 - t1) * 1e6 / len(batches)}
 
 
+# ------------------------------------------------- phase 9: the mesh
+def mesh_lanes(arrays, n: int, seed: int):
+    """`n` allocated rows of `arrays` with seeded quorum lanes, built as
+    bench.py:407-435 builds the mesh bench's shard (SELF always a current
+    voter), with about a quarter of the rows in joint consensus as
+    tests/test_mesh_frame.py:37-60; one frame forced over every row
+    settles them through the selected backend. Returns (arrays, rows)."""
+    rows = np.array([arrays.alloc_row() for _ in range(n)], np.int64)
+    rng = np.random.default_rng(seed)
+    r = arrays.replica_slots
+    match = rng.integers(-1, 400, (n, r)).astype(np.int64)
+    flushed = np.maximum(match - rng.integers(0, 40, (n, r)), -1)
+    voter = rng.random((n, r)) < 0.6
+    voter[:, 0] = True
+    old = np.zeros((n, r), bool)
+    joint = rng.random(n) < 0.25
+    old[joint] = rng.random((int(joint.sum()), r)) < 0.5
+    arrays.match_index[rows] = match
+    arrays.flushed_index[rows] = flushed
+    arrays.is_voter[rows] = voter
+    arrays.is_voter_old[rows] = old
+    arrays.is_leader[rows] = True
+    arrays.commit_index[rows] = rng.integers(-1, 200, n)
+    arrays.term_start[rows] = rng.integers(0, 300, n)
+    arrays.last_visible[rows] = arrays.commit_index[rows]
+    arrays.voter_epoch += 1
+    arrays.touch()
+    arrays.quorum_dirty[:] = False
+    empty = np.empty(0, np.int64)
+    arrays.frame_tick(empty, empty, empty, empty, empty, force_rows=rows)
+    return arrays, rows
+
+
+def mesh_window(rng, rows, size: int, k: int, r: int):
+    """Reply window k: `size` replies as the bench's steady window
+    (unique rows, one non-self slot each, bench.py:456-463), of which an
+    eighth repeat an earlier (row, slot) pair with a larger offset and a
+    tenth carry a stale seq."""
+    uniq = size - size // 8
+    rr = rows[rng.choice(len(rows), size=min(uniq, len(rows)), replace=False)]
+    slots = rng.integers(1, r, len(rr)).astype(np.int64)
+    dirty = rng.integers(-1, 400 + 150 * k, len(rr)).astype(np.int64)
+    dup = rng.integers(0, len(rr), size - len(rr))
+    rr = np.concatenate([rr, rr[dup]])
+    slots = np.concatenate([slots, slots[dup]])
+    dirty = np.concatenate([dirty, dirty[dup] + rng.integers(0, 50, len(dup))])
+    flushed = np.maximum(dirty - rng.integers(0, 25, len(rr)), -1)
+    seqs = np.full(len(rr), k + 1, np.int64) - np.where(rng.random(len(rr)) < 0.1, 2, 0)
+    return rr, slots, dirty, flushed, seqs.astype(np.int64)
+
+
+def mesh_env(devices: int):
+    """RP_QUORUM_BACKEND=mesh with RP_MESH_FULL=1 over `devices` blocks."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(quorum_backend("mesh"))
+    stack.enter_context(env_backend("RP_MESH_FULL", "1"))
+    stack.enter_context(env_backend("RP_MESH_DEVICES", str(devices)))
+    return stack
+
+
+def run_mesh_slice(g: int, devices: int, device: str, window: int = MESH_WINDOW,
+                   big_window: int = MESH_BIG_WINDOW, windows: int = MESH_WINDOWS,
+                   big_windows: int = MESH_BIG_WINDOWS) -> dict:
+    """The mesh backend (RP_QUORUM_BACKEND=mesh, RP_MESH_FULL=1, D =
+    `devices` chip blocks on `device`) and the numpy host leg, built from
+    one seed and fed the same reply windows through their TickFrames:
+    `windows` of `window` replies, `big_windows` of `big_window`, then
+    one health_refresh. Raises on the first lane, advanced-row set or
+    total that differs; returns the mesh leg's frame times and stages."""
+    from redpanda_tpu_torch.ops.health import health_reduce_np
+    from redpanda_tpu_torch.raft.shard_state import ShardGroupArrays
+    from redpanda_tpu_torch.raft.tick_frame import TickFrame
+
+    with mesh_env(devices):
+        mesh, rows = mesh_lanes(ShardGroupArrays(capacity=g, device=device), g, SEED + 9)
+        if mesh.chip_count() != devices or mesh.chip_block() != -(-g // devices):
+            raise AssertionError(f"chip blocks: {mesh.chip_count()} x {mesh.chip_block()}")
+    with quorum_backend("host"):
+        host, _ = mesh_lanes(ShardGroupArrays(capacity=g, device="cpu"), g, SEED + 9)
+    for lane in LANES:
+        assert_equal(getattr(mesh, lane), getattr(host, lane), f"mesh build: {lane}")
+    mframe, hframe = TickFrame(mesh), TickFrame(host)
+    rng = np.random.default_rng(SEED + 10)
+    mesh.stage_ms = {}
+    frame_s, advanced_rows = [], 0
+    sizes = [window] * windows + [big_window] * big_windows
+    for k, size in enumerate(sizes):
+        replies = mesh_window(rng, rows, size, k + 1, mesh.replica_slots)
+        with mesh_env(devices):
+            t0 = time.perf_counter()
+            adv_m = mframe.fold_now(*replies)
+            frame_s.append(time.perf_counter() - t0)
+        with quorum_backend("host"):
+            adv_h = hframe.fold_now(*replies)
+        assert_equal(np.sort(adv_m), np.sort(adv_h), f"window {k}: advanced rows")
+        advanced_rows += len(adv_h)
+        for lane in LANES:
+            assert_equal(getattr(mesh, lane), getattr(host, lane), f"window {k}: {lane}")
+        want = health_reduce_np(host.match_index, host.commit_index, host.is_voter, host.is_voter_old,
+                                host.is_leader, host.leader_id >= 0, host.row_active)
+        for lane, key in zip(HEALTH_LANES, ("max_lag", "under_replicated", "leaderless")):
+            assert_equal(getattr(mesh, lane), want[key], f"window {k}: {lane}")
+        totals = {
+            "advanced": len(adv_h),
+            "max_follower_lag": int(want["max_lag"].max(initial=0)),
+            "under_replicated": int(want["under_replicated"].sum()),
+            "leaderless": int(want["leaderless"].sum()),
+            "active": int(host.row_active.sum()),
+        }
+        if mesh.mesh_totals() != totals:
+            raise AssertionError(f"window {k}: totals {mesh.mesh_totals()} != {totals}")
+    with mesh_env(devices):
+        mesh.health_refresh()
+        got = mesh.health_totals()
+    with quorum_backend("host"):
+        host.health_refresh()
+        want = host.health_totals()
+    for lane in HEALTH_LANES:
+        assert_equal(getattr(mesh, lane), getattr(host, lane), f"health_refresh: {lane}")
+    if got != want or {k: mesh.mesh_totals()[k] for k in want} != want:
+        raise AssertionError(f"health_refresh totals: {got} / {mesh.mesh_totals()} != {want}")
+    if advanced_rows == 0:
+        raise AssertionError("no commit advanced in the whole mesh run")
+    return {"frame_s": frame_s, "stage_ms": mesh.stage_ms, "advanced_rows": advanced_rows,
+            "frames": len(sizes) + 1, "totals": mesh.mesh_totals(), "arrays": mesh, "rows": rows}
+
+
+def phase_mesh(torch, mem_rate: float) -> dict:
+    """Phase 9: the mesh backend at 1M rows over D = 8 chip blocks, then
+    at D = 3 on a row count the blocks do not divide (padding rows);
+    then the frame's launch sequence and health_totals on the device
+    clock against their bounds, health_totals against its plain version."""
+    reset_launches()
+    out = run_mesh_slice(MESH_G, MESH_D, "cuda")
+    run_mesh_slice(MESH_PAD_G, MESH_PAD_D, "cuda", windows=2, big_windows=1)
+    launches = {k: KERNELS[k][2][k] for k in ("fold_replies", "quorum_commit_step", "health_totals")}
+    st = out["stage_ms"]
+    log(f"[mesh] G={MESH_G} D={MESH_D}: {out['frames'] - 1} frames ({MESH_WINDOWS} x {MESH_WINDOW}, "
+        f"{MESH_BIG_WINDOWS} x {MESH_BIG_WINDOW} replies) + one health_refresh equal to the host leg "
+        f"lane for lane, advanced sets and totals ({out['advanced_rows']} row advances; last totals "
+        f"{out['totals']}); D={MESH_PAD_D} at G={MESH_PAD_G} (padded to "
+        f"{-(-MESH_PAD_G // MESH_PAD_D) * MESH_PAD_D} rows) equal too")
+    log(f"[mesh] frame p50 {pct(out['frame_s'], 50) * 1e3:.3f} ms p99 {pct(out['frame_s'], 99) * 1e3:.3f} ms "
+        f"(host clock, fold_now); per frame (n={len(st['kernel'])}): upload p50 {pct(st['h2d'], 50):.3f} ms, "
+        f"kernels p50 {pct(st['kernel'], 50):.3f} ms, readback p50 {pct(st['d2h'], 50):.3f} ms")
+    out["kernels"] = mesh_kernels(torch, out.pop("arrays"), out.pop("rows"), out["frames"], mem_rate)
+    out["launches"] = launches
+    return out
+
+
+def mesh_kernels(torch, arrays, rows, k: int, mem_rate: float, device: str = "cuda") -> dict:
+    """health_totals and the mesh frame sequence at the path's shape (the
+    mesh leg's lanes placed as D blocks, a next window k of the big
+    size padded as _mesh_full_frame pads it), on the device clock."""
+    from redpanda_tpu_torch.parallel import mesh_frame
+
+    frame = mesh_frame.MeshFrame(MESH_D, device)
+    base = frame.place_state(arrays)
+    work = frame.place_state(arrays)
+    known = frame._place(arrays.leader_id >= 0)
+    active = frame._place(arrays.row_active)
+    before = frame._place(arrays.commit_index)
+    gp, r = base.match_index.shape
+    window = mesh_window(np.random.default_rng(SEED + 13), rows, MESH_BIG_WINDOW, k, arrays.replica_slots)
+    replies = [torch.from_numpy(a).to(device) for a in padded_window(window)]
+
+    def reset():
+        for a, b in zip(work, base):
+            a.copy_(b)
+
+    hargs = (work.match_index, work.commit_index, work.is_voter, work.is_voter_old, work.is_leader,
+             known, active, MESH_D)
+    want, want_t = health_ops.health_totals_plain(*hargs, before=before)
+    got, got_t = health_ops.health_totals(*hargs, before=before)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(got, want), max_abs_err({"totals": got_t}, {"totals": want_t}))
+    out = {"health_totals": {
+        "shape": f"G={gp} R={r} D={MESH_D}", "max_abs_err": err,
+        "ms": time_kernel(lambda: health_ops.health_totals(*hargs, before=before)),
+        "plain_ms": time_plain(lambda: health_ops.health_totals_plain(*hargs, before=before)),
+        # match (i64) and both masks over [G, R]; commit, before, three
+        # flags read; max_lag and two flags written
+        "bound_ms": gp * (r * (8 + 1 + 1) + 8 + 8 + 3 + 8 + 2) / mem_rate * 1e3,
+    }}
+    rows, slots, _, _, seqs = (a.cpu().numpy() for a in replies)
+    cell = rows * r + slots
+    fresh = seqs > np.ascontiguousarray(arrays.last_seq).reshape(-1)[cell]
+    uniq, uniq_fresh, nf = len(np.unique(cell)), len(np.unique(cell[fresh])), int(fresh.sum())
+    seq_bytes = (24 * len(rows) + 16 * nf + 8 * uniq + gp * r * (8 + 8 + 1 + 1) + gp * (1 + 8 + 8 + 8 + 2)
+                 + 24 * uniq_fresh + 16 * gp + 10 * gp)
+
+    def plain_frame():
+        s = quorum_ops.quorum_commit_step_plain(quorum_ops.fold_replies_plain(work, *replies))
+        health_ops.health_totals_plain(s.match_index, s.commit_index, s.is_voter, s.is_voter_old,
+                                       s.is_leader, known, active, MESH_D, before=before)
+
+    out["mesh_tick_frame"] = {
+        "shape": f"G={gp} R={r} D={MESH_D} M={len(rows)}", "max_abs_err": 0.0,
+        "ms": time_kernel(lambda: mesh_frame.mesh_tick_frame(work, *replies, known, active, MESH_D), reset),
+        "plain_ms": time_plain(plain_frame, reset),
+        # replies, last_seq per addressed pair, the [G, R] lanes and five
+        # [G] lanes read once; fresh pairs' three lanes, commit, visible
+        # and the health lanes written
+        "bound_ms": seq_bytes / mem_rate * 1e3,
+    }
+    for name, e in out.items():
+        log(f"[mesh] {name:<16} {e['shape']}: kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, "
+            f"plain {e['plain_ms']:.3f} ms" + (" (equal to plain, tolerance exact)"
+                                               if name == "health_totals" else ""))
+    return out
+
+
+def padded_window(window):
+    """A reply window padded to its power-of-two bucket with no-op
+    entries (row 0, slot 0, seq i64 min), as _mesh_full_frame pads it."""
+    m = len(window[0])
+    bucket = 8
+    while bucket < m:
+        bucket *= 2
+    i64_min = np.iinfo(np.int64).min
+    out = []
+    for a, fill in zip(window, (0, 0, i64_min, i64_min, i64_min)):
+        b = np.full(bucket, fill, np.int64)
+        b[:m] = a
+        out.append(b)
+    return out
+
+
+# ----------------------------------------- phase 10: the ring cluster
+def cluster_fields(rng, g: int, r: int = R) -> dict:
+    """A seeded cluster state in which every group, so every chip block,
+    differs: mixed terms and leaders, logs, joint configs (old set
+    {0, 3}) on about 15 % of the rows, mirrors at every stage, some log
+    starts past a mirror."""
+    match = np.full((g, r), -1, np.int64)
+    match[:, :RF] = rng.integers(-1, 30, (g, RF))
+    voter = np.zeros((g, r), bool)
+    voter[:, :RF] = True
+    old = np.zeros((g, r), bool)
+    joint = rng.random(g) < 0.15
+    old[joint, 0] = True
+    old[joint, RF] = True
+    commit = rng.integers(-1, 20, g).astype(np.int64)
+    fol_dirty = rng.integers(-1, 30, (g, RF - 1)).astype(np.int64)
+    fol_flushed = np.maximum(fol_dirty - rng.integers(0, 3, (g, RF - 1)), -1)
+    return {
+        "leader": {
+            "term": rng.integers(0, 3, g).astype(np.int64),
+            "is_leader": rng.random(g) < 0.85,
+            "commit_index": commit,
+            "term_start": rng.integers(0, 12, g).astype(np.int64),
+            "last_visible": commit.copy(),
+            "match_index": match,
+            "flushed_index": np.maximum(match - rng.integers(0, 4, (g, r)), -1),
+            "is_voter": voter,
+            "is_voter_old": old,
+            "last_seq": np.zeros((g, r), np.int64),
+        },
+        "fol_dirty": fol_dirty,
+        "fol_flushed": fol_flushed,
+        "fol_commit": np.maximum(fol_flushed - rng.integers(0, 3, (g, RF - 1)), -1),
+        "fol_term": rng.integers(0, 3, (g, RF - 1)).astype(np.int64),
+        "voted_term": rng.integers(0, 3, (g, RF - 1)).astype(np.int64),
+        "log_start": np.where(rng.random(g) < 0.2, rng.integers(0, 12, g), 0).astype(np.int64),
+    }
+
+
+MIRROR_LANES = ("fol_dirty", "fol_flushed", "fol_commit", "fol_term", "voted_term", "log_start")
+
+
+def cluster_state(fields: dict, device):
+    import torch
+    from redpanda_tpu_torch.models.consensus_state import group_state_from_numpy
+    from redpanda_tpu_torch.parallel.cluster_step import ClusterState
+
+    return ClusterState(group_state_from_numpy(fields["leader"], device),
+                        *(torch.from_numpy(np.ascontiguousarray(fields[k])).to(device) for k in MIRROR_LANES))
+
+
+def clone_cluster(s):
+    from redpanda_tpu_torch.models.consensus_state import GroupState
+
+    return s._replace(leader=GroupState(*(t.clone() for t in s.leader)),
+                      **{k: getattr(s, k).clone() for k in MIRROR_LANES})
+
+
+def same_cluster(a, b, what: str) -> None:
+    import torch
+
+    for k in a.leader._fields:
+        if not torch.equal(getattr(a.leader, k), getattr(b.leader, k)):
+            raise AssertionError(f"{what}: leader.{k} differs from the plain version")
+    for k in MIRROR_LANES:
+        if not torch.equal(getattr(a, k), getattr(b, k)):
+            raise AssertionError(f"{what}: {k} differs from the plain version")
+
+
+def dryrun_cluster(torch, g: int, n: int, device: str) -> dict:
+    """__graft_entry__.dryrun_multichip's scenario through the port at
+    `g` groups over `n` chip blocks, with its assertions: every group
+    commits at 7 in one tick; a failover election won by all with
+    committed data intact; joint consensus gating commit on the old
+    set's laggard (7), released to 9 when the old set dissolves; every
+    stranded mirror installs the snapshot boundary in one tick."""
+    from redpanda_tpu_torch.models.consensus_state import GroupState
+    from redpanda_tpu_torch.parallel import (cluster_tick_sharded, election_round_sharded, make_cluster_state,
+                                              make_mesh, shard_group_state)
+
+    mesh = make_mesh(n, device)
+    dev = mesh.device
+    state = shard_group_state(make_cluster_state(g, device=device), mesh)
+    tick = cluster_tick_sharded(mesh)
+
+    def full(v, dtype=torch.int64):
+        return torch.full((g,), v, dtype=dtype, device=dev)
+
+    state, total, _ = tick(state, full(7))
+    if int(total) != g or not bool((state.leader.commit_index == 7).all()):
+        raise AssertionError(f"expected all {g} groups to commit at 7, got {int(total)}")
+    state, _, _ = tick(state, full(-1))
+    state.leader.match_index[:, 0] = 11
+    state.leader.flushed_index[:, 0] = 11
+    state, elected, _ = election_round_sharded(mesh, 1)(state, full(True, torch.bool))
+    won = int(elected.sum())
+    if won != g or not bool((state.fol_commit >= 7).all()):
+        raise AssertionError(f"failover election: {won}/{g} won, or committed data lost")
+    # re-seat the winners, then joint consensus: new {0, 1}, old {0, 2}
+    lead = state.leader
+    lead.is_leader.fill_(True)
+    lead.term.add_(1)
+    lead.term_start.zero_()
+    lead.match_index[:, 0] = 9
+    lead.flushed_index[:, 0] = 9
+    lead.is_voter.zero_()
+    lead.is_voter[:, :2] = True
+    lead.is_voter_old.zero_()
+    lead.is_voter_old[:, 0] = True
+    lead.is_voter_old[:, 2] = True
+    lead.match_index[:, 1], lead.match_index[:, 2] = 9, 7
+    lead.flushed_index[:, 1], lead.flushed_index[:, 2] = 9, 7
+    lead.commit_index.fill_(7)
+    gated = quorum_ops.quorum_commit_step(GroupState(*(t.clone() for t in lead)))
+    if not bool((gated.commit_index == 7).all()):
+        raise AssertionError("joint quorum must gate on the old set's laggard")
+    done = GroupState(*(t.clone() for t in lead))
+    done.is_voter_old.zero_()
+    done = quorum_ops.quorum_commit_step(done)
+    if not bool((done.commit_index == 9).all()):
+        raise AssertionError("leaving joint consensus must commit 9")
+    lead.is_voter_old.zero_()
+    state.fol_dirty[:, 0] = 1
+    state.fol_flushed[:, 0] = 1
+    state.fol_commit[:, 0] = 1
+    state.log_start.fill_(6)
+    state, _, installs = tick(state, full(-1))
+    if int(installs) != g or not bool((state.fol_dirty[:, 0] >= 5).all()):
+        raise AssertionError(f"expected {g} snapshot installs, got {int(installs)}")
+    return {"committed": int(total), "elected": won, "installs": int(installs)}
+
+
+def run_cluster(torch, g: int, n: int, ticks: int, device: str, seed: int = SEED + 11) -> dict:
+    """`ticks` seeded rounds of the ring cluster at g groups over n chip
+    blocks, the state resident on `device`: each tick about 30 % of the
+    leaders append nothing, the rest up to 3 entries; every fifth tick an
+    election on about 1 % of the groups with candidate_hop alternating 1
+    and 2, its winners seated at the new term (the host handoff) so the
+    next heartbeat truncates; each tick retention moves 2 % of log starts
+    to commit + 1 and 1 % of mirrors lose their tail. The wrappers run
+    on one copy of the state, the plain versions on another; after every
+    call every lane, `elected`, the terms and both totals must be equal."""
+    from redpanda_tpu_torch.parallel import cluster_step as cl
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+    kern = cluster_state(cluster_fields(rng, g), device)
+    plain = clone_cluster(kern)
+    totals = {"committed": 0, "installs": 0, "elected": 0, "elections": 0}
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for t in range(ticks):
+        grow = up(np.where(rng.random(g) < 0.3, -1, rng.integers(0, 4, g)))
+        new_dirty = torch.where(grow < 0, -1, kern.leader.match_index[:, 0] + grow)
+        _, tot, inst = cl.cluster_tick(kern, new_dirty, n)
+        _, p_tot, p_inst = cl.cluster_tick_plain(plain, new_dirty, n)
+        same_cluster(kern, plain, f"tick {t}")
+        if (int(tot), int(inst)) != (int(p_tot), int(p_inst)):
+            raise AssertionError(f"tick {t}: totals {(int(tot), int(inst))} != {(int(p_tot), int(p_inst))}")
+        totals["committed"] += int(tot)
+        totals["installs"] += int(inst)
+        if t % 5 == 4:
+            hop = 1 + (t // 5) % 2
+            mask = up(rng.random(g) < 0.01)
+            _, el, terms = cl.election_round(kern, mask, hop, n)
+            _, p_el, p_terms = cl.election_round_plain(plain, mask, hop, n)
+            same_cluster(kern, plain, f"election at tick {t}")
+            if not (torch.equal(el, p_el) and torch.equal(terms, p_terms)):
+                raise AssertionError(f"election at tick {t}: elected / terms differ from the plain version")
+            totals["elected"] += int(el.sum())
+            totals["elections"] += 1
+            for s in (kern, plain):
+                s.leader.is_leader[el] = True
+                s.leader.term[el] = terms[el]
+                s.leader.term_start[el] = s.leader.match_index[el, 0] + 1
+        adv = up(rng.random(g) < 0.02)
+        lose = up(rng.random((g, RF - 1)) < 0.01)
+        cut = up(rng.integers(-1, 5, (g, RF - 1)))
+        for s in (kern, plain):
+            s.log_start[adv] = torch.maximum(s.log_start, s.leader.commit_index + 1)[adv]
+            s.fol_dirty[lose] = torch.minimum(s.fol_dirty, cut)[lose]
+            torch.minimum(s.fol_flushed, s.fol_dirty, out=s.fol_flushed)
+            torch.minimum(s.fol_commit, s.fol_flushed, out=s.fol_commit)
+    if not (totals["committed"] and totals["installs"] and totals["elected"]):
+        raise AssertionError(f"the schedule missed a path: {totals}")
+    return {"totals": totals, "state": kern}
+
+
+def phase_cluster(torch, mem_rate: float) -> dict:
+    """Phase 10: the ring cluster at G = 1M groups over D = 8 chip
+    blocks: the dryrun scenario, then the seeded ticks against the plain
+    versions; then the four kernels on the device clock."""
+    from redpanda_tpu_torch.parallel import cluster_step as cl
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dry = dryrun_cluster(torch, CLUSTER_G, MESH_D, "cuda")
+    t1 = time.perf_counter()
+    run = run_cluster(torch, CLUSTER_G, MESH_D, CLUSTER_TICKS, "cuda")
+    t2 = time.perf_counter()
+    launches = {k: cl.LAUNCHES[k] for k in cl.LAUNCHES}
+    log(f"[cluster] G={CLUSTER_G} D={MESH_D} RF={RF}: the dryrun_multichip scenario held ({dry}) in "
+        f"{(t1 - t0) * 1e3:.1f} ms; {CLUSTER_TICKS} seeded ticks and {run['totals']['elections']} elections "
+        f"equal to the plain versions after every call ({run['totals']}) in {t2 - t1:.1f} s (host clock, "
+        f"plain versions and comparisons included)")
+    out = cluster_kernels(torch, run["state"], mem_rate)
+    return {"launches": launches, "kernels": out}
+
+
+def cluster_kernels(torch, state, mem_rate: float) -> dict:
+    """cluster_tick, election_round, follower_commit_step and
+    local_append_update at the cluster shape on the device clock beside
+    their bounds; the last two also against their plain versions."""
+    from redpanda_tpu_torch.models.consensus_state import GroupState
+    from redpanda_tpu_torch.parallel import cluster_step as cl
+
+    rng = np.random.default_rng(SEED + 12)
+    g, r = state.leader.match_index.shape
+    dev = state.leader.match_index.device
+    base = clone_cluster(state)
+    work = clone_cluster(state)
+
+    def reset():
+        for a, b in zip(work.leader, base.leader):
+            a.copy_(b)
+        for k in MIRROR_LANES:
+            getattr(work, k).copy_(getattr(base, k))
+
+    new_dirty = torch.where(torch.from_numpy(rng.random(g) < 0.3).to(dev), -1,
+                            base.leader.match_index[:, 0] + torch.from_numpy(rng.integers(0, 4, g)).to(dev))
+    mask = torch.from_numpy(rng.random(g) < 0.01).to(dev)
+    out = {
+        "cluster_tick": {
+            "shape": f"G={g} R={r} D={MESH_D} RF={RF}", "max_abs_err": 0.0,
+            "ms": time_kernel(lambda: cl.cluster_tick(work, new_dirty, MESH_D), reset),
+            "plain_ms": time_plain(lambda: cl.cluster_tick_plain(work, new_dirty, MESH_D), reset),
+            # leader row read (match, flushed over [G, R]; both masks; five
+            # [G] lanes), five mirror lanes, log_start, new_dirty; slots
+            # 0..2 of match / flushed, commit, visible, four mirror lanes
+            # written
+            "bound_ms": g * (r * 18 + 33 + 5 * 16 + 16 + 2 * RF * 8 + 16 + 4 * 16) / mem_rate * 1e3,
+        },
+        "election_round": {
+            "shape": f"G={g} R={r} D={MESH_D} mask={int(mask.sum())}", "max_abs_err": 0.0,
+            "ms": time_kernel(lambda: cl.election_round(work, mask, 1, MESH_D), reset),
+            "plain_ms": time_plain(lambda: cl.election_round_plain(work, mask, 1, MESH_D), reset),
+            # mask, term, is_leader, match[:, 0], three mirror lanes read;
+            # elected, terms, term, is_leader and the two vote columns and
+            # the candidate's append column written
+            "bound_ms": g * (1 + 8 + 1 + 8 + 3 * 16 + 1 + 8 + 8 + 1 + 16 + 8) / mem_rate * 1e3,
+        },
+    }
+    # the two follower-side rules on the leader lanes at the same shape
+    lead_base = GroupState(*(t.clone() for t in base.leader))
+    lead = GroupState(*(t.clone() for t in base.leader))
+
+    def reset_lead():
+        for a, b in zip(lead, lead_base):
+            a.copy_(b)
+
+    def lanes(s):
+        return {k: getattr(s, k).clone() for k in s._fields}
+
+    lc = base.leader.commit_index + torch.from_numpy(rng.integers(-2, 6, g)).to(dev)
+    rows = torch.from_numpy(rng.integers(0, g, g)).to(dev)
+    app = base.leader.match_index[:, 0][rows] + torch.from_numpy(rng.integers(-3, 8, g)).to(dev)
+    app_f = app - torch.from_numpy(rng.integers(0, 3, g)).to(dev)
+    for name, kern, plain, args, nbytes in (
+        ("follower_commit_step", quorum_ops.follower_commit_step, quorum_ops.follower_commit_step_plain,
+         (lc,), g * (8 + 8 + 8 + 8 + 16)),
+        # rows, dirty, flushed read; slot 0 of match / flushed read and
+        # written once per distinct row
+        ("local_append_update", quorum_ops.local_append_update, quorum_ops.local_append_update_plain,
+         (rows, app, app_f), 24 * g + 32 * len(np.unique(rows.cpu().numpy()))),
+    ):
+        reset_lead()
+        want = lanes(plain(lead, *args))
+        reset_lead()
+        got = lanes(kern(lead, *args))
+        torch.cuda.synchronize()
+        out[name] = {
+            "shape": f"G={g} R={r}" + (f" M={g}" if name == "local_append_update" else ""),
+            "max_abs_err": max_abs_err(got, want),
+            "ms": time_kernel(lambda: kern(lead, *args), reset_lead),
+            "plain_ms": time_plain(lambda: plain(lead, *args), reset_lead),
+            "bound_ms": nbytes / mem_rate * 1e3,
+        }
+    for name, e in out.items():
+        log(f"[cluster] {name:<20} {e['shape']}: kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, "
+            f"plain {e['plain_ms']:.3f} ms")
+    return out
+
+
 def nvidia_smi() -> str:
     try:
         return subprocess.run(
@@ -1636,21 +2194,26 @@ def main() -> int:
     del segment
     zr = phase_zstd_recompress(torch)
     results.update(seg["kernels"])
-    for launches in (seg["launches"], zr["launches"]):
+    mesh = phase_mesh(torch, MEM_BYTES_PER_S)
+    cluster = phase_cluster(torch, MEM_BYTES_PER_S)
+    results.update(mesh["kernels"])
+    results.update(cluster["kernels"])
+    for launches in (seg["launches"], zr["launches"], mesh["launches"], cluster["launches"]):
         for name, count in launches.items():
             path_launches[name] = path_launches.get(name, 0) + count
-    missing = [k for k in KERNELS if path_launches.get(k, 0) <= 0]
+    missing = [k for k in KERNELS if k not in OFF_PATH and path_launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     log(f"[launches] main path (batch CRCs: crc32c_device {rb['launches']}; codec path: {rc['launches']}; "
-        f"segment path: {seg['launches']}; zstd batches: {zr['launches']}): {path_launches}")
+        f"segment path: {seg['launches']}; zstd batches: {zr['launches']}; mesh: {mesh['launches']}; "
+        f"cluster: {cluster['launches']}; no main-path caller: {', '.join(OFF_PATH)}): {path_launches}")
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         e = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": path_launches[name], "max_abs_err": e["max_abs_err"],
+            "launches": path_launches.get(name, 0), "max_abs_err": e["max_abs_err"],
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "shape": e["shape"],
         })

@@ -13,12 +13,15 @@ Every kernel wrapper runs its plain PyTorch version for tensors on the
 CPU (the tests) and launches its CUDA kernel, or raises, for tensors
 on the card.
 
-Ported so far (the replication tick and record-batch CRC):
+Ported so far:
   utils/        iobuf, crc32c (host), vint, named types, native loader
-  compression/  host codec registry (device codecs raise: not ported)
+  compression/  codec registry with the device LZ4 / snappy / zstd legs
   models/       record/record_batch + consensus-state tensors (torch)
-  ops/          quorum fold/commit/heartbeat, health, crc32c kernels
-  raft/         ShardGroupArrays + TickFrame (device leg on the card)
+  ops/          quorum fold/commit/heartbeat and follower rules, health,
+                crc32c, cell parse, LZ4 / snappy / zstd kernels
+  raft/         ShardGroupArrays + TickFrame (device and mesh legs)
+  parallel/     the mesh frame and the RF=3 ring cluster step over chip
+                blocks on one card
 """
 
 __version__ = "0.1.0"

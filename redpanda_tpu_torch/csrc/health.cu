@@ -1,7 +1,11 @@
-// Per-row partition-health reduction over the quorum lanes.
+// Per-row partition-health reduction over the quorum lanes, alone and
+// fused with the mesh frame's fleet totals.
 //
 // Replaces redpanda_tpu/ops/health.py:39 health_reduce (and, as the last
-// launch of a sequence, the health stage of tick_frame_health at :90).
+// launch of a sequence, the health stage of tick_frame_health at :90),
+// and, as health_totals, the health stage and the fleet totals of
+// redpanda_tpu/parallel/mesh_frame.py:63 mesh_tick_frame and :103
+// mesh_health.
 // Per row: tracked = voter | old voter; lag = max(self_dirty - match, 0)
 // over tracked slots; max_lag on active leaders; under_replicated when
 // a tracked slot's match trails commit_index; leaderless when an active
@@ -12,32 +16,43 @@
 // lanes, ~5 MB, ~1.5 us at 3.35 TB/s; the arithmetic is a handful of
 // compares per slot.
 //
+// health_totals at the mesh frame's 1M rows over D = 8 chip blocks reads
+// the same lanes plus the pre-commit snapshot, ~109 MB, ~33 us; the
+// totals add one int64 atomic per CUDA block and counter.
+//
 // Design: one thread per row, a plain loop over the row's R slots (no
 // per-slot state is kept, so nothing needs registers beyond the running
 // max and flag). Lag subtraction wraps like the reference's int64 math
-// instead of invoking signed-overflow undefined behaviour. Fusing this
-// into the commit sweep, which already holds the row in registers, is
-// left for a later change.
+// instead of invoking signed-overflow undefined behaviour. health_totals
+// runs the same row function with gridDim.y = D, reduces the five
+// counters per CUDA block and folds them per chip block (chip_blocks.cuh);
+// fold_blocks then sums the [D, 5] partials. Fusing this into the commit
+// sweep, which already holds the row in registers, is left for a later
+// change.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "chip_blocks.cuh"
 
 typedef long long i64;
 typedef unsigned char u8;
 
 #define THREADS 256
 
-__global__ void health_kernel(const i64* __restrict__ match,
-                              const i64* __restrict__ commit,
-                              const u8* __restrict__ voter,
-                              const u8* __restrict__ voter_old,
-                              const u8* __restrict__ is_leader,
-                              const u8* __restrict__ leader_known,
-                              const u8* __restrict__ active,
-                              i64* __restrict__ max_lag, u8* __restrict__ under,
-                              u8* __restrict__ leaderless, i64 g_n, i64 r_n) {
-    const i64 g = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-    if (g >= g_n) return;
+struct HealthRow {
+    i64 max_lag;
+    bool under, leaderless;
+};
+
+// One row of the reduction: writes max_lag / under / leaderless of row g
+// and returns them.
+__device__ __forceinline__ HealthRow health_row(
+    const i64* __restrict__ match, const i64* __restrict__ commit,
+    const u8* __restrict__ voter, const u8* __restrict__ voter_old,
+    const u8* __restrict__ is_leader, const u8* __restrict__ leader_known,
+    const u8* __restrict__ active, i64* __restrict__ max_lag,
+    u8* __restrict__ under, u8* __restrict__ leaderless, i64 g, i64 r_n) {
     const i64 base = g * r_n;
     const bool leads = is_leader[g] != 0, act = active[g] != 0;
     const i64 self_dirty = match[base];  // SELF_SLOT
@@ -52,9 +67,60 @@ __global__ void health_kernel(const i64* __restrict__ match,
         trails |= mv < c;
     }
     const bool lead = leads && act;
-    max_lag[g] = lead ? worst : 0;
-    under[g] = lead && trails;
-    leaderless[g] = act && !leads && leader_known[g] == 0;
+    const HealthRow out = {lead ? worst : 0, lead && trails,
+                           act && !leads && leader_known[g] == 0};
+    max_lag[g] = out.max_lag;
+    under[g] = out.under;
+    leaderless[g] = out.leaderless;
+    return out;
+}
+
+__global__ void health_kernel(const i64* __restrict__ match,
+                              const i64* __restrict__ commit,
+                              const u8* __restrict__ voter,
+                              const u8* __restrict__ voter_old,
+                              const u8* __restrict__ is_leader,
+                              const u8* __restrict__ leader_known,
+                              const u8* __restrict__ active,
+                              i64* __restrict__ max_lag, u8* __restrict__ under,
+                              u8* __restrict__ leaderless, i64 g_n, i64 r_n) {
+    const i64 g = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g >= g_n) return;
+    health_row(match, commit, voter, voter_old, is_leader, leader_known, active,
+               max_lag, under, leaderless, g, r_n);
+}
+
+// Counters, in the order of the totals the frame returns.
+enum { T_ADVANCED, T_MAX_LAG, T_UNDER, T_LEADERLESS, T_ACTIVE, T_N };
+
+// Rows [d * block_rows, (d + 1) * block_rows) form chip block d =
+// blockIdx.y. `before` (the commit lane before the frame's commit launch)
+// may be null: the advanced counter then stays 0.
+__global__ void __launch_bounds__(THREADS)
+health_totals_kernel(const i64* __restrict__ match,
+                     const i64* __restrict__ commit,
+                     const u8* __restrict__ voter,
+                     const u8* __restrict__ voter_old,
+                     const u8* __restrict__ is_leader,
+                     const u8* __restrict__ leader_known,
+                     const u8* __restrict__ active,
+                     const i64* __restrict__ before, i64* __restrict__ max_lag,
+                     u8* __restrict__ under, u8* __restrict__ leaderless,
+                     i64* __restrict__ partials, i64 block_rows, i64 r_n) {
+    const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+    i64 v[T_N] = {0, 0, 0, 0, 0};
+    if (i < block_rows) {
+        const i64 g = (i64)blockIdx.y * block_rows + i;
+        const HealthRow h = health_row(match, commit, voter, voter_old,
+                                       is_leader, leader_known, active, max_lag,
+                                       under, leaderless, g, r_n);
+        v[T_ADVANCED] = before != nullptr && commit[g] > before[g];
+        v[T_MAX_LAG] = h.max_lag;
+        v[T_UNDER] = h.under;
+        v[T_LEADERLESS] = h.leaderless;
+        v[T_ACTIVE] = active[g] != 0;
+    }
+    block_partials<T_N>(v, 1u << T_MAX_LAG, partials);
 }
 
 extern "C" {
@@ -72,6 +138,26 @@ int rp_health_reduce(const i64* match, const i64* commit, const u8* voter,
     health_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
         match, commit, voter, voter_old, is_leader, leader_known, active,
         max_lag, under, leaderless, g_n, r_n);
+    return (int)cudaGetLastError();
+}
+
+int rp_health_totals(const i64* match, const i64* commit, const u8* voter,
+                     const u8* voter_old, const u8* is_leader,
+                     const u8* leader_known, const u8* active, const i64* before,
+                     i64* max_lag, u8* under, u8* leaderless, i64* partials,
+                     i64* totals, i64 n_blocks, i64 block_rows, i64 r_n,
+                     void* stream) {
+    if (n_blocks <= 0 || block_rows <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    const dim3 grid((unsigned)((block_rows + THREADS - 1) / THREADS),
+                    (unsigned)n_blocks);
+    health_totals_kernel<<<grid, THREADS, 0, s>>>(
+        match, commit, voter, voter_old, is_leader, leader_known, active,
+        before, max_lag, under, leaderless, partials, block_rows, r_n);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    fold_blocks<<<1, 32, 0, s>>>(partials, totals, (int)n_blocks, T_N,
+                                 1u << T_MAX_LAG);
     return (int)cudaGetLastError();
 }
 

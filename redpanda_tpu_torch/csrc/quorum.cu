@@ -1,10 +1,12 @@
 // Batched quorum kernels for the replication tick: the reply fold, the
-// commit sweep and the heartbeat gather.
+// commit sweep and the heartbeat gather; and the two follower-side rules.
 //
 // Replaces (redpanda_tpu/ops/quorum.py):
-//   fold_replies        :172  scatter-max of M replies into [G, R] lanes
-//   quorum_commit_step  :110  masked majority order statistic per group
-//   build_heartbeats    :196  gather of the heartbeat payload fields
+//   fold_replies          :172  scatter-max of M replies into [G, R] lanes
+//   quorum_commit_step    :110  masked majority order statistic per group
+//   build_heartbeats      :196  gather of the heartbeat payload fields
+//   follower_commit_step  :154  commit = min(leader_commit, flushed[0])
+//   local_append_update   :211  scatter-max of M appends into slot 0
 //
 // What bounds them on an H100: bytes. At G = 50,000, R = 8 the commit
 // sweep reads four [G, R] lanes (two i64, two bool) plus five [G] lanes
@@ -30,16 +32,21 @@
 //   * build_heartbeats is a separate gather launched after the commit
 //     sweep: hb_idx rows are arbitrary, so it must read the
 //     post-advance lanes of rows other threads wrote.
-// All three update or read the lanes in place; the JAX program donates
+//   * follower_commit_step is one thread per group (four [G] lanes read,
+//     two written: bytes); local_append_update one thread per append,
+//     atomicMax into slot 0 because one batch may name a row twice. Both
+//     rules live in quorum_rules.cuh, where the ring cluster step
+//     (cluster.cu) applies them to its mirrors and its self slot.
+// All of them update or read the lanes in place; the JAX program donates
 // its state buffers the same way (donate_argnums=0).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-typedef long long i64;
+#include "quorum_rules.cuh"
+
 typedef unsigned char u8;
 
-#define I64_MIN ((i64)(-0x7fffffffffffffffLL - 1))
 #define THREADS 256
 
 static inline unsigned blocks_for(i64 n) {
@@ -80,48 +87,6 @@ __global__ void fold_apply_kernel(i64* __restrict__ match,
 
 // --------------------------------------------------------------- commit
 template <int N>
-__device__ __forceinline__ void bitonic_sort(i64 (&v)[N]) {
-#pragma unroll
-    for (int k = 2; k <= N; k <<= 1) {
-#pragma unroll
-        for (int j = k >> 1; j > 0; j >>= 1) {
-#pragma unroll
-            for (int i = 0; i < N; ++i) {
-                const int l = i ^ j;
-                if (l > i) {
-                    const i64 a = v[i], b = v[l];
-                    const i64 lo = a < b ? a : b, hi = a < b ? b : a;
-                    const bool up = (i & k) == 0;
-                    v[i] = up ? lo : hi;
-                    v[l] = up ? hi : lo;
-                }
-            }
-        }
-    }
-}
-
-// Majority order statistic over the slots set in `mask` (n of them):
-// the reference fills masked-out slots with i64 min, sorts ascending and
-// takes index clip(R - n + (n - 1) // 2, 0, R - 1); n == 0 gives i64 min.
-template <int N>
-__device__ __forceinline__ i64 masked_quorum(const i64 (&vals)[N],
-                                             unsigned mask, int n) {
-    if (n == 0) return I64_MIN;
-    i64 v[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = ((mask >> i) & 1u) ? vals[i] : I64_MIN;
-    bitonic_sort(v);
-    // n >= 1 here, so C's truncating (n - 1) / 2 equals Python's floor
-    // division, and N - n + (n - 1) / 2 already lies in [0, N - 1]
-    const int idx = N - n + (n - 1) / 2;
-    i64 out = v[0];
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-        if (i == idx) out = v[i];
-    return out;
-}
-
-template <int N>
 __global__ void __launch_bounds__(THREADS)
 commit_step_kernel(const i64* __restrict__ term_start,
                    const u8* __restrict__ is_leader, i64* __restrict__ commit,
@@ -144,34 +109,15 @@ commit_step_kernel(const i64* __restrict__ term_start,
             vm |= (unsigned)(voter[base + r] != 0) << r;
             om |= (unsigned)(voter_old[base + r] != 0) << r;
         } else {
-            m[r] = I64_MIN;
-            c[r] = I64_MIN;
+            m[r] = RP_I64_MIN;
+            c[r] = RP_I64_MIN;
         }
     }
-    const int n_cur = __popc(vm), n_old = __popc(om);
-    i64 majority = masked_quorum(c, vm, n_cur);
-    i64 majority_dirty = masked_quorum(m, vm, n_cur);
-    if (n_old > 0) {  // joint consensus: min over both quorums
-        const i64 m_old = masked_quorum(c, om, n_old);
-        const i64 d_old = masked_quorum(m, om, n_old);
-        majority = majority < m_old ? majority : m_old;
-        majority_dirty = majority_dirty < d_old ? majority_dirty : d_old;
-    }
-    const i64 self_flushed = flushed[base], self_dirty = match[base];
-    majority = majority < self_flushed ? majority : self_flushed;
-    majority_dirty = majority_dirty < self_dirty ? majority_dirty : self_dirty;
-
-    const bool leader = is_leader[g] != 0;
-    const i64 old_commit = commit[g];
-    const bool advance = leader && n_cur > 0 && majority > old_commit &&
-                         majority >= term_start[g];
-    const i64 new_commit = advance ? majority : old_commit;
-    commit[g] = new_commit;
-    if (leader && n_cur > 0) {
-        const i64 lv = last_visible[g];
-        const i64 cand = new_commit > majority_dirty ? new_commit : majority_dirty;
-        last_visible[g] = lv > cand ? lv : cand;
-    }
+    const i64 lv = last_visible[g];
+    i64 nv = lv;
+    commit[g] = commit_row(m, c, vm, om, flushed[base], is_leader[g] != 0,
+                           term_start[g], commit[g], &nv);
+    if (nv != lv) last_visible[g] = nv;
 }
 
 // ----------------------------------------------------------- heartbeats
@@ -194,6 +140,32 @@ __global__ void heartbeats_kernel(const i64* __restrict__ hb_idx,
     o_commit[i] = commit[g];
     o_dirty[i] = match[g * r_n];  // SELF_SLOT
     o_visible[i] = last_visible[g];
+}
+
+// ------------------------------------------------------ follower rules
+__global__ void follower_commit_kernel(i64* __restrict__ commit,
+                                       i64* __restrict__ last_visible,
+                                       const i64* __restrict__ flushed,
+                                       const i64* __restrict__ leader_commit,
+                                       i64 g_n, i64 r_n) {
+    const i64 g = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g >= g_n) return;
+    const i64 c = follower_commit(commit[g], leader_commit[g], flushed[g * r_n]);
+    commit[g] = c;
+    last_visible[g] = imax(last_visible[g], c);
+}
+
+__global__ void local_append_kernel(i64* __restrict__ match,
+                                    i64* __restrict__ flushed,
+                                    const i64* __restrict__ group_idx,
+                                    const i64* __restrict__ dirty,
+                                    const i64* __restrict__ flushed_in, i64 m,
+                                    i64 g_n, i64 r_n) {
+    const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= m) return;
+    const i64 g = group_idx[i];
+    if (g < 0 || g >= g_n) return;  // rows in range by contract
+    local_append<true>(&match[g * r_n], &flushed[g * r_n], dirty[i], flushed_in[i]);
 }
 
 // ------------------------------------------------------------ C entries
@@ -238,6 +210,24 @@ int rp_commit_step(const i64* term_start, const u8* is_leader, i64* commit,
         commit_step_kernel<32><<<blocks_for(g_n), THREADS, 0, s>>>(
             term_start, is_leader, commit, last_visible, match, flushed, voter,
             voter_old, g_n, r);
+    return (int)cudaGetLastError();
+}
+
+int rp_follower_commit(i64* commit, i64* last_visible, const i64* flushed,
+                       const i64* leader_commit, i64 g_n, i64 r_n,
+                       void* stream) {
+    if (g_n <= 0) return 0;
+    follower_commit_kernel<<<blocks_for(g_n), THREADS, 0, (cudaStream_t)stream>>>(
+        commit, last_visible, flushed, leader_commit, g_n, r_n);
+    return (int)cudaGetLastError();
+}
+
+int rp_local_append(i64* match, i64* flushed, const i64* group_idx,
+                    const i64* dirty, const i64* flushed_in, i64 m, i64 g_n,
+                    i64 r_n, void* stream) {
+    if (m <= 0 || g_n <= 0) return 0;
+    local_append_kernel<<<blocks_for(m), THREADS, 0, (cudaStream_t)stream>>>(
+        match, flushed, group_idx, dirty, flushed_in, m, g_n, r_n);
     return (int)cudaGetLastError();
 }
 

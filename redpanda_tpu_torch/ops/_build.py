@@ -1,9 +1,10 @@
 """Kernel loader: nvcc-built shared libraries bound with ctypes.
 
 Each `csrc/<name>.cu` compiles into `_build/lib<name>.so` the first
-time a wrapper needs it, and again whenever the source is newer than
-the library. The libraries have a plain C interface: every pointer and
-the CUDA stream go over as `c_void_p`, every size as `c_int64`, and
+time a wrapper needs it, and again whenever the source or one of the
+shared headers (`csrc/*.cuh`) is newer than the library. The libraries
+have a plain C interface: every pointer and the CUDA stream go over as
+`c_void_p`, every size as `c_int64`, and
 each entry point returns `cudaGetLastError()` right after its launches
 (0 = ok) so a refused launch raises in the wrapper instead of passing
 silently. Builds go to a temporary name and are renamed into place,
@@ -25,7 +26,7 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("quorum", "health", "crc32c", "codec", "zstd")
+SOURCES = ("quorum", "health", "crc32c", "codec", "zstd", "cluster")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -59,7 +60,10 @@ def _paths(name: str) -> tuple[str, str]:
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return not os.path.exists(lib) or os.path.getmtime(src) > os.path.getmtime(lib)
+    if not os.path.exists(lib):
+        return True
+    headers = [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")]
+    return max(os.path.getmtime(p) for p in [src, *headers]) > os.path.getmtime(lib)
 
 
 def _start(name: str) -> tuple[subprocess.Popen, str]:

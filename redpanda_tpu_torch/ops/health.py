@@ -18,7 +18,10 @@ fleet's health rolls up in one kernel launch (csrc/health.cu):
   a leader.
 
 `tick_frame_health` runs this after `ops.quorum.tick_frame` on the
-post-advance lanes, on the same stream. `health_reduce_np` is the
+post-advance lanes, on the same stream. `health_totals` is the same
+reduction over lanes laid out as D chip blocks of contiguous rows, fused
+with the mesh frame's fleet totals (parallel/mesh_frame.py): per-block
+partials, then one fold over the blocks. `health_reduce_np` is the
 numpy mirror the host backend uses; the scalar oracle for
 differential testing is `raft.health_scalar`.
 """
@@ -32,7 +35,10 @@ from ..models.consensus_state import SELF_SLOT, GroupState
 from . import _build
 from . import quorum as q
 
-LAUNCHES = {"health_reduce": 0}
+LAUNCHES = {"health_reduce": 0, "health_totals": 0}
+
+# the fleet totals health_totals returns, in order (mesh_frame.py)
+TOTALS = ("advanced", "max_follower_lag", "under_replicated", "leaderless", "active")
 
 _LIB = None
 
@@ -42,6 +48,7 @@ def _lib():
     if _LIB is None:
         lib = _build.load("health")
         _build.bind(lib, "rp_health_reduce", 10, 2)
+        _build.bind(lib, "rp_health_totals", 13, 3)
         _LIB = lib
     return _LIB
 
@@ -64,17 +71,7 @@ def health_reduce_plain(
     }
 
 
-def health_reduce(
-    match: torch.Tensor,         # [G, R] i64 dirty offsets (slot 0 = self)
-    commit: torch.Tensor,        # [G] i64 commit_index
-    is_voter: torch.Tensor,      # [G, R] bool current voter mask
-    is_voter_old: torch.Tensor,  # [G, R] bool joint-consensus old voters
-    is_leader: torch.Tensor,     # [G] bool
-    leader_known: torch.Tensor,  # [G] bool leader_id resolved for the row
-    active: torch.Tensor,        # [G] bool row is allocated (not freed)
-) -> dict:
-    """One pass over the quorum lanes -> per-row health vectors
-    (`max_lag` [G] i64, `under_replicated` / `leaderless` [G] bool)."""
+def _check_health_args(match, commit, is_voter, is_voter_old, is_leader, leader_known, active):
     g, r = match.shape
     dev = match.device
     q.check_tensor(match, torch.int64, (g, r), dev, "match")
@@ -89,12 +86,28 @@ def health_reduce(
         q.check_tensor(t, torch.bool, (g,), dev, name)
     if r < 1:
         raise ValueError("health_reduce needs at least the SELF slot")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"health kernels run on cuda or cpu tensors, not {dev}")
+
+
+def health_reduce(
+    match: torch.Tensor,         # [G, R] i64 dirty offsets (slot 0 = self)
+    commit: torch.Tensor,        # [G] i64 commit_index
+    is_voter: torch.Tensor,      # [G, R] bool current voter mask
+    is_voter_old: torch.Tensor,  # [G, R] bool joint-consensus old voters
+    is_leader: torch.Tensor,     # [G] bool
+    leader_known: torch.Tensor,  # [G] bool leader_id resolved for the row
+    active: torch.Tensor,        # [G] bool row is allocated (not freed)
+) -> dict:
+    """One pass over the quorum lanes -> per-row health vectors
+    (`max_lag` [G] i64, `under_replicated` / `leaderless` [G] bool)."""
+    _check_health_args(match, commit, is_voter, is_voter_old, is_leader, leader_known, active)
+    g, r = match.shape
+    dev = match.device
     if dev.type == "cpu":
         return health_reduce_plain(
             match, commit, is_voter, is_voter_old, is_leader, leader_known, active
         )
-    if dev.type != "cuda":
-        raise ValueError(f"health kernels run on cuda or cpu tensors, not {dev}")
     out = {
         "max_lag": torch.empty(g, dtype=torch.int64, device=dev),
         "under_replicated": torch.empty(g, dtype=torch.bool, device=dev),
@@ -119,6 +132,89 @@ def health_reduce(
         _build.check(lib, rc, "health_reduce")
         LAUNCHES["health_reduce"] += 1
     return out
+
+
+def health_totals_plain(
+    match, commit, is_voter, is_voter_old, is_leader, leader_known, active, n_blocks, before=None
+) -> tuple[dict, torch.Tensor]:
+    """Plain PyTorch version of `health_totals`."""
+    health = health_reduce_plain(
+        match, commit, is_voter, is_voter_old, is_leader, leader_known, active
+    )
+    advanced = commit > before if before is not None else torch.zeros_like(active)
+    cols = torch.stack(
+        [advanced.long(), health["max_lag"], health["under_replicated"].long(),
+         health["leaderless"].long(), active.long()],
+        dim=1,
+    ).view(n_blocks, commit.shape[0] // n_blocks, len(TOTALS))
+    # max_lag is never negative, so a max over no rows is the initial 0
+    partials = cols.sum(dim=1)
+    if cols.shape[1]:
+        partials[:, 1] = cols[:, :, 1].amax(dim=1)
+    totals = partials.sum(dim=0)
+    totals[1] = partials[:, 1].amax()
+    return health, totals
+
+
+def health_totals(
+    match: torch.Tensor,         # [G, R] i64, G = n_blocks * rows per block
+    commit: torch.Tensor,        # [G] i64 commit_index
+    is_voter: torch.Tensor,      # [G, R] bool
+    is_voter_old: torch.Tensor,  # [G, R] bool
+    is_leader: torch.Tensor,     # [G] bool
+    leader_known: torch.Tensor,  # [G] bool
+    active: torch.Tensor,        # [G] bool
+    n_blocks: int,
+    before: "torch.Tensor | None" = None,  # [G] i64 commit before the frame
+) -> tuple[dict, torch.Tensor]:
+    """`health_reduce` over lanes laid out as `n_blocks` chip blocks of
+    equal contiguous row ranges, fused with the fleet totals: returns
+    the health lanes and a [5] i64 tensor in `TOTALS` order — rows whose
+    commit exceeds `before` (0 without it), the max of max_lag (initial
+    0), the under-replicated, leaderless and active row counts. Each
+    block's partials are reduced on its own, then folded over the blocks
+    in one step: the frame's one cross-chip fold."""
+    _check_health_args(match, commit, is_voter, is_voter_old, is_leader, leader_known, active)
+    g, r = match.shape
+    dev = match.device
+    if n_blocks < 1 or g % n_blocks:
+        raise ValueError(f"{g} rows do not split into {n_blocks} equal chip blocks")
+    if before is not None:
+        q.check_tensor(before, torch.int64, (g,), dev, "before")
+    if dev.type == "cpu":
+        return health_totals_plain(
+            match, commit, is_voter, is_voter_old, is_leader, leader_known, active,
+            n_blocks, before,
+        )
+    out = {
+        "max_lag": torch.empty(g, dtype=torch.int64, device=dev),
+        "under_replicated": torch.empty(g, dtype=torch.bool, device=dev),
+        "leaderless": torch.empty(g, dtype=torch.bool, device=dev),
+    }
+    partials = torch.zeros((n_blocks, len(TOTALS)), dtype=torch.int64, device=dev)
+    totals = torch.zeros(len(TOTALS), dtype=torch.int64, device=dev)
+    if g:
+        lib = _lib()
+        rc = lib.rp_health_totals(
+            match.data_ptr(),
+            commit.data_ptr(),
+            is_voter.data_ptr(),
+            is_voter_old.data_ptr(),
+            is_leader.data_ptr(),
+            leader_known.data_ptr(),
+            active.data_ptr(),
+            before.data_ptr() if before is not None else None,
+            out["max_lag"].data_ptr(),
+            out["under_replicated"].data_ptr(),
+            out["leaderless"].data_ptr(),
+            partials.data_ptr(),
+            totals.data_ptr(),
+            n_blocks, g // n_blocks, r,
+            _build.stream_of(match),
+        )
+        _build.check(lib, rc, "health_totals")
+        LAUNCHES["health_totals"] += 1
+    return out, totals
 
 
 def health_reduce_np(

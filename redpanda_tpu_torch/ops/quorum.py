@@ -26,6 +26,13 @@ loops:
 * `heartbeat_tick` / `tick_frame` — the fused tick as a launch
   sequence: fold, then commit (, then gather).
 
+* `follower_commit_step` — the follower-side rule
+  (consensus.cc:2760-2777): commit = min(leader_commit, flushed),
+  monotone; `local_append_update` — scatter-max of local appends into
+  the self slot. Neither has a caller on a main path (as in the
+  reference); the ring cluster step (parallel/cluster_step.py) applies
+  the same two rules, written once in csrc/quorum_rules.cuh.
+
 Each kernel wrapper launches its CUDA kernel (csrc/quorum.cu) for
 tensors on the card and runs its plain PyTorch version (`*_plain`) for
 tensors on the CPU; any other device raises. The fold and the commit
@@ -44,7 +51,13 @@ from . import _build
 I64_MIN = -(2**63)
 MAX_REPLICA_SLOTS = 32  # the commit kernel keeps a row in registers
 
-LAUNCHES = {"fold_replies": 0, "quorum_commit_step": 0, "build_heartbeats": 0}
+LAUNCHES = {
+    "fold_replies": 0,
+    "quorum_commit_step": 0,
+    "build_heartbeats": 0,
+    "follower_commit_step": 0,
+    "local_append_update": 0,
+}
 
 _LIB = None
 
@@ -56,6 +69,8 @@ def _lib():
         _build.bind(lib, "rp_fold_replies", 9, 3)
         _build.bind(lib, "rp_commit_step", 8, 2)
         _build.bind(lib, "rp_build_heartbeats", 9, 3)
+        _build.bind(lib, "rp_follower_commit", 4, 2)
+        _build.bind(lib, "rp_local_append", 5, 3)
         _LIB = lib
     return _LIB
 
@@ -288,6 +303,91 @@ def build_heartbeats(state: GroupState, group_idx: torch.Tensor) -> dict:
         _build.check(lib, rc, "build_heartbeats")
         LAUNCHES["build_heartbeats"] += 1
     return {"group": group_idx, **out}
+
+
+# --------------------------------------------------- follower rules
+def follower_commit_step_plain(state: GroupState, leader_commit: torch.Tensor) -> GroupState:
+    """Plain PyTorch follower commit; writes commit_index and
+    last_visible in place."""
+    proposed = torch.minimum(leader_commit, state.flushed_index[:, SELF_SLOT])
+    new_commit = torch.where(
+        (leader_commit > state.commit_index) & (proposed > state.commit_index),
+        proposed,
+        state.commit_index,
+    )
+    state.last_visible.copy_(torch.maximum(state.last_visible, new_commit))
+    state.commit_index.copy_(new_commit)
+    return state
+
+
+def follower_commit_step(state: GroupState, leader_commit: torch.Tensor) -> GroupState:
+    """Follower commit rule over all groups at once, in place: if
+    leader_commit > commit, commit = min(leader_commit, flushed[self]);
+    last_visible is the running max. leader_commit: [G] i64 (i64 min for
+    groups with no update this tick)."""
+    check_state(state)
+    g, r = state.match_index.shape
+    _check_vec(leader_commit, g, state.match_index.device, "leader_commit")
+    if not _on_card(state):
+        return follower_commit_step_plain(state, leader_commit)
+    if g == 0:
+        return state
+    lib = _lib()
+    rc = lib.rp_follower_commit(
+        state.commit_index.data_ptr(),
+        state.last_visible.data_ptr(),
+        state.flushed_index.data_ptr(),
+        leader_commit.data_ptr(),
+        g, r,
+        _build.stream_of(leader_commit),
+    )
+    _build.check(lib, rc, "follower_commit_step")
+    LAUNCHES["follower_commit_step"] += 1
+    return state
+
+
+def local_append_update_plain(state, group_idx, dirty, flushed) -> GroupState:
+    """Plain PyTorch local append, in place (duplicate rows resolve by
+    max)."""
+    r = state.match_index.shape[1]
+    cell = group_idx * r + SELF_SLOT
+    state.match_index.view(-1).scatter_reduce_(0, cell, dirty, "amax", include_self=True)
+    state.flushed_index.view(-1).scatter_reduce_(0, cell, flushed, "amax", include_self=True)
+    return state
+
+
+def local_append_update(
+    state: GroupState,
+    group_idx: torch.Tensor,  # [M] i64 rows in [0, G)
+    dirty: torch.Tensor,      # [M] i64 local dirty offsets
+    flushed: torch.Tensor,    # [M] i64 local flushed offsets
+) -> GroupState:
+    """Reflect local log appends / flushes into the self slot for a
+    batch of groups, in place (the disk_append -> leader state
+    hand-off)."""
+    check_state(state)
+    dev = state.match_index.device
+    g, r = state.match_index.shape
+    m = group_idx.shape[0]
+    for name, t in (("group_idx", group_idx), ("dirty", dirty), ("flushed", flushed)):
+        _check_vec(t, m, dev, name)
+    if not _on_card(state):
+        return local_append_update_plain(state, group_idx, dirty, flushed)
+    if m == 0 or g == 0:
+        return state
+    lib = _lib()
+    rc = lib.rp_local_append(
+        state.match_index.data_ptr(),
+        state.flushed_index.data_ptr(),
+        group_idx.data_ptr(),
+        dirty.data_ptr(),
+        flushed.data_ptr(),
+        m, g, r,
+        _build.stream_of(group_idx),
+    )
+    _build.check(lib, rc, "local_append_update")
+    LAUNCHES["local_append_update"] += 1
+    return state
 
 
 # ----------------------------------------------------- fused ticks

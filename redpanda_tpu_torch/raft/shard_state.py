@@ -13,7 +13,8 @@ device seams: `to_device_state` copies the lanes onto `self.device`
 (row-major, whatever the host lane's order), `device_tick`,
 `frame_tick` and `health_refresh` call the port's kernels, the device
 leg is the default backend (the card is locally attached), and the
-mesh backend raises until the multi-device programs are ported.
+mesh backend (RP_QUORUM_BACKEND=mesh) lays the lanes out as chip blocks
+on `self.device` (parallel/mesh_frame.MeshFrame).
 Setting `stage_ms` to a dict records CUDA-event times of each device
 tick's upload, kernels and readback (ms lists under "h2d", "kernel",
 "d2h").
@@ -81,13 +82,6 @@ def term_at_batch_cached(arrays, cache, rows, prevs):
     else:
         terms, known = arrays.term_at_batch(rows, prevs)
     return terms, known, (arrays.tb_epoch, prevs.copy(), terms, known)
-
-
-def _mesh_not_ported():
-    raise NotImplementedError(
-        "RP_QUORUM_BACKEND=mesh: the multi-device programs are not ported "
-        "to CUDA yet (ROADMAP.md, queue 1 step 9: multi-device)"
-    )
 
 
 class ShardGroupArrays:
@@ -558,7 +552,12 @@ class ShardGroupArrays:
 
     @property
     def mesh_frame(self):
-        _mesh_not_ported()
+        mf = self._mesh_frame
+        if mf is None:
+            from ..parallel.mesh_frame import MeshFrame
+
+            mf = self._mesh_frame = MeshFrame(device=self.device)
+        return mf
 
     def chip_count(self) -> int:
         """Devices in the live mesh (1 off the mesh backend)."""
@@ -679,9 +678,38 @@ class ShardGroupArrays:
         seqs: np.ndarray,
         force_rows: "np.ndarray | None" = None,
     ) -> np.ndarray:
-        """Mesh-backend tick (redpanda_tpu's row-sharded mesh frame):
-        not ported yet."""
-        _mesh_not_ported()
+        """Mesh-backend tick: small windows run the incremental host
+        sweep — chip-local BY CONSTRUCTION, since every changed row
+        lives in exactly one chip block and the fold never mixes rows —
+        while big/forced windows run the real mesh frame (one launch
+        sequence, one cross-chip totals fold). The devplane tick scope
+        is the off-state no-op (ROADMAP queue 1 step 10)."""
+        from ..observability import devplane
+
+        full = (
+            os.environ.get("RP_MESH_FULL", "0") == "1"
+            or len(group_rows) >= self.MESH_FULL_THRESHOLD
+        )
+        with devplane.tick_scope():
+            if not full:
+                advanced = self.host_tick(
+                    group_rows,
+                    replica_slots,
+                    last_dirty,
+                    last_flushed,
+                    seqs,
+                    force_rows=force_rows,
+                )
+                self._note_chip_changed(self._last_changed)
+                return advanced
+            return self._mesh_full_frame(
+                group_rows,
+                replica_slots,
+                last_dirty,
+                last_flushed,
+                seqs,
+                force_rows=force_rows,
+            )
 
     def _mesh_full_frame(
         self,
@@ -692,8 +720,58 @@ class ShardGroupArrays:
         seqs: np.ndarray,
         force_rows: "np.ndarray | None" = None,
     ) -> np.ndarray:
-        """The sharded mesh program: not ported yet."""
-        _mesh_not_ported()
+        """The mesh frame: place the lanes as chip blocks on the card,
+        run fold + commit + health chip-local with ONE cross-chip totals
+        fold, write back. Same touched-row discipline as the device
+        backend, so all three backends advance IDENTICAL row sets."""
+        import time
+
+        m = len(group_rows)
+        bucket = 8
+        while bucket < m:
+            bucket *= 2
+        g_rows = np.zeros(bucket, np.int64)
+        g_slots = np.zeros(bucket, np.int64)
+        g_dirty = np.full(bucket, I64_MIN, np.int64)
+        g_flushed = np.full(bucket, I64_MIN, np.int64)
+        g_seqs = np.full(bucket, I64_MIN, np.int64)
+        if m:
+            g_rows[:m] = group_rows
+            g_slots[:m] = replica_slots
+            g_dirty[:m] = last_dirty
+            g_flushed[:m] = last_flushed
+            g_seqs[:m] = seqs
+        dirty_rows = np.flatnonzero(self.quorum_dirty)
+        parts = [np.asarray(group_rows, np.int64), dirty_rows]
+        if force_rows is not None and len(force_rows):
+            parts.append(np.asarray(force_rows, np.int64))
+        touched = (
+            np.unique(np.concatenate(parts))
+            if any(len(p) for p in parts)
+            else _EMPTY_ROWS
+        )
+        before = self.commit_index[touched].copy()
+        t0 = time.perf_counter()
+        new, health, totals = self.mesh_frame.run(
+            self, g_rows, g_slots, g_dirty, g_flushed, g_seqs
+        )
+        self._last_fold_us = (time.perf_counter() - t0) * 1e6
+        self.commit_index[touched] = new["commit_index"][touched]
+        self.last_visible[touched] = new["last_visible"][touched]
+        self.match_index = new["match_index"]
+        self.flushed_index = new["flushed_index"]
+        self.last_seq = new["last_seq"]
+        self.health_max_lag = health["max_lag"]
+        self.health_under = health["under_replicated"]
+        self.health_leaderless = health["leaderless"]
+        self.touch()
+        self._folded_self_m[touched] = self.match_index[touched, SELF_SLOT]
+        self._folded_self_f[touched] = self.flushed_index[touched, SELF_SLOT]
+        self.quorum_dirty[:] = False
+        self._mesh_totals = totals
+        self._last_changed = touched
+        self._note_chip_changed(touched)
+        return touched[self.commit_index[touched] > before]
 
     @staticmethod
     def _masked_quorum_np(
@@ -795,7 +873,15 @@ class ShardGroupArrays:
         (which don't dirty the quorum sweep) are always reflected."""
         backend = self._backend()
         if backend == "mesh":
-            _mesh_not_ported()
+            # read path, not the per-tick sweep: the health-only mesh
+            # frame (no reply fold, no commit movement) refreshes the
+            # lanes and the fleet totals in one launch and one fold
+            health, totals = self.mesh_frame.run_health(self)
+            self.health_max_lag = health["max_lag"]
+            self.health_under = health["under_replicated"]
+            self.health_leaderless = health["leaderless"]
+            self._mesh_totals = dict(self._mesh_totals or {}, **totals)
+            return
         if backend == "device":
             from ..ops.health import health_reduce
 
@@ -1150,8 +1236,8 @@ class ShardGroupArrays:
         `hb_rows` runs device_tick. On RP_QUORUM_BACKEND=host the
         fold+commit runs through the incremental host sweep and the
         field gather is a handful of numpy takes.
-        RP_QUORUM_BACKEND=mesh raises: the multi-device programs are
-        not ported yet."""
+        On RP_QUORUM_BACKEND=mesh the fold+commit runs through
+        _mesh_tick and the field gather reads the host mirrors."""
         backend = self._backend()
         if backend == "mesh":
             advanced = self._mesh_tick(
@@ -1266,7 +1352,12 @@ class ShardGroupArrays:
         # guard must not count them against the steady window
         with compileguard.warmup("prewarm at capacity %d" % self._cap):
             if backend == "mesh":
-                _mesh_not_ported()
+                # run the frame and health launch sequences at the
+                # current capacity (also folds any pending dirty rows,
+                # matching the host/device prewarm semantics)
+                self._mesh_full_frame(empty, empty, empty, empty, empty)
+                self.health_refresh()
+                return
             self.device_tick(empty, empty, empty, empty, empty)
             if backend == "device":
                 self.frame_tick(

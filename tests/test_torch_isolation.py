@@ -4,10 +4,11 @@
   of redpanda_tpu: checked in a fresh interpreter (this process has
   jax loaded by tests/conftest.py) and by an AST scan of the sources.
 * Without a CUDA device, the default device path raises instead of
-  running the plain versions on the CPU, and chip_smoke.py exits
-  non-zero without printing a result.
-* Seams whose device programs are not ported yet (the mesh backend)
-  raise NotImplementedError naming their ROADMAP step.
+  running the plain versions on the CPU (the mesh backend and the ring
+  cluster step included), and chip_smoke.py exits non-zero without
+  printing a result.
+* No kernel wrapper holds a try statement that could route a CUDA
+  tensor to its plain version.
 * The zstd leg's punt to the host codec sees only the host walk's
   ZstdFormatError: a decode failure propagates.
 """
@@ -127,16 +128,40 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
     assert '"ok"' not in run.stdout
 
 
-def test_unported_seams_raise(monkeypatch):
+def test_mesh_seam_raises_without_cuda(monkeypatch):
+    """RP_QUORUM_BACKEND=mesh on the default device (the card) raises on
+    a machine without one, at every seam, instead of running the plain
+    versions on the CPU; so do the mesh and the ring cluster entries."""
+    _require_no_cuda()
+    from redpanda_tpu_torch.parallel import make_cluster_state, make_mesh
+    from redpanda_tpu_torch.parallel.mesh_frame import MeshFrame
     from redpanda_tpu_torch.raft.shard_state import ShardGroupArrays
 
     monkeypatch.setenv("RP_QUORUM_BACKEND", "mesh")
-    arrays = ShardGroupArrays(capacity=8, device="cpu")
+    monkeypatch.setenv("RP_MESH_DEVICES", "8")
+    arrays = ShardGroupArrays(capacity=8)
+    rows = np.array([arrays.alloc_row() for _ in range(4)], np.int64)
+    arrays.is_leader[rows] = True
     empty = np.empty(0, np.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*step 9"):
+    one = np.ones(1, np.int64)
+    calls = (
+        lambda: arrays.chip_count(),
+        lambda: arrays.prewarm(),
+        lambda: arrays.health_refresh(),
+        # a small window runs the chip-local host sweep, then attributes
+        # its changed rows to chip blocks
+        lambda: arrays.frame_tick(rows[:1], one, one, one, one, force_rows=rows),
+        lambda: MeshFrame(),
+        lambda: make_mesh(8),
+        lambda: make_cluster_state(24),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    monkeypatch.setenv("RP_MESH_FULL", "1")
+    with pytest.raises(RuntimeError, match="CUDA"):
         arrays.device_tick(empty, empty, empty, empty, empty)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*step 9"):
-        arrays.health_refresh()
+    assert arrays._mesh_frame is None
 
 
 def test_default_codec_device_raises_without_cuda(monkeypatch):
@@ -233,8 +258,14 @@ def test_zstd_decode_failure_is_not_punted(monkeypatch):
 
 
 def test_codec_wrappers_have_no_fallback():
-    """A CUDA tensor launches its kernel or raises: the codec wrappers
+    """A CUDA tensor launches its kernel or raises: the codec wrappers,
+    the quorum and health wrappers and the mesh / ring cluster modules
     hold no try statement that could route it to the plain version."""
-    for name in ("cellparse", "lz4", "snappy", "fused", "zstd"):
-        tree = ast.parse((PKG / "ops" / f"{name}.py").read_text())
-        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], name
+    for path in (
+        *(f"ops/{name}.py" for name in ("cellparse", "lz4", "snappy", "fused", "zstd", "quorum", "health")),
+        "parallel/mesh.py",
+        "parallel/mesh_frame.py",
+        "parallel/cluster_step.py",
+    ):
+        tree = ast.parse((PKG / path).read_text())
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], path
