@@ -28,6 +28,12 @@ Phases, each raising on any mismatch:
      equal parse vectors, equal lengths and equal bytes on [0, out_len);
      and the fused CRC + codec launch sequences' CRCs against the plain
      CRC;
+  5b. the kernels at the shapes one call gives them, each exact against
+     its plain version and timed: CRC, parse and LZ4 emission on phase
+     6's one fused row (one 16 x 1 KiB batch), the zstd encode on phase
+     8b's one row and the decode of that block's four streams, and the
+     parse on two full-width 64 KiB skew edges (one repeated byte; all
+     4-grams distinct);
   6. the codec path end to end: 1,024 batches (16 x 1 KiB records, half
      JSON-like text, half random bytes) through RecordBatch.recompressed
      (lz4) under RP_CODEC_BACKEND=device, each CRC checked on the card
@@ -750,6 +756,53 @@ def check_codec_kernels(torch, data, valid, n, offset, label: str):
     return got, want, out_bytes, errs
 
 
+def codec_kernel_rows(torch, data, valid, n, offset, label: str, mem_rate: float,
+                      reps: int = 10) -> tuple:
+    """The parse and both emissions on one staged shape: equal to their
+    plain versions (exact), each timed beside its bytes bound and its
+    plain version. Returns (rows keyed kernel@label, the kernel's parse,
+    the plain parse)."""
+    def bound(nbytes):
+        return nbytes / mem_rate * 1e3
+
+    b = data.shape[0]
+    nc = n // parse_ops.CELL
+    v_sum = int(valid.sum())
+    shape = f"{label}: B={b} n={n} offset={offset} bytes={v_sum}"
+    got, want, out_bytes, errs = check_codec_kernels(torch, data, valid, n, offset, label)
+    out = {f"cell_parse@{label}": {
+        "shape": shape, "max_abs_err": errs["cell_parse"],
+        "ms": time_kernel(lambda: parse_ops.launch_parse(data, valid, n, offset), reps=reps),
+        "plain_ms": time_plain(lambda: parse_ops.cell_parse_plain(data, valid, n, offset), reps=2),
+        # each row's valid bytes and length read; six [B, nc] vectors
+        # (has 1 B, five int32) and last_end written
+        "bound_ms": bound(v_sum + 4 * b + 21 * b * nc + 4 * b),
+    }}
+    lit = int(got[5].sum()) + int((valid - got[6]).clamp(min=0).sum())
+    for key, emit, emit_plain in (
+        ("lz4_emit", lz4_ops.lz4_emit, lz4_ops.lz4_emit_plain),
+        ("snappy_emit", snappy_ops.snappy_emit, snappy_ops.snappy_emit_plain),
+    ):
+        out[f"{key}@{label}"] = {
+            "shape": f"{shape} out={out_bytes[key]}", "max_abs_err": errs[key],
+            "ms": time_kernel(lambda: emit(data, valid, got, n, offset), reps=reps),
+            "plain_ms": time_plain(lambda: emit_plain(data, valid, want, n, offset), reps=2),
+            # the parse vectors the emission reads (has, offs, mlen,
+            # lit_start, lit_len: 17 B per cell, plus last_end and
+            # valid), every literal byte once, every block byte once
+            "bound_ms": bound(17 * b * nc + 8 * b + lit + out_bytes[key] + 4 * b),
+            "ratio": v_sum / max(out_bytes[key], 1),
+        }
+    return out, got, want
+
+
+def log_rows(tag: str, rows: dict, what: str = "equal to plain, tolerance exact") -> None:
+    for name, e in rows.items():
+        extra = f", ratio {e['ratio']:.3f}" if "ratio" in e else ""
+        log(f"[{tag}] {name:<22} {e['shape']}: {what}; kernel {e['ms']:.4f} ms, "
+            f"bound {e['bound_ms']:.6f} ms, plain {e['plain_ms']:.3f} ms{extra}")
+
+
 def phase_codec_kernels(torch, mem_rate: float) -> dict:
     """Phase 5: the parse and both emission kernels against their plain
     versions at the two codec shapes (exact: equal parse vectors, equal
@@ -767,33 +820,10 @@ def phase_codec_kernels(torch, mem_rate: float) -> dict:
     out = {}
     for label, (data, valid, n, offset) in codec_shapes(torch).items():
         b = data.shape[0]
-        nc = n // parse_ops.CELL
         v_sum = int(valid.sum())
         shape = f"{label}: B={b} n={n} offset={offset} bytes={v_sum}"
-        got, want, out_bytes, errs = check_codec_kernels(torch, data, valid, n, offset, label)
-        out[f"cell_parse@{label}"] = {
-            "shape": shape, "max_abs_err": errs["cell_parse"],
-            "ms": time_kernel(lambda: parse_ops.launch_parse(data, valid, n, offset), reps=10),
-            "plain_ms": time_plain(lambda: parse_ops.cell_parse_plain(data, valid, n, offset), reps=2),
-            # each row's valid bytes and length read; six [B, nc] vectors
-            # (has 1 B, five int32) and last_end written
-            "bound_ms": bound(v_sum + 4 * b + 21 * b * nc + 4 * b),
-        }
-        lit = int(got[5].sum()) + int((valid - got[6]).clamp(min=0).sum())
-        for key, emit, emit_plain in (
-            ("lz4_emit", lz4_ops.lz4_emit, lz4_ops.lz4_emit_plain),
-            ("snappy_emit", snappy_ops.snappy_emit, snappy_ops.snappy_emit_plain),
-        ):
-            out[f"{key}@{label}"] = {
-                "shape": f"{shape} out={out_bytes[key]}", "max_abs_err": errs[key],
-                "ms": time_kernel(lambda: emit(data, valid, got, n, offset), reps=10),
-                "plain_ms": time_plain(lambda: emit_plain(data, valid, want, n, offset), reps=2),
-                # the parse vectors the emission reads (has, offs, mlen,
-                # lit_start, lit_len: 17 B per cell, plus last_end and
-                # valid), every literal byte once, every block byte once
-                "bound_ms": bound(17 * b * nc + 8 * b + lit + out_bytes[key] + 4 * b),
-                "ratio": v_sum / max(out_bytes[key], 1),
-            }
+        rows, _, _ = codec_kernel_rows(torch, data, valid, n, offset, label, mem_rate)
+        out.update(rows)
         if label == "fused":
             crc_lens = valid.to(torch.int64) + fused.PREFIX
             want_crc = crc_ops.crc32c_device_plain(data, crc_lens)
@@ -819,13 +849,76 @@ def phase_codec_kernels(torch, mem_rate: float) -> dict:
                     # CRC (int64) and the block bytes and lengths written
                     "bound_ms": bound(v_sum + fused.PREFIX * b + 8 * b + 8 * b + int(f_len.sum()) + 4 * b),
                 }
-    for name, e in out.items():
-        extra = f", ratio {e['ratio']:.3f}" if "ratio" in e else ""
-        log(
-            f"[codec] {name:<22} {e['shape']}: equal to plain, tolerance exact; "
-            f"kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms{extra}"
-        )
+    log_rows("codec", out)
     return out
+
+def distinct_grams_row(n: int) -> bytes:
+    """n bytes whose n - 3 4-grams are all distinct: the first seeded
+    random row that has no repeated 4-gram."""
+    for seed in range(100):
+        row = np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8).astype(np.int64)
+        grams = row[:-3] | row[1:-2] << 8 | row[2:-1] << 16 | row[3:] << 24
+        if np.unique(grams).size == n - 3:
+            return row.astype(np.uint8).tobytes()
+    raise AssertionError("no seed gave distinct 4-grams")
+
+
+def per_call_inputs(torch) -> dict:
+    """The shapes one call gives the kernels: phase 6's recompressed(lz4)
+    stages one record batch (16 x 1 KiB JSON-like records) as one fused
+    row; phase 8b's recompressed(zstd) stages it as one zstd row and its
+    fetch decodes that block's four streams; and the parse's skew edges at
+    full width: a row of one repeated byte and a row whose 4-grams are all
+    distinct. Returns {label: staged tensors}."""
+    from redpanda_tpu_torch.ops import fused
+
+    b = build_batches(np.random.default_rng(SEED + 6), count=1)[0]
+    prefix, body = b.header.crc_prefix(), bytes(b.body)
+    mat, blen, n = fused.stage_fused([prefix], [body])
+    zmat, zlen, zn = fused.stage_fused([prefix], [body], fused._zstd_width)
+    row = {"lz4": (torch.from_numpy(mat).cuda(), torch.from_numpy(blen).cuda(), n, fused.PREFIX),
+           "zstd": (torch.from_numpy(zmat).cuda(), torch.from_numpy(zlen).cuda(), zn, fused.PREFIX)}
+    nbits, streams, bits = (t.cpu().numpy() for t in zstd_ops._encode_chunks(*row["zstd"]))
+    items = stream_items([body], nbits, streams, bits)
+    if len(items) != 4:
+        raise AssertionError(f"the batch's zstd block carries {len(items)} streams, not 4")
+    full = CODEC_BODY
+    edges = {}
+    for label, raw in (("one_byte", b"a" * full), ("distinct", distinct_grams_row(full))):
+        batch, valid, en = lz4_ops.stage_chunks(lz4_ops.as_arrays([raw]), "lz4")
+        edges[label] = (torch.from_numpy(batch).cuda(), torch.from_numpy(valid).cuda(), en, 0)
+    return {"row": row, "items": items, "edges": edges}
+
+
+def phase_per_call(torch, mem_rate: float) -> dict:
+    """Phase 5b: the kernels of one call's shape, each equal to its plain
+    version (exact) and timed: CRC, parse and LZ4 emission on phase 6's
+    one fused row; the zstd encode on phase 8b's one row and the decode of
+    its four streams; the parse on the two full-width skew edges."""
+    inp = per_call_inputs(torch)
+    data, valid, n, offset = inp["row"]["lz4"]
+    crc_lens = valid.to(torch.int64) + offset
+    want = crc_ops.crc32c_device_plain(data, crc_lens)
+    got = crc_ops.crc32c_device(data, crc_lens)
+    torch.cuda.synchronize()
+    out = {"crc32c_device@row": {
+        "shape": f"row: B=1 S={data.shape[1]} bytes={int(crc_lens.sum())}",
+        "max_abs_err": max_abs_err({"crc": got}, {"crc": want}),
+        "ms": time_kernel(lambda: crc_ops.crc32c_device(data, crc_lens)),
+        "plain_ms": time_plain(lambda: crc_ops.crc32c_device_plain(data, crc_lens), reps=2),
+        # the row's bytes and its length read, the CRC (int64) written
+        "bound_ms": (int(crc_lens.sum()) + 8 + 8) / mem_rate * 1e3,
+    }}
+    rows, _, _ = codec_kernel_rows(torch, data, valid, n, offset, "row", mem_rate, reps=30)
+    out.update(rows)
+    out.update(zstd_encode_rows(torch, *inp["row"]["zstd"], "row", mem_rate))
+    out.update(zstd_decode_row(torch, inp["items"], "batch", mem_rate))
+    for label, staged in inp["edges"].items():
+        rows, _, _ = codec_kernel_rows(torch, *staged, label, mem_rate, reps=30)
+        out[f"cell_parse@{label}"] = rows[f"cell_parse@{label}"]
+    log_rows("per-call", out)
+    return out
+
 
 # Decoders of our own: the chip machine's image is not known to carry
 # liblz4 / libsnappy, so the frames are read back in plain Python.
@@ -1219,13 +1312,22 @@ def stream_items(rows, nbits, streams, bits) -> list:
     return out
 
 
+def decode_plain(bufs, tbits, regen, tsym, tnb, index, sbytes, rmax, groups=None):
+    """The plain version of the staged decode (one table per stream)."""
+    i = index.long()
+    return zstd_ops._decode_streams_plain(bufs, tbits, regen, tsym[i], tnb[i], sbytes, rmax)
+
+
 def check_decode(torch, items) -> tuple:
-    """The decode kernel against the plain version on the same staged
-    streams, exact on out and end. Returns (end, the staged tensors)."""
-    *mats, sbytes, rmax = zstd_ops.stage_streams(*zip(*items))
-    args = [torch.from_numpy(m).cuda() for m in mats] + [sbytes, rmax]
-    want = zstd_ops._decode_streams_plain(*args)
-    got = zstd_ops._decode_streams(*args)
+    """The decode kernel against the plain version on the same streams,
+    staged as decode_streams stages them (each table object once, the
+    groups uploaded), exact on out and end. Returns (end, the staged
+    arguments of launch_decode)."""
+    *mats, index, sbytes, rmax = zstd_ops.stage_streams(*zip(*items))
+    args = [torch.from_numpy(m).cuda() for m in (*mats, index)] + [sbytes, rmax]
+    args.append(torch.from_numpy(zstd_ops.decode_groups(index)).cuda())
+    want = decode_plain(*args)
+    got = zstd_ops.decode_staged(*args)
     torch.cuda.synchronize()
     max_abs_err(dict(zip(("out", "end"), got)), dict(zip(("out", "end"), want)))
     return got[1].cpu().numpy(), args
@@ -1277,10 +1379,10 @@ def phase_zstd_kernels(torch, segment: bytes, mem_rate: float) -> dict:
         f"tolerance exact (out, end); tampered end {end[k]}, truncated sticks at 0, "
         f"regen 0 end {end[k + 2]}")
     batch = items[:5] + [traps[0]] + items[5:9]
-    *mats, sbytes, rmax = zstd_ops.stage_streams(*zip(*batch))
-    cuda_args = [torch.from_numpy(m).cuda() for m in mats] + [sbytes, rmax]
+    *mats, index, sbytes, rmax = zstd_ops.stage_streams(*zip(*batch))
+    cuda_args = [torch.from_numpy(m).cuda() for m in (*mats, index)] + [sbytes, rmax]
     got = decode_error(lambda: zstd_ops.decode_streams(*map(list, zip(*batch)), device="cuda"))
-    want = decode_error(lambda: zstd_ops.check_ends(zstd_ops._decode_streams_plain(*cuda_args)[1].cpu().numpy()))
+    want = decode_error(lambda: zstd_ops.check_ends(decode_plain(*cuda_args)[1].cpu().numpy()))
     if got != want or not got.startswith("huffman stream 5 "):
         raise AssertionError(f"decode error {got!r} != plain {want!r}")
     log(f"[zstd] decode_streams refuses the tampered stream as the plain version does: {got!r}")
@@ -1487,13 +1589,15 @@ def segment_stages(torch, chunks, dec_args, comp_split, decomp_split) -> dict:
     }
     streams, regens, tables = dec_args[:3]
     t0 = time.perf_counter()
-    *mats, sbytes, rmax = zstd_ops.stage_streams(streams, regens, tables)
+    *mats, index, sbytes, rmax = zstd_ops.stage_streams(streams, regens, tables)
+    groups = zstd_ops.decode_groups(index)
     t1 = time.perf_counter()
-    args = [torch.from_numpy(m).cuda() for m in mats]
+    args = [torch.from_numpy(m).cuda() for m in (*mats, index)]
+    groups = torch.from_numpy(groups).cuda()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     res = []
-    kern = device_ms(torch, lambda: res.extend(zstd_ops._decode_streams(*args, sbytes, rmax)))
+    kern = device_ms(torch, lambda: res.extend(zstd_ops.decode_staged(*args, sbytes, rmax, groups)))
     t3 = time.perf_counter()
     zstd_ops.check_ends(res[1].cpu().numpy())
     res[0].cpu().numpy()
@@ -1508,57 +1612,70 @@ def segment_stages(torch, chunks, dec_args, comp_split, decomp_split) -> dict:
     return {"compress": compress, "hydrate": hydrate}
 
 
-def segment_kernels(torch, chunks, dec_args, mem_rate: float) -> dict:
-    """Each zstd kernel at the segment path's shape: device ms beside its
-    bytes bound and the plain version (equal, exact, at the full shape)."""
-    data, vt = stage_rows(torch, chunks, ZSTD_BLOCK)
-    b, v_sum = len(chunks), int(vt.sum())
-    sb = zstd_ops.stream_byte_bound(ZSTD_BLOCK)
-    t0 = time.perf_counter()
-    check_encode(torch, data, vt, ZSTD_BLOCK)
-    check_s = time.perf_counter() - t0
-    nbits, codes = zstd_ops.launch_lengths(data, vt, ZSTD_BLOCK, 0)
-    p_nbits, p_codes = zstd_ops._lengths_plain(data, vt, ZSTD_BLOCK)
+def zstd_encode_rows(torch, data, vt, n: int, offset: int, label: str, mem_rate: float) -> dict:
+    """The two encode kernels on one staged shape: equal to the plain
+    versions (exact, every stream byte), each timed beside its bytes bound
+    and its plain version."""
+    b, v_sum = data.shape[0], int(vt.sum())
+    sb = zstd_ops.stream_byte_bound(n)
+    check_encode(torch, data, vt, n, offset)
+    nbits, codes = zstd_ops.launch_lengths(data, vt, n, offset)
+    p_nbits, p_codes = zstd_ops._lengths_plain(data, vt, n, offset)
     torch.cuda.synchronize()
     max_abs_err({"nbits": nbits, "codes": codes}, {"nbits": p_nbits, "codes": p_codes})
-    shape = f"B={b} n={ZSTD_BLOCK} bytes={v_sum}"
-    out = {
-        "zstd_lengths": {
+    shape = f"{label}: B={b} n={n} offset={offset} bytes={v_sum}"
+    return {
+        f"zstd_lengths@{label}": {
             "shape": shape, "max_abs_err": 0.0,
-            "ms": time_kernel(lambda: zstd_ops.launch_lengths(data, vt, ZSTD_BLOCK, 0), reps=10),
-            "plain_ms": time_plain(lambda: zstd_ops._lengths_plain(data, vt, ZSTD_BLOCK), reps=1),
+            "ms": time_kernel(lambda: zstd_ops.launch_lengths(data, vt, n, offset), reps=10),
+            "plain_ms": time_plain(lambda: zstd_ops._lengths_plain(data, vt, n, offset), reps=1),
             # valid bytes and lengths read; nbits (1 B) and codes (4 B) written
             "bound_ms": (v_sum + 4 * b + 5 * 256 * b) / mem_rate * 1e3,
         },
-        "zstd_emit": {
+        f"zstd_emit@{label}": {
             "shape": f"{shape} streams={b * 4}x{sb}", "max_abs_err": 0.0,
-            "ms": time_kernel(lambda: zstd_ops.launch_emit(data, vt, nbits, codes, ZSTD_BLOCK, 0), reps=10),
-            "plain_ms": time_plain(lambda: zstd_ops._emit_plain(data, vt, nbits, codes, ZSTD_BLOCK), reps=1),
+            "ms": time_kernel(lambda: zstd_ops.launch_emit(data, vt, nbits, codes, n, offset), reps=10),
+            "plain_ms": time_plain(lambda: zstd_ops._emit_plain(data, vt, nbits, codes, n, offset), reps=1),
             # valid bytes, lengths, nbits and codes read; all SB bytes of the
             # four streams and the bit counts written
             "bound_ms": (v_sum + 4 * b + 5 * 256 * b + b * 4 * (sb + 4)) / mem_rate * 1e3,
         },
     }
-    streams, regens, tables = dec_args[:3]
-    t0 = time.perf_counter()
-    end, args = check_decode(torch, list(zip(streams, regens, tables)))
-    check_s += time.perf_counter() - t0
-    s_n, sbytes, rmax = len(streams), args[-2], args[-1]
+
+
+def zstd_decode_row(torch, items, label: str, mem_rate: float) -> dict:
+    """The decode kernel on the streams `items`, staged as decode_streams
+    stages them: equal to the plain version (exact), timed beside its
+    bytes bound and its plain version."""
+    end, args = check_decode(torch, items)
+    if end.any():
+        raise AssertionError(f"zstd_decode@{label}: a valid stream did not consume its bits")
+    streams, regens = [x[0] for x in items], [x[1] for x in items]
+    s_n, t_n, sbytes, rmax = len(streams), args[3].shape[0], args[-3], args[-2]
     stream_bytes = sum(len(x) for x in streams)
-    out["zstd_decode"] = {
-        "shape": f"S={s_n} sbytes={sbytes} rmax={rmax} stream_bytes={stream_bytes} regen={sum(regens)}",
+    return {f"zstd_decode@{label}": {
+        "shape": f"{label}: S={s_n} T={t_n} sbytes={sbytes} rmax={rmax} stream_bytes={stream_bytes} "
+                 f"regen={sum(regens)}",
         "max_abs_err": 0.0,
         "ms": time_kernel(lambda: zstd_ops.launch_decode(*args), reps=10),
-        "plain_ms": time_plain(lambda: zstd_ops._decode_streams_plain(*args), reps=1),
-        # the valid stream bytes, tbits and regen, the tables as passed
+        "plain_ms": time_plain(lambda: decode_plain(*args), reps=1),
+        # the valid stream bytes, tbits, regen and index, the T tables
         # (uint8 sym + int32 nb per entry) read; out [S, rmax] and end written
-        "bound_ms": (stream_bytes + 8 * s_n + s_n * zstd_ops.TSIZE * 5 + s_n * rmax + 4 * s_n) / mem_rate * 1e3,
-    }
-    for name, e in out.items():
-        log(f"[segment] {name:<13} {e['shape']}: equal to plain at the full shape, tolerance exact; "
-            f"kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms")
-    log(f"[segment] the full-shape equality checks took {check_s:.1f} s")
-    return out
+        "bound_ms": (stream_bytes + 12 * s_n + t_n * zstd_ops.TSIZE * 5 + s_n * rmax + 4 * s_n)
+                    / mem_rate * 1e3,
+    }}
+
+
+def segment_kernels(torch, chunks, dec_args, mem_rate: float) -> dict:
+    """Each zstd kernel at the segment path's shape: device ms beside its
+    bytes bound and the plain version (equal, exact, at the full shape)."""
+    data, vt = stage_rows(torch, chunks, ZSTD_BLOCK)
+    t0 = time.perf_counter()
+    out = zstd_encode_rows(torch, data, vt, ZSTD_BLOCK, 0, "segment", mem_rate)
+    out.update(zstd_decode_row(torch, list(zip(*dec_args[:3])), "segment", mem_rate))
+    log_rows("segment", out, "equal to plain at the full shape, tolerance exact")
+    log(f"[segment] the full-shape checks and timings took {time.perf_counter() - t0:.1f} s")
+    return {k.split("@")[0]: v for k, v in out.items()}
 
 
 def phase_zstd_recompress(torch) -> dict:
@@ -2165,6 +2282,7 @@ def main() -> int:
     codec = phase_codec_kernels(torch, MEM_BYTES_PER_S)
     for name in ("cell_parse", "lz4_emit", "snappy_emit"):
         results[name] = codec[f"{name}@fused"]
+    per_call = phase_per_call(torch, MEM_BYTES_PER_S)
 
     reset_launches()
     s = run_slice(G, TICKS, "cuda")
@@ -2217,6 +2335,9 @@ def main() -> int:
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "shape": e["shape"],
         })
+        one = per_call.get(f"{name}@row", per_call.get(f"{name}@batch"))
+        if one is not None:  # the same kernel at the shape one call gives it
+            kernels[-1]["per_call"] = {k: one[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

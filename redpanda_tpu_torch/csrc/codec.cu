@@ -12,24 +12,49 @@
 // The fused path passes the uploaded [40-byte CRC prefix | body] rows
 // with offset 40, so the body is read in place.
 //
-// cell_parse — one block of 1024 threads per row. What bounds it: the
-// latest-occurrence walk. Each position's candidate is the largest
-// earlier position with the same 16-bit 4-gram hash; the JAX program gets
-// it from a sort of (hash << 17 | pos) keys, which is exactly a
-// latest-occurrence table. The block keeps that table (2^16 uint16, 128
-// KiB) and the row (<= 64 KiB + 16) in shared memory, and one warp walks
-// the row in 32-position tiles: __match_any_sync finds same-hash lanes
-// inside a tile, the rest read the table, and each hash's last lane
-// writes it. That walk is sequential, v / 32 dependent steps, so the
-// parse is latency-bound, one row per SM (the shared memory allows no
-// second block). Only positions <= v are walked: past v the row is
-// zeros, so cand[p] = p - 1 there, which is what the sort gives. The
-// candidates go to a global scratch row and come back into the table's
-// space; then every thread verifies cells (first good position of the 13
-// eligible ones, chain of 3 candidates in the order g1, g2, g3), and the
-// absorption and literal attribution run as block scans (reverse
-// exclusive min, exclusive max) over the cells, written by hand with warp
-// shuffles.
+// cell_parse — one block of 1024 threads per row. Each position's candidate
+// is the largest earlier position with the same 16-bit 4-gram hash; the
+// JAX program gets it from a sort of (hash << 17 | pos) keys and each
+// key's predecessor in sorted order. The kernel does that sort with the
+// whole block: a stable LSD radix sort of the positions [0, walk_end) by
+// hash, two passes of 8-bit digits, each of the 32 warps owning a
+// contiguous run of the pass's input, all warps at once:
+//   * count: one shared atomicAdd per key into its warp's digit count (the
+//     order within a warp does not matter for a count);
+//   * a block scan over (digit, warp), digit-major, turns the counts into
+//     offsets;
+//   * scatter, 32 keys a tile, in order: each key ORs its lane bit into its
+//     digit's lane mask, which sits beside the digit's running offset, so
+//     one 8-byte shared read gives a key's peers and their offset; it lands
+//     at the offset plus the popcount of its lower peers, and the lowest
+//     peer clears the mask and advances the offset;
+//   * the keys, (hash << 16 | pos), go through a global scratch row (two
+//     [n] uint32 buffers per row, L2-resident at one row), the next tile's
+//     keys loaded while a tile works.
+// Positions go in in order, so the sort is stable and ties fall as in the
+// JAX sort; then cand[sp[i]] = sp[i-1] where the hashes agree. No step is
+// sequential over the row. __match_any_sync, which the first version of
+// this sort used for the peers, costs more the more distinct digits a tile
+// holds (a row whose 4-grams are all distinct took three times the
+// one-byte row); the atomics cost the same for any digits. Only positions
+// <= v are sorted: past v the row is zeros, so cand[p] = p - 1 there,
+// which is what the full sort gives.
+// The verification runs one thread per position (a cell's 16 positions
+// are 16 lanes of one warp, so the row's bytes and the candidates are read
+// without bank conflicts): the three candidates in the order g1, g2, g3,
+// each looked up only if the one before it fails, each compared four
+// bytes at a time from the cell end (the cell's words aligned, the
+// candidate's funnel-shifted); a half-warp ballot then picks the cell's
+// first good position. A thread per cell, walking its positions with an
+// early exit, let a warp wait for its slowest cell and hit each shared
+// bank from four to eight lanes at once. Absorption and literal
+// attribution run as block scans (reverse exclusive min, exclusive max)
+// over the cells, written by hand with warp shuffles.
+// What bounds it now: per-tile latency in the scatter sweeps and the
+// verification's shared-memory reads; at one row the block works alone on
+// one SM. Shared memory: the candidates or the digit entries max(2n,
+// 64.3 KiB), the row n + 16, the cell arrays 6 n / 16: 216 KiB at
+// n = 65536, 110 KiB at n = 32768.
 //
 // lz4_emit / snappy_emit — one block of 512 threads per row. They are
 // bound by bytes: every parse field read once, the literal bytes read
@@ -49,12 +74,16 @@ typedef long long i64;
 
 #define CELL 16
 #define TAIL_GUARD 12
-#define TABLE_SIZE 65536
 #define NO_CAND 0xFFFFu
 #define MAX_N 65536
 #define MAX_CELLS (MAX_N / CELL)
 #define PARSE_THREADS 1024
 #define PARSE_ITEMS (MAX_CELLS / PARSE_THREADS)
+#define SORT_WARPS (PARSE_THREADS / 32)
+#define CNT_STRIDE 257  // per-warp digit entries, padded so warps fall in other banks
+// an entry is two words: the lanes of the current tile with this digit
+// (a mask), and the digit's count, then its running offset
+#define CNT_BYTES (SORT_WARPS * CNT_STRIDE * 8)
 #define EMIT_THREADS 512
 #define EMIT_ITEMS (MAX_CELLS / EMIT_THREADS)
 #define EMIT_BYTES 16
@@ -97,9 +126,80 @@ __device__ int block_scan_excl(int x, Op op, int identity, int* sh) {
     return op(warp_excl, te);
 }
 
+static_assert(PARSE_THREADS == 4 * 256, "the offset scan gives each thread 8 entries of one digit");
+static_assert(CNT_BYTES % 16 == 0, "the row after the counters stays 16-byte aligned");
+
+// bytes of the candidate region: cand[n] uint16, or the digit entries while sorting
+__host__ __device__ constexpr int cand_bytes(int n) { return 2 * n > CNT_BYTES ? 2 * n : CNT_BYTES; }
+
 __host__ __device__ constexpr int parse_smem_bytes(int n) {
-    // table / candidates, row bytes, offs, has, j
-    return TABLE_SIZE * 2 + (n + CELL) + (n / CELL) * (4 + 1 + 1);
+    // candidates / counters, row bytes, offs, has, j
+    return cand_bytes(n) + (n + CELL) + (n / CELL) * (4 + 1 + 1);
+}
+
+// pass 0 reads (hash << 16 | pos) keys from the row, pass 1 the scratch row
+template <bool FROM_ROW>
+__device__ __forceinline__ uint32_t sort_key(const uint8_t* d, const uint32_t* in, int i) {
+    if (!FROM_ROW) return in[i];
+    const uint32_t gram = (uint32_t)d[i] | ((uint32_t)d[i + 1] << 8) |
+                          ((uint32_t)d[i + 2] << 16) | ((uint32_t)d[i + 3] << 24);
+    return ((gram * 2654435761u) >> 16) << 16 | (uint32_t)i;
+}
+
+// One stable counting pass of the block's radix sort: the keys of
+// [0, walk_end) (this warp owns [r0, r1)) go to `out` ordered by the 8-bit
+// digit at `shift`, ties in input order.
+template <bool FROM_ROW>
+__device__ void radix_pass(const uint8_t* d, const uint32_t* in, uint32_t* out, uint32_t* ent,
+                           int shift, int r0, int r1, int* scan_sh) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const unsigned lower = (1u << lane) - 1u;
+    uint32_t* we = ent + warp * CNT_STRIDE * 2;  // this warp's entries: (mask, count / offset)
+    for (int i = tid; i < SORT_WARPS * CNT_STRIDE * 2; i += PARSE_THREADS) ent[i] = 0;
+    __syncthreads();
+    // count: the order within a warp does not matter here, so one shared
+    // atomic per key (keys of the next tile loaded while this one counts)
+    uint32_t nk = r0 + lane < r1 ? sort_key<FROM_ROW>(d, in, r0 + lane) : 0u;
+    for (int base = r0; base < r1; base += 32) {
+        const int i = base + lane;
+        const uint32_t key = nk;
+        if (i + 32 < r1) nk = sort_key<FROM_ROW>(d, in, i + 32);
+        if (i < r1) atomicAdd(&we[2 * ((key >> shift) & 255u) + 1], 1u);
+    }
+    __syncthreads();
+    {  // exclusive offsets over (digit, warp), digit-major
+        const int dig = tid >> 2, w0 = (tid & 3) * (SORT_WARPS / 4);
+        uint32_t c[SORT_WARPS / 4];
+        int sum = 0;
+#pragma unroll
+        for (int k = 0; k < SORT_WARPS / 4; ++k) sum += c[k] = ent[((w0 + k) * CNT_STRIDE + dig) * 2 + 1];
+        int run = block_scan_excl<false>(sum, OpAdd(), 0, scan_sh);
+#pragma unroll
+        for (int k = 0; k < SORT_WARPS / 4; ++k) {
+            ent[((w0 + k) * CNT_STRIDE + dig) * 2 + 1] = run;
+            run += c[k];
+        }
+    }
+    __syncthreads();
+    // scatter, stable: each key ORs its lane bit into its digit's mask, so
+    // one 8-byte read gives the peers with its digit and their offset; the
+    // lowest of them clears the mask and advances the offset
+    nk = r0 + lane < r1 ? sort_key<FROM_ROW>(d, in, r0 + lane) : 0u;
+    for (int base = r0; base < r1; base += 32) {
+        const int i = base + lane;
+        const bool act = i < r1;
+        const uint32_t key = nk;
+        if (i + 32 < r1) nk = sort_key<FROM_ROW>(d, in, i + 32);
+        uint32_t* e = we + 2 * ((key >> shift) & 255u);
+        if (act) atomicOr(e, 1u << lane);
+        __syncwarp();
+        const uint2 pe = act ? *reinterpret_cast<const uint2*>(e) : make_uint2(0u, 0u);
+        if (act) out[pe.y + __popc(pe.x & lower)] = key;
+        __syncwarp();
+        if (act && (pe.x & lower) == 0u) *reinterpret_cast<uint2*>(e) = make_uint2(0u, pe.y + __popc(pe.x));
+        __syncwarp();
+    }
+    __syncthreads();  // the scratch row and the entries are read next
 }
 
 __global__ void __launch_bounds__(PARSE_THREADS, 1)
@@ -107,96 +207,111 @@ cell_parse_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ 
                   uint8_t* __restrict__ has_out, int32_t* __restrict__ mstart_out,
                   int32_t* __restrict__ offs_out, int32_t* __restrict__ mlen_out,
                   int32_t* __restrict__ lit_start_out, int32_t* __restrict__ lit_len_out,
-                  int32_t* __restrict__ last_end_out, uint16_t* __restrict__ cand_g,
+                  int32_t* __restrict__ last_end_out, uint32_t* __restrict__ keys_g,
                   i64 stride, i64 offset, int n) {
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ int scan_sh[32];
-    uint16_t* table = (uint16_t*)smem;  // last-seen table, then cand[]
-    uint8_t* d = smem + TABLE_SIZE * 2;
+    uint16_t* cand_w = (uint16_t*)smem;  // cand[], after the sort
+    uint32_t* ent = (uint32_t*)smem;     // digit entries, during the sort
+    uint8_t* d = smem + cand_bytes(n);
     const int nc = n / CELL;
     int32_t* offs_s = (int32_t*)(d + n + CELL);  // n + CELL is a multiple of 16
     uint8_t* has_s = (uint8_t*)(offs_s + nc);
     uint8_t* j_s = has_s + nc;
 
-    const int tid = threadIdx.x, lane = tid & 31;
+    const int tid = threadIdx.x;
     const i64 row = blockIdx.x;
     const uint8_t* src = data + row * stride + offset;
     int v = valid[row];
     v = v < 0 ? 0 : (v > n ? n : v);
     const int walk_end = v + 1 < n ? v + 1 : n;
-    uint16_t* cand_row = cand_g + row * n;
 
-    uint32_t* t32 = (uint32_t*)table;
-    for (int i = tid; i < TABLE_SIZE / 2; i += PARSE_THREADS) t32[i] = FULL;
     for (int i = tid; i < n + CELL; i += PARSE_THREADS) d[i] = src[i];
     __syncthreads();
 
-    // -- latest-occurrence walk (warp 0): cand[p] for p < walk_end
-    if (tid < 32) {
-        for (int base = 0; base < walk_end; base += 32) {
-            const int p = base + lane;
-            const bool act = p < walk_end;
-            uint32_t key = 0x10000u + lane;  // unique for idle lanes
-            if (act) {
-                const uint32_t gram = (uint32_t)d[p] | ((uint32_t)d[p + 1] << 8) |
-                                      ((uint32_t)d[p + 2] << 16) | ((uint32_t)d[p + 3] << 24);
-                key = (gram * 2654435761u) >> 16;
-            }
-            const unsigned peers = __match_any_sync(FULL, key);
-            const unsigned below = peers & ((1u << lane) - 1u);
-            uint32_t cand = NO_CAND;
-            if (act) cand = below ? (uint32_t)(base + 31 - __clz(below)) : table[key];
-            __syncwarp();
-            const unsigned above = peers & ~((2u << lane) - 1u);
-            if (act) {
-                if (above == 0u) table[key] = (uint16_t)p;
-                cand_row[p] = (uint16_t)cand;
-            }
-            __syncwarp();
+    // -- stable radix sort of [0, walk_end) by hash, then sorted predecessors
+    uint32_t* ka = keys_g + row * 2 * n;
+    uint32_t* kb = ka + n;
+    const int run = (walk_end + SORT_WARPS * 32 - 1) / (SORT_WARPS * 32) * 32;
+    const int w = tid >> 5;
+    const int r0 = w * run < walk_end ? w * run : walk_end;
+    const int r1 = r0 + run < walk_end ? r0 + run : walk_end;
+    radix_pass<true>(d, nullptr, ka, ent, 16, r0, r1, scan_sh);
+    radix_pass<false>(d, ka, kb, ent, 24, r0, r1, scan_sh);
+    for (int i = tid; i < walk_end; i += PARSE_THREADS) {
+        const uint32_t key = kb[i];
+        uint32_t c = NO_CAND;
+        if (i > 0) {
+            const uint32_t prev = kb[i - 1];
+            if ((prev >> 16) == (key >> 16)) c = prev & 0xFFFFu;
         }
+        cand_w[key & 0xFFFFu] = (uint16_t)c;
     }
     __syncthreads();
-    for (int p = tid; p < walk_end; p += PARSE_THREADS) table[p] = cand_row[p];
-    __syncthreads();
-    const uint16_t* cand_s = table;
+    const uint16_t* cand_s = cand_w;
     auto cand_at = [&](int p) -> int {
         if (p < 0) return -1;
         if (p >= walk_end) return p - 1;  // zeros past v: the previous position
         const uint32_t c = cand_s[p];
         return c == NO_CAND ? -1 : (int)c;
     };
-    auto verify = [&](int p, int q, int cap) -> bool {
+    const uint32_t* d32 = reinterpret_cast<const uint32_t*>(d);
+    // d[p, e) == d[q, q + e - p) for a cell end e (16-aligned, <= v - 12,
+    // so every word read lies inside the row), four bytes at a time from
+    // the end: the cell's words are aligned, the candidate's funnel-shifted
+    auto verify = [&](int p, int q, int e) -> bool {
         if (q < 0) return false;
-        for (int k = 0; k < cap; ++k)
-            if (d[p + k] != d[q + k]) return false;
+        const int back = e - p;  // bytes to compare, 4..16
+        for (int k = 4; k < back + 4; k += 4) {
+            const int at = q + back - k;  // below q (even below 0) on the last word: masked
+            const uint32_t qw = at >= 0 ? __funnelshift_r(d32[at >> 2], d32[(at >> 2) + 1], (at & 3) * 8)
+                                        : d32[0] << (-8 * at);
+            uint32_t x = d32[(e - k) >> 2] ^ qw;
+            if (k > back) x &= ~0u << (8 * (k - back));
+            if (x) return false;
+        }
         return true;
     };
 
-    // -- per cell: first position whose match runs to the cell end
-    for (int c = tid; c < nc; c += PARSE_THREADS) {
-        const int cstart = c * CELL, cell_end = cstart + CELL;
-        int j = 0, sel = -1;
-        bool found = false;
-        if (cell_end <= v - TAIL_GUARD) {
-            for (int jj = 0; jj <= CELL - 4 && !found; ++jj) {
-                const int p = cstart + jj, cap = CELL - jj;
-                const int c1 = cand_at(p);
-                const int c2 = c1 >= 0 ? cand_at(c1) : -1;
-                const int c3 = c2 >= 0 ? cand_at(c2) : -1;
-                if (verify(p, c1, cap)) sel = c1, found = true;
-                else if (verify(p, c2, cap)) sel = c2, found = true;
-                else if (verify(p, c3, cap)) sel = c3, found = true;
-                if (found) j = jj;
+    // -- per cell: the first position whose match runs to the cell end. One
+    //    thread per position (a cell's 16 positions are 16 lanes of one
+    //    warp): its candidates in the order g1, g2, g3, each looked up only
+    //    if the one before it fails; then a ballot picks the cell's first
+    //    good position
+    const int lane = tid & 31;
+    for (int base = 0; base < n; base += PARSE_THREADS) {
+        const int p = base + tid;
+        const int jj = p & (CELL - 1), cstart = p - jj;
+        int sel = -1;
+        if (p < n && jj <= CELL - 4 && cstart + CELL <= v - TAIL_GUARD) {
+            const int c1 = cand_at(p);
+            if (verify(p, c1, cstart + CELL)) {
+                sel = c1;
+            } else if (c1 >= 0) {
+                const int c2 = cand_at(c1);
+                if (verify(p, c2, cstart + CELL)) {
+                    sel = c2;
+                } else if (c2 >= 0) {
+                    const int c3 = cand_at(c2);
+                    if (verify(p, c3, cstart + CELL)) sel = c3;
+                }
             }
         }
-        if (!found) {  // the JAX program's offs for a cell without a match
-            const int c1 = cand_at(cstart);
-            const int c2 = c1 >= 0 ? cand_at(c1) : -1;
-            sel = c2 >= 0 ? cand_at(c2) : -1;
+        const unsigned good = (__ballot_sync(FULL, sel >= 0) >> (lane & 16)) & 0xFFFFu;
+        const int j = good ? __ffs(good) - 1 : 0;
+        const int sel_j = __shfl_sync(FULL, sel, (lane & 16) + j);
+        if (p < n && jj == 0) {
+            const int c = p / CELL;
+            has_s[c] = good != 0;
+            j_s[c] = (uint8_t)j;
+            if (good) {
+                offs_s[c] = cstart + j - sel_j;
+            } else {  // the JAX program's offs for a cell without a match
+                const int c1 = cand_at(cstart);
+                const int c2 = c1 >= 0 ? cand_at(c1) : -1;
+                offs_s[c] = cstart - (c2 >= 0 ? cand_at(c2) : -1);
+            }
         }
-        has_s[c] = found;
-        j_s[c] = (uint8_t)j;
-        offs_s[c] = cstart + j - sel;
     }
     __syncthreads();
 
@@ -425,10 +540,10 @@ const char* rp_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
 
-// has: B*nc bytes (torch.bool); cand: B*n uint16 scratch
+// has: B*nc bytes (torch.bool); keys: B*2*n uint32 scratch
 int rp_cell_parse(const uint8_t* data, const int32_t* valid, uint8_t* has, int32_t* mstart,
                   int32_t* offs, int32_t* mlen, int32_t* lit_start, int32_t* lit_len,
-                  int32_t* last_end, uint16_t* cand, i64 b_n, i64 stride, i64 offset, i64 n,
+                  int32_t* last_end, uint32_t* keys, i64 b_n, i64 stride, i64 offset, i64 n,
                   void* stream) {
     if (b_n <= 0) return 0;
     if (n % CELL || n < CELL || n > MAX_N) return (int)cudaErrorInvalidValue;
@@ -437,7 +552,7 @@ int rp_cell_parse(const uint8_t* data, const int32_t* valid, uint8_t* has, int32
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     cell_parse_kernel<<<(unsigned)b_n, PARSE_THREADS, smem, (cudaStream_t)stream>>>(data, valid, has, mstart, offs, mlen, lit_start,
-                                                lit_len, last_end, cand, stride, offset, (int)n);
+                                                lit_len, last_end, keys, stride, offset, (int)n);
     return (int)cudaGetLastError();
 }
 

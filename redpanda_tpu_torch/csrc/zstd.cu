@@ -36,19 +36,49 @@
 // stream. The JAX program's per-output-bit searchsorted becomes one
 // placement per symbol; the bits are the same.
 //
-// zstd_decode — one thread per stream, DECODE_STREAMS streams per block.
-// Latency-bound: a huff0 stream is one dependent chain (each symbol's
-// position depends on every earlier length). The block first loads its
-// streams' 2048-entry tables into shared memory as (nb << 8 | sym) uint16,
-// then each thread walks its stream backward from tbits with a 128-bit
-// window of two aligned 64-bit words (one load per 64 bits consumed),
-// emitting 8 output bytes per store, and zero-fills its row to rmax. The
-// JAX program's pointer jumping (an int32 transition table over every bit
-// position, squared log2(rmax) times) would need ~8.6 GB per table at one
-// 128 MiB segment; the walk needs none. Semantics kept exactly: bits below
-// 0 read as zero, a stream that runs out sticks at bit 0 and keeps emitting
-// sym[peek(0)], end = the position after min(regen, rmax) symbols, or
-// f(tbits) when regen <= 0.
+// zstd_decode — latency-bound: a huff0 stream is one dependent chain
+// (each symbol's position depends on every earlier code length), 16,384
+// symbols long at a 64 KiB block, so the time is the chain's step times
+// its length. What the design does about it:
+//   * one table per zstd block: the wrapper stages each distinct table once
+//     ([T, 2048]) and hands the kernel groups of up to four streams that
+//     share one table (the four streams of a block), so the tables are
+//     read and held once, not once per stream;
+//   * one wave of whole warps: a block is one warp, 8 groups of 4 threads,
+//     one stream per thread; its 8 tables (nb[2048] | sym[2048] bytes,
+//     4 KiB each, 2048-byte aligned in the shared window) are built by all
+//     its threads; at one 128 MiB segment (1,846 blocks of 4 streams) all
+//     231 warps are resident at once. Two streams per thread, interleaved,
+//     were no faster on an H100 (equal times at one batch's four streams
+//     and at a 128 MiB segment): the step is bound by its instruction
+//     issue as much as by its latency, and a second chain doubles the one
+//     and does not hide the other;
+//   * a short step with no branch and no predicate: each stream holds a
+//     64-bit window of two 32-bit words (hi:lo), the next two words below
+//     (n1, n2) and a shift u in [0, 31]. A symbol is one shared-memory byte
+//     load at (window & 2047) | table (nb; sym beside it, off the chain),
+//     one subtraction, two funnel shifts and a bitwise select on the sign
+//     of u - nb, which says whether the window steps down one word; the
+//     register words move by the same select;
+//   * no load in the step waits on device memory: the words below n2 wait
+//     in a 32-word ring per stream in shared memory, filled ~1,000 bits
+//     ahead by cp.async copies of 8-byte chunks after every 8 symbols; the
+//     step reads the ring word that may enter the registers (k - 3) before
+//     it knows whether it will, so it never waits on a register loaded
+//     from global memory (which a warp's select would, on every step);
+//   * the K checks leave the step: a stream runs max(K, 1) steps, 8 at a
+//     time with the symbols packed by byte permutes into one 8-byte store,
+//     then its remainder.
+// Positions are not clamped at 0 during the walk: every window at or below
+// bit 0 reads zero (the ring holds zeros below word 0), so an unclamped
+// position emits what the clamped one does, and `end` is clamped once.
+// Semantics kept exactly: bits below 0 read as zero, a stream that runs out
+// sticks at bit 0 and keeps emitting sym[peek(0)], end = the position
+// after min(regen, rmax) symbols, or f(tbits) when regen <= 0; the output
+// is zero past K; no stream row is read past sbytes. The JAX program's
+// pointer jumping (an int32 transition table over every bit position,
+// squared log2(rmax) times) would need ~8.6 GB per table at one segment;
+// the walk needs none.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,7 +93,15 @@ typedef long long i64;
 #define LEN_THREADS 256
 #define LEN_WARPS (LEN_THREADS / 32)
 #define EMIT_THREADS 512
-#define DECODE_STREAMS 16
+#define DEC_THREADS 32                             // one warp per block, one stream per thread
+#define DEC_SLOTS 4                                // streams per group (one table)
+#define DEC_GROUPS (DEC_THREADS / DEC_SLOTS)       // groups (tables) per block
+#define DEC_TAB (2 * TSIZE)                        // bytes of one table: nb | sym
+#define DEC_TAB_ALIGN TSIZE                        // tables start 2048-byte aligned
+#define DEC_RING 32                                // staged words per stream (a power of two)
+#define DEC_AHEAD (DEC_RING + 1)                   // fill down to word k - DEC_AHEAD
+#define DEC_WAIT_GROUPS 8                          // copy groups left in flight
+#define DEC_SMEM (DEC_TAB_ALIGN + DEC_GROUPS * DEC_TAB + DEC_THREADS * DEC_RING * 4)
 #define FULL 0xFFFFFFFFu
 
 __host__ __device__ constexpr int stream_cap(int n) { return n / 4 + 1; }
@@ -289,71 +327,162 @@ zstd_emit_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ v
     if (tid == 0) bits_out[row * 4 + st] = tb;
 }
 
-__global__ void __launch_bounds__(DECODE_STREAMS)
+__device__ __forceinline__ uint32_t stream_word(const uint32_t* w, int j, int nw) {
+    return j >= 0 && j < nw ? __ldg(w + j) : 0u;
+}
+
+// global -> shared copy of 8 bytes that completes in the background
+__device__ __forceinline__ void copy8_async(unsigned dst, const uint32_t* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ uint32_t lds_u8(unsigned addr) {
+    uint32_t v;
+    asm volatile("ld.shared.u8 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ uint32_t lds_u32(unsigned addr) {
+    uint32_t v;
+    asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+    return v;
+}
+
+// One huff0 stream's walk: window hi:lo over words k + 1 : k and the next
+// two words below it in registers; bits [u, u + 11) of hi:lo are the 11
+// bits just below the position p = 32 k + u + 11. The words below wait in
+// a ring of DEC_RING words in shared memory, filled down to word
+// k - DEC_AHEAD by background copies of 8-byte chunks (`fill` = the next
+// chunk, counting down; chunks below word 0 are written as zeros).
+struct Walk {
+    const uint32_t* w;
+    unsigned ring;  // shared address of the ring
+    int k, u, fill;
+    uint32_t lo, hi, n1, n2, x;
+};
+
+__device__ __forceinline__ void top_up(Walk& a) {
+    // chunk c holds words 2c, 2c + 1; its ring slots last held words
+    // 2c + DEC_RING.., at or above k - 1: read at an earlier step, and
+    // consumed there, so the read has completed
+    while (2 * a.fill >= a.k - DEC_AHEAD) {
+        const unsigned slot = a.ring + 4 * ((2 * a.fill) & (DEC_RING - 1));
+        if (a.fill >= 0) {
+            copy8_async(slot, a.w + 2 * a.fill);
+        } else {
+            asm volatile("st.shared.v2.u32 [%0], {%1, %1};" ::"r"(slot), "r"(0) : "memory");
+        }
+        --a.fill;
+    }
+}
+
+// One symbol: the table entry at the window, then the window moves down by
+// nb bits. m = -1 when it steps down a word (u - nb < 0), else 0; every
+// choice is a bitwise select on m, so the step has no branch and no
+// predicate, and the word that may enter the registers (k - 3) is read
+// from the ring before it is known to be needed.
+__device__ __forceinline__ uint32_t step(Walk& a, unsigned tab) {
+    const unsigned at = (a.x & (TSIZE - 1)) | tab;
+    const int nb = (int)lds_u8(at);
+    const uint32_t sym = lds_u8(at + TSIZE);
+    const uint32_t next = lds_u32(a.ring + 4 * ((a.k - 3) & (DEC_RING - 1)));
+    const int un = a.u - nb;  // in [-11, 31]
+    const uint32_t m = (uint32_t)(un >> 31);
+    const uint32_t xa = __funnelshift_r(a.lo, a.hi, un);
+    const uint32_t xb = __funnelshift_r(a.n1, a.lo, un);  // shift = un + 32
+    a.x = (xb & m) | (xa & ~m);
+    a.hi = (a.lo & m) | (a.hi & ~m);
+    a.lo = (a.n1 & m) | (a.lo & ~m);
+    a.n1 = (a.n2 & m) | (a.n1 & ~m);
+    a.n2 = (next & m) | (a.n2 & ~m);
+    a.k += (int)m;
+    a.u = un & 31;
+    return sym;
+}
+
+__global__ void __launch_bounds__(DEC_THREADS)
 zstd_decode_kernel(const uint8_t* __restrict__ bufs, const int32_t* __restrict__ tbits,
                    const int32_t* __restrict__ regen, const uint8_t* __restrict__ tsym,
-                   const int32_t* __restrict__ tnb, uint8_t* __restrict__ out,
-                   int32_t* __restrict__ end_out, i64 s_n, int sbytes, int rmax) {
-    extern __shared__ uint16_t tab[];  // [DECODE_STREAMS][TSIZE]
-    const i64 s0 = (i64)blockIdx.x * DECODE_STREAMS;
-    for (int i = threadIdx.x; i < DECODE_STREAMS * TSIZE; i += DECODE_STREAMS) {
-        const i64 s = s0 + i / TSIZE;
-        if (s < s_n) {
-            const i64 e = s * TSIZE + (i % TSIZE);
-            tab[i] = (uint16_t)(tsym[e] | (tnb[e] << 8));
-        }
+                   const int32_t* __restrict__ tnb, const int32_t* __restrict__ groups,
+                   uint8_t* __restrict__ out, int32_t* __restrict__ end_out, int g_n,
+                   int sbytes, int rmax) {
+    // DEC_TAB_ALIGN slack, [DEC_GROUPS][nb TSIZE | sym TSIZE] tables (the
+    // first 2048-byte aligned in the shared window, so an entry's address
+    // is a bitwise or), then one ring of DEC_RING words per thread
+    extern __shared__ __align__(16) uint8_t smem_raw[];
+    const unsigned raw = (unsigned)__cvta_generic_to_shared(smem_raw);
+    const unsigned pad = ((raw + DEC_TAB_ALIGN - 1) & ~(unsigned)(DEC_TAB_ALIGN - 1)) - raw;
+    uint8_t* tabs = smem_raw + pad;
+    const int tid = threadIdx.x;
+    const int g0 = blockIdx.x * DEC_GROUPS;
+    const int ng = g_n - g0 < DEC_GROUPS ? g_n - g0 : DEC_GROUPS;
+    // -- the block's tables, 4 entries per thread step (tnb rows are 16-byte aligned)
+    for (int i = tid; i < ng * (TSIZE / 4); i += DEC_THREADS) {
+        const int gl = i / (TSIZE / 4), e4 = i % (TSIZE / 4);
+        const i64 t = groups[(i64)(g0 + gl) * (1 + DEC_SLOTS)];
+        const int4 nb4 = __ldg(reinterpret_cast<const int4*>(tnb + t * TSIZE) + e4);
+        const uint32_t s4 = __ldg(reinterpret_cast<const uint32_t*>(tsym + t * TSIZE) + e4);
+        uint32_t* tab = reinterpret_cast<uint32_t*>(tabs + gl * DEC_TAB);
+        tab[e4] = (uint32_t)nb4.x | (uint32_t)nb4.y << 8 | (uint32_t)nb4.z << 16 | (uint32_t)nb4.w << 24;
+        tab[TSIZE / 4 + e4] = s4;
     }
     __syncthreads();
-    const i64 s = s0 + threadIdx.x;
-    if (s >= s_n) return;
-    const uint16_t* t = tab + threadIdx.x * TSIZE;
-    const uint64_t* w = reinterpret_cast<const uint64_t*>(bufs + s * sbytes);
-    const int nwords = sbytes / 8;
-    const uint64_t w0 = w[0];
-    int wk = -2;  // word index held in lo (hi = the next word)
-    uint64_t lo = 0, hi = 0;
-    // the 11 bits just below bit p, MSB = bit p - 1; bits below 0 read as zero
-    auto peek = [&](int p) -> int {
-        if (p < TABLELOG) return (int)((w0 << (TABLELOG - p)) & (TSIZE - 1));
-        const int k = (p - TABLELOG) >> 6;
-        if (k != wk) {
-            if (k == wk - 1) {
-                hi = lo;
-            } else {
-                hi = k + 1 < nwords ? w[k + 1] : 0;
-            }
-            lo = w[k];
-            wk = k;
-        }
-        const int off = p - TABLELOG - 64 * k;
-        uint64_t x = lo >> off;
-        if (off > 64 - TABLELOG) x |= hi << (64 - off);
-        return (int)(x & (TSIZE - 1));
-    };
-    const int tb = tbits[s];
+    const int gl = tid / DEC_SLOTS;
+    if (gl >= ng) return;
+    const int s = groups[(i64)(g0 + gl) * (1 + DEC_SLOTS) + 1 + tid % DEC_SLOTS];
+    if (s < 0) return;  // an empty slot of its group
+    const unsigned tab = raw + pad + gl * DEC_TAB;
+
+    Walk a;
+    const int nw = sbytes / 4;
+    a.w = reinterpret_cast<const uint32_t*>(bufs + (i64)s * sbytes);
+    a.ring = raw + pad + DEC_GROUPS * DEC_TAB + tid * DEC_RING * 4;
     const int rg = regen[s];
     const int K = rg < 0 ? 0 : (rg > rmax ? rmax : rg);
-    uint64_t* o = reinterpret_cast<uint64_t*>(out + s * (i64)rmax);
-    int p = tb;
-    uint64_t acc = 0;
-    for (int k = 0; k < K; ++k) {
-        const uint32_t e = t[peek(p)];
-        acc |= (uint64_t)(e & 255u) << (8 * (k & 7));
-        if ((k & 7) == 7) {
-            o[k >> 3] = acc;
-            acc = 0;
-        }
-        p -= (int)(e >> 8);
-        p = p > 0 ? p : 0;
+    const int steps = K > 1 ? K : 1;  // end = the position after max(K, 1) steps
+    const int q = tbits[s] - TABLELOG;
+    a.k = q >> 5;  // floor: -1 below bit 11
+    a.u = q & 31;
+    a.lo = stream_word(a.w, a.k, nw);
+    a.hi = stream_word(a.w, a.k + 1, nw);
+    a.n1 = stream_word(a.w, a.k - 1, nw);
+    a.n2 = stream_word(a.w, a.k - 2, nw);
+    a.x = __funnelshift_r(a.lo, a.hi, a.u);
+    a.fill = (a.k - 3) >> 1;
+    top_up(a);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group 0;" ::: "memory");  // the first 31 words below the window
+    uint32_t* o = reinterpret_cast<uint32_t*>(out + (i64)s * rmax);
+
+    const int full = steps >> 3;
+    for (int j = 0; j < full; ++j) {
+        // every ring word read in these 8 steps was requested at least
+        // DEC_WAIT_GROUPS + 1 groups ago (8 steps use <= 3 words)
+        asm volatile("cp.async.wait_group %0;" ::"n"(DEC_WAIT_GROUPS) : "memory");
+        uint32_t lo4 = 0, hi4 = 0;
+        lo4 = __byte_perm(lo4, step(a, tab), 0x3214);
+        lo4 = __byte_perm(lo4, step(a, tab), 0x3240);
+        lo4 = __byte_perm(lo4, step(a, tab), 0x3410);
+        lo4 = __byte_perm(lo4, step(a, tab), 0x4210);
+        hi4 = __byte_perm(hi4, step(a, tab), 0x3214);
+        hi4 = __byte_perm(hi4, step(a, tab), 0x3240);
+        hi4 = __byte_perm(hi4, step(a, tab), 0x3410);
+        hi4 = __byte_perm(hi4, step(a, tab), 0x4210);
+        reinterpret_cast<uint2*>(o)[j] = make_uint2(lo4, hi4);
+        top_up(a);
+        asm volatile("cp.async.commit_group;" ::: "memory");
     }
-    int kw = K >> 3;
-    if (K & 7) o[kw++] = acc;
-    for (int j = kw; j < rmax / 8; ++j) o[j] = 0;
-    if (K == 0) {
-        p = tb - (int)(t[peek(tb)] >> 8);
-        p = p > 0 ? p : 0;
+    const int tail = steps & 7;
+    if (tail) {
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+        uint64_t acc = 0;
+        for (int i = 0; i < tail; ++i) acc |= (uint64_t)step(a, tab) << (8 * i);
+        reinterpret_cast<uint64_t*>(o)[full] = K ? acc : 0;  // regen <= 0 writes no symbol
     }
-    end_out[s] = p;
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    for (int j = full + (tail ? 1 : 0); j < rmax / 8; ++j) reinterpret_cast<uint2*>(o)[j] = make_uint2(0, 0);
+    const int p = 32 * a.k + a.u + TABLELOG;
+    end_out[s] = p > 0 ? p : 0;
 }
 
 extern "C" {
@@ -382,20 +511,22 @@ int rp_zstd_emit(const uint8_t* data, const int32_t* valid, const uint8_t* nbits
     return (int)cudaGetLastError();
 }
 
-// bufs: S rows of sbytes (a multiple of 8, rows 8-byte aligned); out: S rows
-// of rmax (a multiple of 8); tnb entries in [0, 11]
+// bufs: S rows of sbytes (a multiple of 8, rows 8-byte aligned); out: S
+// rows of rmax (a multiple of 8); tsym / tnb: T tables (tnb entries in
+// [0, 11]); groups: G rows of (table, stream, stream, stream, stream), -1
+// for an empty slot, every stream in exactly one group
 int rp_zstd_decode(const uint8_t* bufs, const int32_t* tbits, const int32_t* regen,
-                   const uint8_t* tsym, const int32_t* tnb, uint8_t* out, int32_t* end,
-                   i64 s_n, i64 sbytes, i64 rmax, void* stream) {
-    if (s_n <= 0) return 0;
+                   const uint8_t* tsym, const int32_t* tnb, const int32_t* groups, uint8_t* out,
+                   int32_t* end, i64 g_n, i64 sbytes, i64 rmax, void* stream) {
+    if (g_n <= 0) return 0;
     if (sbytes < 8 || sbytes % 8 || rmax < 8 || rmax % 8) return (int)cudaErrorInvalidValue;
-    const int smem = DECODE_STREAMS * TSIZE * (int)sizeof(uint16_t);
+    const int smem = DEC_SMEM;
     cudaError_t e = cudaFuncSetAttribute(zstd_decode_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    const unsigned grid = (unsigned)((s_n + DECODE_STREAMS - 1) / DECODE_STREAMS);
-    zstd_decode_kernel<<<grid, DECODE_STREAMS, smem, (cudaStream_t)stream>>>(
-        bufs, tbits, regen, tsym, tnb, out, end, s_n, (int)sbytes, (int)rmax);
+    const unsigned grid = (unsigned)((g_n + DEC_GROUPS - 1) / DEC_GROUPS);
+    zstd_decode_kernel<<<grid, DEC_THREADS, smem, (cudaStream_t)stream>>>(
+        bufs, tbits, regen, tsym, tnb, groups, out, end, (int)g_n, (int)sbytes, (int)rmax);
     return (int)cudaGetLastError();
 }
 

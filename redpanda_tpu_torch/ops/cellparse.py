@@ -21,10 +21,14 @@ per-cell vectors; only the byte-level emission differs.
 columns [offset, offset + n + CELL), zero past the row's valid length.
 The fused CRC + codec path passes the uploaded [prefix | body] rows with
 offset = 40 so the body is read in place. Rows on the card run the
-CUDA kernel `rp_cell_parse` in csrc/codec.cu; rows on the CPU run
-`cell_parse_plain`, which follows the JAX program step by step (a sort
-of (hash << 17 | pos) keys for the candidates, gathers of [n, CELL]
-windows for the verification).
+CUDA kernel `rp_cell_parse` in csrc/codec.cu: one block per row gets
+the candidates from the same sort, done as a block-wide stable radix
+sort of the positions by hash (two 8-bit passes through a [B, 2, n]
+uint32 scratch this wrapper allocates once per launch), then each key's
+predecessor in sorted order. Rows on the CPU run `cell_parse_plain`,
+which follows the JAX program step by step (a sort of (hash << 17 |
+pos) keys for the candidates, gathers of [n, CELL] windows for the
+verification).
 
 Outputs, per row (nc = n // CELL cells):
   has[nc] bool, mstart[nc], offs[nc], mlen[nc], lit_start[nc],
@@ -41,7 +45,7 @@ import torch
 from . import _build
 
 CELL = 16  # parse grid: one sequence decision per CELL bytes
-MAX_N = 65536  # 16-bit offsets; the kernel's last-seen table is 2^16 u16
+MAX_N = 65536  # 16-bit offsets and positions (the kernel's sort keys are hash << 16 | pos)
 _HASH_BITS = 16
 _TAIL_GUARD = 12  # no match may start near the end (LZ4 spec; safe for snappy)
 _PRIME = 2654435761
@@ -197,10 +201,10 @@ def launch_parse(data: torch.Tensor, valid: torch.Tensor, n: int, offset: int) -
     )
     if b:
         lib = _lib()
-        cand = torch.empty((b, n), dtype=torch.int16, device=data.device)
+        keys = torch.empty((b, 2, n), dtype=torch.int32, device=data.device)
         rc = lib.rp_cell_parse(
             data.data_ptr(), valid.data_ptr(), *(t.data_ptr() for t in out),
-            cand.data_ptr(), b, stride, offset, n, _build.stream_of(data),
+            keys.data_ptr(), b, stride, offset, n, _build.stream_of(data),
         )
         _build.check(lib, rc, "cell_parse")
         LAUNCHES["cell_parse"] += 1

@@ -22,12 +22,18 @@ with zero sequences; the frame and block scaffolding is host work
   nb[peek(p)], 0) over bit positions (peek(p) = the 11 bits just below
   p, zeros below bit 0), pos[0] = tbits and pos[k+1] = f[pos[k]]; out[k]
   = sym[peek(pos[k])] for k < regen, end = f[pos[max(regen - 1, 0)]]
-  must be 0. A stream that runs out sticks at bit 0. On the card
-  `rp_zstd_decode` walks each stream with one thread and a bit
-  reservoir. The plain version keeps the JAX program's pointer jumping
-  (a transition table over every bit position, log2(rmax) doubling
-  rounds): ~6 int64 tensors of 8 * sbytes entries per stream, so it runs
-  a few streams at a time.
+  must be 0. A stream that runs out sticks at bit 0. Decode tables are
+  staged once per distinct table ([T, 2048], matched by the identity of
+  the table object, as the backend passes the four streams of a block
+  the same object) with a stream -> table index [S]; `decode_groups`
+  cuts the streams into groups of up to four consecutive streams that
+  share a table. On the card `rp_zstd_decode` runs one warp per 8
+  groups, the groups' tables in shared memory, one stream walk per
+  thread (csrc/zstd.cu says why). `_decode_streams` keeps the
+  JAX signature (one table per stream). The plain version keeps the JAX
+  program's pointer jumping (a transition table over every bit
+  position, log2(rmax) doubling rounds): ~6 int64 tensors of 8 * sbytes
+  entries per stream, so it runs a few streams at a time.
 
 Rows on the card launch the kernels or raise; rows on the CPU run the
 plain versions, which follow `_encode_one` / `_kraft_nbits` /
@@ -49,6 +55,7 @@ from .lz4 import as_arrays
 TABLELOG = 11
 TSIZE = 1 << TABLELOG
 MAX_N = 65536
+DECODE_SLOTS = 4  # streams per decode group (one zstd block's four); csrc/zstd.cu DEC_SLOTS
 
 LAUNCHES = {"zstd_lengths": 0, "zstd_emit": 0, "zstd_decode": 0}
 
@@ -64,7 +71,7 @@ def _lib():
         lib = _build.load("zstd")
         _build.bind(lib, "rp_zstd_lengths", 4, 4)
         _build.bind(lib, "rp_zstd_emit", 6, 4)
-        _build.bind(lib, "rp_zstd_decode", 7, 3)
+        _build.bind(lib, "rp_zstd_decode", 8, 3)
         _LIB = lib
     return _LIB
 
@@ -348,58 +355,101 @@ def _decode_streams_plain(bufs, tbits, regen, tsym, tnb, sbytes: int, rmax: int)
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
-def _check_decode(bufs, tbits, regen, tsym, tnb, sbytes: int, rmax: int) -> None:
+def _check_decode(bufs, tbits, regen, tsym, tnb, index, sbytes: int, rmax: int) -> None:
     s = bufs.shape[0] if bufs.dim() == 2 else -1
     if bufs.dtype != torch.uint8 or tuple(bufs.shape) != (s, sbytes):
         raise ValueError(f"bufs: expected uint8 [S, {sbytes}], got {bufs.dtype} {tuple(bufs.shape)}")
     if sbytes < 8 or sbytes % 8 or rmax < 8 or rmax % 8:
         raise ValueError(f"sbytes={sbytes}, rmax={rmax}: expected positive multiples of 8")
-    for name, t, dt, shape in (
+    t = tsym.shape[0] if tsym.dim() == 2 else -1
+    for name, x, dt, shape in (
         ("tbits", tbits, torch.int32, (s,)), ("regen", regen, torch.int32, (s,)),
-        ("tsym", tsym, torch.uint8, (s, TSIZE)), ("tnb", tnb, torch.int32, (s, TSIZE)),
+        ("tsym", tsym, torch.uint8, (t, TSIZE)), ("tnb", tnb, torch.int32, (t, TSIZE)),
+        ("index", index, torch.int32, (s,)),
     ):
-        if t.dtype != dt or tuple(t.shape) != shape or t.device != bufs.device:
+        if x.dtype != dt or tuple(x.shape) != shape or x.device != bufs.device:
             raise ValueError(f"{name}: expected {dt} {shape} on {bufs.device}")
     if bufs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"zstd kernels run on cuda or cpu tensors, not {bufs.device}")
     if s and bool(((tbits < 0) | (tbits > 8 * sbytes)).any()):
         raise ValueError(f"tbits must lie in [0, {8 * sbytes}]")
-    if s and bool(((tnb < 0) | (tnb > TABLELOG)).any()):
+    if t and bool(((tnb < 0) | (tnb > TABLELOG)).any()):
         raise ValueError(f"tnb entries must be code lengths in [0, {TABLELOG}]")
+    if s and bool(((index < 0) | (index >= t)).any()):
+        raise ValueError(f"index entries must name one of the {t} tables")
 
 
-def launch_decode(bufs, tbits, regen, tsym, tnb, sbytes: int, rmax: int):
-    """One `rp_zstd_decode` launch on checked inputs: (out, end)."""
+def decode_groups(index: np.ndarray) -> np.ndarray:
+    """int32 [G, 1 + DECODE_SLOTS] rows of (table, stream ids, -1 for an
+    empty slot): runs of consecutive streams with one table, cut every
+    DECODE_SLOTS streams. Every stream is in exactly one group."""
+    index = np.asarray(index, np.int64)
+    s = index.size
+    if not s:
+        return np.zeros((0, 1 + DECODE_SLOTS), np.int32)
+    at = np.arange(s)
+    new = np.ones(s, bool)
+    new[1:] = index[1:] != index[:-1]
+    rank = at - np.maximum.accumulate(np.where(new, at, 0))
+    slot = rank % DECODE_SLOTS
+    gid = np.cumsum(slot == 0) - 1
+    groups = np.full((int(gid[-1]) + 1, 1 + DECODE_SLOTS), -1, np.int32)
+    groups[gid, 0] = index
+    groups[gid, 1 + slot] = at
+    return groups
+
+
+def launch_decode(bufs, tbits, regen, tsym, tnb, index, sbytes: int, rmax: int, groups):
+    """One `rp_zstd_decode` launch on checked inputs: (out, end).
+    `groups` is `decode_groups(index)` as int32 [G, 5] on the card."""
     s = bufs.shape[0]
     dev = bufs.device
     out = torch.empty((s, rmax), dtype=torch.uint8, device=dev)
     end = torch.empty(s, dtype=torch.int32, device=dev)
     if s:
-        ts = [t.contiguous() for t in (bufs, tbits, regen, tsym, tnb)]
-        if ts[0].data_ptr() % 16:
-            raise ValueError("bufs must be 16-byte aligned")
+        if groups.dtype != torch.int32 or groups.dim() != 2 or groups.shape[1] != 1 + DECODE_SLOTS \
+                or groups.device != dev:
+            raise ValueError(f"groups: expected int32 [G, {1 + DECODE_SLOTS}] on {dev}")
+        ts = [t.contiguous() for t in (bufs, tbits, regen, tsym, tnb, groups)]
+        if ts[0].data_ptr() % 16 or ts[3].data_ptr() % 4 or ts[4].data_ptr() % 16:
+            raise ValueError("bufs and tnb must be 16-byte aligned, tsym 4-byte aligned")
         lib = _lib()
         rc = lib.rp_zstd_decode(*(t.data_ptr() for t in ts), out.data_ptr(), end.data_ptr(),
-                                s, sbytes, rmax, _build.stream_of(bufs))
+                                groups.shape[0], sbytes, rmax, _build.stream_of(bufs))
         _build.check(lib, rc, "zstd_decode")
         LAUNCHES["zstd_decode"] += 1
     return out, end
 
 
-def _decode_streams(bufs, tbits, regen, tsym, tnb, sbytes: int, rmax: int):
-    """bufs uint8 [S, sbytes]; tbits / regen int32 [S]; tsym uint8 [S,
-    2048], tnb int32 [S, 2048]. Returns (out uint8 [S, rmax], end int32
-    [S]); `end` must be 0 for every valid stream (exact consumption)."""
-    _check_decode(bufs, tbits, regen, tsym, tnb, sbytes, rmax)
+def decode_staged(bufs, tbits, regen, tsym, tnb, index, sbytes: int, rmax: int, groups):
+    """bufs uint8 [S, sbytes]; tbits / regen / index int32 [S]; tsym
+    uint8 [T, 2048], tnb int32 [T, 2048]: stream i decodes with table
+    index[i]; groups int32 [G, 5] = `decode_groups(index)`, on the
+    streams' device. Returns (out uint8 [S, rmax], end int32 [S]); `end`
+    must be 0 for every valid stream (exact consumption)."""
+    _check_decode(bufs, tbits, regen, tsym, tnb, index, sbytes, rmax)
     if bufs.device.type == "cpu":
-        return _decode_streams_plain(bufs, tbits, regen, tsym, tnb, sbytes, rmax)
-    return launch_decode(bufs, tbits, regen, tsym, tnb, sbytes, rmax)
+        i = index.to(torch.int64)
+        return _decode_streams_plain(bufs, tbits, regen, tsym[i], tnb[i], sbytes, rmax)
+    return launch_decode(bufs, tbits, regen, tsym, tnb, index, sbytes, rmax, groups)
+
+
+def _decode_streams(bufs, tbits, regen, tsym, tnb, sbytes: int, rmax: int):
+    """The JAX signature: tsym uint8 [S, 2048] and tnb int32 [S, 2048],
+    one table per stream, so each stream is a group of its own. Returns
+    (out uint8 [S, rmax], end int32 [S])."""
+    index = torch.arange(bufs.shape[0] if bufs.dim() == 2 else 0, dtype=torch.int32, device=bufs.device)
+    groups = torch.full((index.shape[0], 1 + DECODE_SLOTS), -1, dtype=torch.int32, device=bufs.device)
+    groups[:, 0] = index
+    groups[:, 1] = index
+    return decode_staged(bufs, tbits, regen, tsym, tnb, index, sbytes, rmax, groups)
 
 
 def stage_streams(streams, regens, tables):
-    """Host matrices for `_decode_streams`: (bufs, tbits, regen, tsym,
-    tnb, sbytes, rmax), sbytes and rmax the powers of two >= 64 that
-    hold the longest stream and the largest regenerated size."""
+    """Host matrices for `decode_staged`: (bufs, tbits, regen, tsym,
+    tnb, index, sbytes, rmax), each distinct table object staged once,
+    sbytes and rmax the powers of two >= 64 that hold the longest stream
+    and the largest regenerated size."""
     smax = max(len(s) for s in streams)
     rmax_need = max(regens)
     sbytes = 64
@@ -417,12 +467,18 @@ def stage_streams(streams, regens, tables):
         bufs[i, : len(s)] = np.frombuffer(s, np.uint8)
         tbits[i] = 8 * (len(s) - 1) + s[-1].bit_length() - 1
     regen = np.asarray(regens, np.int32)
-    tsym = np.zeros((rows, TSIZE), np.uint8)
-    tnb = np.zeros((rows, TSIZE), np.int32)
+    slot, distinct = {}, []
+    index = np.empty(rows, np.int32)
     for i, t in enumerate(tables):
+        index[i] = slot.setdefault(id(t), len(distinct))
+        if index[i] == len(distinct):
+            distinct.append(t)
+    tsym = np.zeros((len(distinct), TSIZE), np.uint8)
+    tnb = np.zeros((len(distinct), TSIZE), np.int32)
+    for i, t in enumerate(distinct):
         tsym[i] = t[0]
         tnb[i] = t[1]
-    return bufs, tbits, regen, tsym, tnb, sbytes, rmax
+    return bufs, tbits, regen, tsym, tnb, index, sbytes, rmax
 
 
 def check_ends(end: np.ndarray) -> None:
@@ -449,8 +505,9 @@ def decode_streams(
     if not streams:
         return []
     dev = check_device(device or DEFAULT_DEVICE)
-    *mats, sbytes, rmax = stage_streams(streams, regens, tables)
-    out, end = _decode_streams(*(torch.from_numpy(m).to(dev) for m in mats), sbytes, rmax)
+    *mats, index, sbytes, rmax = stage_streams(streams, regens, tables)
+    groups = torch.from_numpy(decode_groups(index)).to(dev)
+    out, end = decode_staged(*(torch.from_numpy(m).to(dev) for m in (*mats, index)), sbytes, rmax, groups)
     check_ends(end.cpu().numpy())
     out = out.cpu().numpy()
     return [out[i, : regens[i]].tobytes() for i in range(len(streams))]

@@ -8,9 +8,9 @@ every comparison is exact: the seven per-cell parse vectors, the
 blocks, and the broker's recompressed frames are byte-equal.
 
 The CUDA kernels of csrc/codec.cu cannot run here. Their schemes are
-replayed in Python below, step for step (the warp's tile-wise
-latest-occurrence walk with its match_any groups, the block scans as
-warp shuffles, the per-thread 16-byte emission rounds), and held
+replayed in Python below, step for step (the block-wide radix sort of
+the positions by hash with its per-warp match_any ranks, the block
+scans as warp shuffles, the per-thread 16-byte emission rounds), and held
 against the plain versions, the way test_torch_crc32c.py replays its
 segment scheme.
 """
@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from redpanda_tpu import compression as jcompression
 from redpanda_tpu.compression import tpu_backend as jbackend
 from redpanda_tpu.models import record as jrecord
@@ -92,6 +93,9 @@ CASES = {
     "payloads": lambda: list(_payloads().values()),
     "ragged": lambda: _ragged(3),
     "full_64k": lambda: [_full_row()],
+    # the parse's skew edges: every 4-gram one hash; every 4-gram distinct
+    "one_byte_64k": lambda: [b"\x61" * 65536],
+    "distinct_64k": lambda: [chip_smoke.distinct_grams_row(65536)],
 }
 
 
@@ -319,25 +323,66 @@ def _hash(d, p):
     return ((gram * 2654435761) & FULL) >> 16
 
 
+_LOWER = np.tril(np.ones((32, 32), bool), -1)  # [lane, peer]: peer < lane
+
+
+def _ballot(bits):
+    return int(sum(1 << l for l in range(32) if bits[l]))
+
+
+def _replay_radix_pass(key_at, walk_end, shift, warps=32):
+    """One pass of the kernel's radix sort: each warp owns a run of the
+    input. Count sweep: one shared atomic per key into its warp's digit
+    count (order-free). A block scan over (digit, warp), digit-major,
+    gives offsets. Scatter sweep, 32 keys a tile: each active lane ORs its
+    bit into its digit's lane mask, reads (mask, offset) back, lands at
+    the offset plus its lower peers, and the lowest lane clears the mask
+    and advances the offset."""
+    run = -(-walk_end // (warps * 32)) * 32
+    runs = [(min(w * run, walk_end), min(min(w * run, walk_end) + run, walk_end)) for w in range(warps)]
+    cnt = np.zeros((warps, 256), np.int64)
+    for w, (r0, r1) in enumerate(runs):
+        if r1 > r0:
+            np.add.at(cnt[w], (key_at(np.arange(r0, r1)) >> shift) & 255, 1)
+    flat = cnt.T.reshape(-1)  # (digit, warp), digit-major
+    off = (np.cumsum(flat) - flat).reshape(256, warps).T.copy()
+    out = np.zeros(walk_end, np.int64)
+    for w, (r0, r1) in enumerate(runs):
+        mask = np.zeros(256, np.int64)
+        for base in range(r0, r1, 32):
+            i = base + np.arange(32)
+            act = i < r1
+            keys = key_at(np.minimum(i, r1 - 1))
+            dig = (keys >> shift) & 255
+            for l in np.flatnonzero(act):  # atomicOr of the lane bits
+                mask[dig[l]] |= 1 << int(l)
+            for l in np.flatnonzero(act):
+                peers = int(mask[dig[l]])
+                lower = bin(peers & ((1 << int(l)) - 1)).count("1")
+                out[off[w, dig[l]] + lower] = keys[l]
+            for l in np.flatnonzero(act):  # the lowest lane of each digit
+                peers = int(mask[dig[l]])
+                if peers and peers & ((1 << int(l)) - 1) == 0:
+                    off[w, dig[l]] += bin(peers).count("1")
+                    mask[dig[l]] = 0
+    return out
+
+
 def _replay_candidates(d, walk_end):
-    """The warp's walk: 32-position tiles, match_any groups, a 2^16
-    last-seen table with 0xFFFF for none."""
-    table = [0xFFFF] * 65536
-    cand = [0xFFFF] * walk_end
-    for base in range(0, walk_end, 32):
-        keys = [_hash(d, base + l) if base + l < walk_end else 0x10000 + l for l in range(32)]
-        peers = [sum(1 << m for m in range(32) if keys[m] == keys[l]) for l in range(32)]
-        got = []
-        for l in range(32):
-            below = peers[l] & ((1 << l) - 1)
-            got.append(base + below.bit_length() - 1 if below else table[keys[l]] if keys[l] < 65536 else 0xFFFF)
-        for l in range(32):
-            p = base + l
-            if p < walk_end:
-                if peers[l] & ~((2 << l) - 1) & FULL == 0:
-                    table[keys[l]] = p
-                cand[p] = got[l]
-    return cand
+    """The kernel's candidates: (hash << 16 | pos) keys of [0, walk_end)
+    radix-sorted by the hash's low then high byte, then each key's
+    predecessor in sorted order where the hashes agree; 0xFFFF for none."""
+    d = np.asarray(d, np.int64)
+    pos = np.arange(walk_end)
+    gram = d[pos] | d[pos + 1] << 8 | d[pos + 2] << 16 | d[pos + 3] << 24
+    keys0 = (((gram * 2654435761) & FULL) >> 16) << 16 | pos
+    ka = _replay_radix_pass(lambda i: keys0[i], walk_end, 16)
+    kb = _replay_radix_pass(lambda i: ka[i], walk_end, 24)
+    cand = np.full(walk_end, 0xFFFF, np.int64)
+    same = np.zeros(walk_end, bool)
+    same[1:] = (kb[1:] >> 16) == (kb[:-1] >> 16)
+    cand[kb & 0xFFFF] = np.where(same, np.roll(kb, 1) & 0xFFFF, 0xFFFF)
+    return cand.tolist()
 
 
 def _replay_parse(d, v, n, threads=1024, items=4):
@@ -353,31 +398,61 @@ def _replay_parse(d, v, n, threads=1024, items=4):
             return p - 1
         return -1 if cand_s[p] == 0xFFFF else cand_s[p]
 
-    def verify(p, q, cap):
-        return q >= 0 and all(d[p + k] == d[q + k] for k in range(cap))
+    def word(at):  # the little-endian 32-bit word of d at byte `at`
+        return int.from_bytes(bytes(int(x) for x in d[at : at + 4]), "little")
 
+    def verify(p, q, e):  # from the cell end: aligned cell words, the first one masked
+        if q < 0:
+            return False
+        back = e - p
+        for k in range(4, back + 4, 4):
+            at = q + back - k
+            qw = word(at) if at >= 0 else (word(0) << (-8 * at)) & FULL
+            x = word(e - k) ^ qw
+            if k > back:
+                x &= (FULL << (8 * (k - back))) & FULL
+            if x:
+                return False
+        return True
+
+    # one thread per position (candidates looked up lazily); a half-warp
+    # ballot picks each cell's first good position; the cell-start lane
+    # writes the cell, with the third candidate of its start if none
     nc = n // CELL
     has_s, j_s, offs_s = [0] * nc, [0] * nc, [0] * nc
-    for c in range(nc):
-        cstart = c * CELL
-        j, sel, found = 0, -1, False
-        if cstart + CELL <= v - 12:
-            for jj in range(CELL - 3):
-                p, cap = cstart + jj, CELL - jj
-                c1 = cand_at(p)
-                c2 = cand_at(c1) if c1 >= 0 else -1
-                c3 = cand_at(c2) if c2 >= 0 else -1
-                for q in (c1, c2, c3):
-                    if verify(p, q, cap):
-                        sel, found, j = q, True, jj
-                        break
-                if found:
-                    break
-        if not found:
-            c1 = cand_at(cstart)
-            c2 = cand_at(c1) if c1 >= 0 else -1
-            sel = cand_at(c2) if c2 >= 0 else -1
-        has_s[c], j_s[c], offs_s[c] = found, j, cstart + j - sel
+    for base in range(0, n, threads):
+        for w in range(threads // 32):
+            sel = [-1] * 32
+            for lane in range(32):
+                p = base + 32 * w + lane
+                jj, cstart = p % CELL, p - p % CELL
+                if p < n and jj <= CELL - 4 and cstart + CELL <= v - 12:
+                    c1 = cand_at(p)
+                    if verify(p, c1, cstart + CELL):
+                        sel[lane] = c1
+                    elif c1 >= 0:
+                        c2 = cand_at(c1)
+                        if verify(p, c2, cstart + CELL):
+                            sel[lane] = c2
+                        elif c2 >= 0:
+                            c3 = cand_at(c2)
+                            if verify(p, c3, cstart + CELL):
+                                sel[lane] = c3
+            good = _ballot([x >= 0 for x in sel])
+            for half in (0, 16):
+                p = base + 32 * w + half
+                if p >= n:
+                    continue
+                g = (good >> half) & 0xFFFF
+                j = (g & -g).bit_length() - 1 if g else 0
+                c = p // CELL
+                has_s[c], j_s[c] = g != 0, j
+                if g:
+                    offs_s[c] = p + j - sel[half + j]
+                else:
+                    c1 = cand_at(p)
+                    c2 = cand_at(c1) if c1 >= 0 else -1
+                    offs_s[c] = p - (cand_at(c2) if c2 >= 0 else -1)
 
     heads, bnds, jvs, aggs = [], [], [], []
     for t in range(threads):
@@ -554,8 +629,8 @@ def _replay_emit(codec, d, v, parse, n, threads=512, items=8, nbytes=16):
 
 
 def test_kernel_walk_matches_sorted_candidates():
-    """The tile-wise latest-occurrence walk gives the sort's cand on
-    every walked position (including hash collisions inside a tile)."""
+    """The block's radix sort gives the sort's cand on every sorted
+    position (including hash collisions inside a tile)."""
     rows = [b"abcd" * 300, bytes(range(256)) * 4, _ragged(21, count=1, max_len=1)[0] + b"x" * 40]
     rng = np.random.default_rng(2)
     rows.append(rng.integers(0, 4, 1200, dtype=np.uint8).tobytes())  # dense collisions
@@ -569,7 +644,41 @@ def test_kernel_walk_matches_sorted_candidates():
         got = np.array(_replay_candidates(d, walk_end), np.int64)
         got[got == 0xFFFF] = -1
         np.testing.assert_array_equal(got, want[:walk_end])
-        # past the walk the row is zeros: cand[p] = p - 1
+        # past the sorted positions the row is zeros: cand[p] = p - 1
+        np.testing.assert_array_equal(want[walk_end + 1 :], np.arange(walk_end, n - 1))
+
+
+_jax_cand = jax.jit(lambda d, n: _jax_sorted_candidates(d, n), static_argnums=1)
+
+
+def _jax_sorted_candidates(d, n):
+    """redpanda_tpu/ops/cellparse.py:41-61: the JAX program's candidates
+    (each (hash << 17 | pos) key's predecessor in sorted order)."""
+    pos = jnp.arange(n, dtype=jnp.int32)
+    d32 = d.astype(jnp.uint32)
+    gram = d32[pos] | (d32[pos + 1] << 8) | (d32[pos + 2] << 16) | (d32[pos + 3] << 24)
+    h = ((gram * jnp.uint32(2654435761)) >> 16).astype(jnp.int32)
+    sk = jnp.sort((h.astype(jnp.int64) << 17) | pos.astype(jnp.int64))
+    sh, sp = (sk >> 17).astype(jnp.int32), (sk & 0x1FFFF).astype(jnp.int32)
+    prev_ok = jnp.concatenate([jnp.zeros(1, bool), sh[1:] == sh[:-1]])
+    return jnp.zeros(n, jnp.int32).at[sp].set(jnp.where(prev_ok, jnp.roll(sp, 1), -1))
+
+
+@pytest.mark.parametrize("n", (512, 65536))
+@pytest.mark.parametrize("kind", ("zeros", "one_byte", "distinct"))
+def test_kernel_sort_matches_jax_sort(kind, n):
+    """The replayed sort against the JAX sort on the skew extremes (an
+    all-zero row, one repeated byte: one digit in every tile) and a row
+    whose 4-grams are all distinct, at v in {0, 1, 3, 4, 5, n}."""
+    full = {"zeros": bytes(n), "one_byte": b"\x61" * n, "distinct": chip_smoke.distinct_grams_row(n)}[kind]
+    for v in (0, 1, 3, 4, 5, n):
+        d = np.zeros(n + CELL, np.uint8)
+        d[:v] = np.frombuffer(full[:v], np.uint8)
+        want = np.asarray(_jax_cand(jnp.asarray(d), n)).astype(np.int64)
+        walk_end = min(v + 1, n)
+        got = np.array(_replay_candidates(d, walk_end), np.int64)
+        got[got == 0xFFFF] = -1
+        np.testing.assert_array_equal(got, want[:walk_end], err_msg=f"v={v}")
         np.testing.assert_array_equal(want[walk_end + 1 :], np.arange(walk_end, n - 1))
 
 
@@ -599,8 +708,6 @@ def test_kernel_replay_matches_plain(which):
 def test_chip_smoke_decoders_read_port_frames(monkeypatch):
     """chip_smoke.py decodes the card's frames without liblz4/libsnappy:
     its decoders must read what the port writes."""
-    import chip_smoke
-
     monkeypatch.setattr(tlz4, "DEFAULT_DEVICE", "cpu")
     monkeypatch.setattr(tsnappy, "DEFAULT_DEVICE", "cpu")
     monkeypatch.setattr(tfused, "DEFAULT_DEVICE", "cpu")

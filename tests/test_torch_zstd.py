@@ -12,7 +12,10 @@ The CUDA kernels of csrc/zstd.cu cannot run here. Their schemes are
 replayed in Python below and held against the plain versions: the
 warp's Kraft loops with composite arg-min / arg-max keys, the
 emission's per-thread symbol runs with one placement per code, and the
-decoder's backward walk with its 128-bit window.
+decoder's grouped walk: one stream per thread, four threads per table,
+the 64-bit window of 32-bit words, the ring of words staged ahead (its
+reads and refills checked), the select-only window step and the
+unclamped position.
 """
 
 import ctypes
@@ -172,11 +175,24 @@ def _stream_set(rows, n):
     return chip_smoke.stream_items(rows, nbits, streams, bits)
 
 
+def _per_stream(bufs, tbits, regen, tsym, tnb, index):
+    """The staged matrices with one table per stream (the JAX signature)."""
+    return bufs, tbits, regen, tsym[index], tnb[index]
+
+
 def _decode_both(items):
-    mats = tz.stage_streams(*zip(*items))
-    *m, sbytes, rmax = mats
-    got = [t.numpy() for t in tz._decode_streams(*(torch.from_numpy(a) for a in m), sbytes, rmax)]
-    want = [np.asarray(a) for a in jz._decode_streams(*(jnp.asarray(a) for a in m), sbytes, rmax)]
+    """The port's staged decode (each table object once) and the JAX
+    program (one table per stream) on the same streams; the port's
+    JAX-signature entry on the per-stream matrices must give the staged
+    decode's outputs."""
+    *m, sbytes, rmax = tz.stage_streams(*zip(*items))
+    groups = torch.from_numpy(tz.decode_groups(m[5]))
+    got = [t.numpy() for t in tz.decode_staged(*(torch.from_numpy(a) for a in m), sbytes, rmax, groups)]
+    per = _per_stream(*m)
+    alone = [t.numpy() for t in tz._decode_streams(*(torch.from_numpy(a) for a in per), sbytes, rmax)]
+    for a, b in zip(alone, got):
+        np.testing.assert_array_equal(a, b)
+    want = [np.asarray(a) for a in jz._decode_streams(*(jnp.asarray(a) for a in per), sbytes, rmax)]
     return got, want
 
 
@@ -545,38 +561,74 @@ def _replay_emit(row: bytes, n: int, nbits: np.ndarray, codes: np.ndarray, threa
     return out, tbs
 
 
-def _replay_decode(buf: bytes, tb: int, rg: int, sym, nb, rmax: int):
-    """rp_zstd_decode for one stream: a 128-bit window of two aligned
-    64-bit words (reloaded when the window's low word moves), bits below
-    0 read as zero, min(rg, rmax) symbols, zero fill, end."""
-    sbytes = len(buf)
-    words = np.frombuffer(buf, "<u8").astype(object)
-    wk, lo, hi = -2, 0, 0
+def _fshr(lo: int, hi: int, shift: int) -> int:
+    """__funnelshift_r: hi:lo shifted right by shift & 31, low 32 bits."""
+    return ((hi << 32 | lo) >> (shift & 31)) & 0xFFFFFFFF
 
-    def peek(p):
-        nonlocal wk, lo, hi
-        if p < 11:
-            return (int(words[0]) << (11 - p)) & 2047
-        k = (p - 11) >> 6
-        if k != wk:
-            hi = lo if k == wk - 1 else (int(words[k + 1]) if k + 1 < sbytes // 8 else 0)
-            lo, wk = int(words[k]), k
-        off = p - 11 - 64 * k
-        x = lo >> off
-        if off > 53:
-            x |= hi << (64 - off)
-        return x & 2047
 
-    k_n = min(max(rg, 0), rmax)
-    out = bytearray(rmax)
-    p = tb
-    for k in range(k_n):
-        e = peek(p)
-        out[k] = int(sym[e])
-        p = max(p - int(nb[e]), 0)
-    if k_n == 0:
-        p = max(tb - int(nb[peek(tb)]), 0)
-    return bytes(out), p
+def _replay_decode(bufs, tbits, regen, tsym, tnb, index, sbytes: int, rmax: int,
+                   ring: int = 32, ahead: int = 33):
+    """rp_zstd_decode on staged matrices: decode_groups' groups, one
+    thread per stream. A thread holds hi:lo (words k + 1, k), the next two
+    words below (n1, n2) and the shift u; the words below those come from
+    a ring of `ring` words filled down to word k - `ahead` in 8-byte chunks
+    (zeros below word 0) before the walk and after every 8 steps. A step
+    reads nb and sym at (window & 2047) and the ring word k - 3, then
+    selects on m = -1 when u - nb < 0 (the window steps down one word),
+    else 0: no branch. It runs max(K, 1) steps, 8 at a time, then the
+    rest; the output keeps the first K symbols; `end` is the unclamped
+    position after the last step, clamped at 0. The replay checks the
+    ring: every read finds the word it wants, and every refill overwrites
+    a word at or above k - 1."""
+    s_n = bufs.shape[0]
+    nw = sbytes // 4
+    out = np.zeros((s_n, rmax), np.uint8)
+    end = np.zeros(s_n, np.int32)
+    for grp in tz.decode_groups(index):
+        nbt, symt = tnb[grp[0]], tsym[grp[0]]
+        for sid in (int(x) for x in grp[1:] if x >= 0):
+            words = np.frombuffer(bufs[sid].tobytes(), "<u4").astype(object)
+            slots = [None] * ring  # (word index, value) per ring slot
+            w = dict(k=(int(tbits[sid]) - 11) >> 5, u=(int(tbits[sid]) - 11) & 31)
+
+            def word(j):
+                return int(words[j]) if 0 <= j < nw else 0
+
+            def top_up():
+                while 2 * w["fill"] >= w["k"] - ahead:
+                    for j in (2 * w["fill"], 2 * w["fill"] + 1):
+                        old = slots[j % ring]
+                        assert old is None or old[0] >= w["k"] - 1, (old, w["k"])
+                        slots[j % ring] = (j, word(j))
+                    w["fill"] -= 1
+
+            def step():
+                idx = w["x"] & 2047
+                held = slots[(w["k"] - 3) % ring]
+                assert held is not None and held[0] == w["k"] - 3, (held, w["k"])
+                un = w["u"] - int(nbt[idx])
+                xa, xb = _fshr(w["lo"], w["hi"], un), _fshr(w["n1"], w["lo"], un)
+                if un < 0:
+                    w["hi"], w["lo"], w["n1"], w["n2"] = w["lo"], w["n1"], w["n2"], held[1]
+                    w["k"] -= 1
+                w["x"] = xb if un < 0 else xa
+                w["u"] = un & 31
+                return int(symt[idx])
+
+            k = w["k"]
+            w.update(lo=word(k), hi=word(k + 1), n1=word(k - 1), n2=word(k - 2), fill=(k - 3) >> 1)
+            w["x"] = _fshr(w["lo"], w["hi"], w["u"])
+            top_up()
+            k_n = min(max(int(regen[sid]), 0), rmax)
+            steps = max(k_n, 1)
+            syms = []
+            for _ in range(steps >> 3):
+                syms += [step() for _ in range(8)]
+                top_up()
+            syms += [step() for _ in range(steps & 7)]
+            out[sid, :k_n] = syms[:k_n]
+            end[sid] = max(32 * w["k"] + w["u"] + 11, 0)
+    return out, end
 
 
 @pytest.mark.parametrize("n", (256, 4096))
@@ -595,14 +647,61 @@ def test_kernel_replay_encode_matches_plain(n):
 
 
 def test_kernel_replay_decode_matches_plain():
+    """The kernel's grouped walk on the edge rows' streams and the trap
+    streams: tampered, truncated (it runs out and sticks at bit 0), regen 0
+    with tbits 0, more symbols than the row holds, all in one group, so
+    the four threads of one table walk chains of unequal K; and two
+    streams on a random table."""
     items = _stream_set(_edge_rows(4096, seed=17), 4096)
     items += _trap_streams(items)
     *m, sbytes, rmax = tz.stage_streams(*zip(*items))
-    m[1][-1] = 0  # regen 0 with tbits 0
-    m[1][-2] = rmax + 9  # more symbols than the row holds
-    out, end = (t.numpy() for t in tz._decode_streams(*(torch.from_numpy(a) for a in m), sbytes, rmax))
-    bufs, tbits, regen, tsym, tnb = m
-    for i in range(len(items)):
-        o, e = _replay_decode(bufs[i].tobytes(), int(tbits[i]), int(regen[i]), tsym[i], tnb[i], rmax)
-        assert o == out[i].tobytes(), i
-        assert e == end[i], i
+    m[1][-2] = 0  # regen 0 with tbits 0
+    m[2][-1] = rmax + 9  # more symbols than the row holds
+    groups = tz.decode_groups(m[5])
+    assert len(set(groups[-1, 1:].tolist())) == 4 and groups[-1, 1] == len(items) - 4
+    # two more streams on a random table
+    rng = np.random.default_rng(29)
+    bufs, tbits, regen, tsym, tnb, index = m
+    m = [np.concatenate([bufs, rng.integers(0, 256, (2, sbytes), dtype=np.uint8)]),
+         np.concatenate([tbits, [8 * sbytes, 1000]]).astype(np.int32),
+         np.concatenate([regen, [300, 41]]).astype(np.int32),
+         np.concatenate([tsym, rng.integers(0, 256, (1, 2048), dtype=np.uint8)]),
+         np.concatenate([tnb, rng.integers(0, 12, (1, 2048)).astype(np.int32)]),
+         np.concatenate([index, [tsym.shape[0]] * 2]).astype(np.int32)]
+    groups = torch.from_numpy(tz.decode_groups(m[5]))
+    out, end = (t.numpy() for t in tz.decode_staged(*(torch.from_numpy(a) for a in m), sbytes, rmax, groups))
+    got_out, got_end = _replay_decode(*m, sbytes, rmax)
+    np.testing.assert_array_equal(got_out, out)
+    np.testing.assert_array_equal(got_end, end)
+    assert got_end[-5] == 0 and got_end[-6] != 0  # truncated sticks at 0; tampered
+
+
+def test_decode_groups_cut_runs_of_one_table():
+    """Runs of consecutive streams with one table, cut every 4 streams;
+    a table that comes back later opens a new group."""
+    groups = tz.decode_groups(np.array([0, 0, 0, 0, 0, 1, 1, 2, 0], np.int32))
+    np.testing.assert_array_equal(groups, [
+        [0, 0, 1, 2, 3], [0, 4, -1, -1, -1], [1, 5, 6, -1, -1], [2, 7, -1, -1, -1], [0, 8, -1, -1, -1],
+    ])
+    assert tz.decode_groups(np.zeros(0, np.int32)).shape == (0, 5)
+    index = np.random.default_rng(3).integers(0, 6, 500).astype(np.int32)
+    groups = tz.decode_groups(index)
+    ids = groups[:, 1:][groups[:, 1:] >= 0]
+    np.testing.assert_array_equal(np.sort(ids), np.arange(500))
+    for g in groups:
+        assert (index[g[1:][g[1:] >= 0]] == g[0]).all()
+
+
+@pytest.mark.parametrize("shared", (True, False))
+def test_decode_streams_match_jax_with_shared_tables(shared):
+    """decode_streams gives the JAX package's bytes whether the streams
+    of a block pass one table object (staged once) or each its own copy
+    (staged once per stream)."""
+    items = _stream_set(_edge_rows(4096, seed=23), 4096)
+    if not shared:
+        items = [(st, rg, (t[0].copy(), t[1].copy())) for st, rg, t in items]
+    streams, regens, tables = (list(x) for x in zip(*items))
+    tsym = tz.stage_streams(streams, regens, tables)[3]
+    assert tsym.shape[0] == (len({id(t) for t in tables}) if shared else len(items))
+    assert tsym.shape[0] < len(items) if shared else True
+    assert tz.decode_streams(streams, regens, tables) == jz.decode_streams(streams, regens, tables)
