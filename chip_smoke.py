@@ -24,16 +24,21 @@ Phases, each raising on any mismatch:
   5. the codec kernels (cell parse, LZ4 and snappy emission) against
      their plain versions at the fused path's shape (256 rows of 32 KiB
      bodies read in place after the 40-byte CRC prefix) and the codec
-     shape (16 rows of 64 KiB), and on 64 short, empty and ragged rows:
-     equal parse vectors, equal lengths and equal bytes on [0, out_len);
+     shape (16 rows of 64 KiB), on 64 short, empty and ragged rows, and on
+     an all-random 64 KiB row (no sequence: the whole block is the final
+     literal run) beside an empty one (v = 0), and through both emissions
+     where the size pass loads cells one by one (rows of 17 cells; parse
+     vectors off a 16-byte boundary): equal parse vectors, equal lengths
+     and equal bytes on [0, out_len);
      and the fused CRC + codec launch sequences' CRCs against the plain
      CRC;
   5b. the kernels at the shapes one call gives them, each exact against
      its plain version and timed: CRC, parse and LZ4 emission on phase
      6's one fused row (one 16 x 1 KiB batch), the zstd encode on phase
      8b's one row and the decode of that block's four streams, and the
-     parse on two full-width 64 KiB skew edges (one repeated byte; all
-     4-grams distinct);
+     parse and both emissions on two full-width 64 KiB skew edges (one
+     repeated byte; all 4-grams distinct); beside them the per-launch
+     floor, one empty kernel launch timed the same way;
   6. the codec path end to end: 1,024 batches (16 x 1 KiB records, half
      JSON-like text, half random bytes) through RecordBatch.recompressed
      (lz4) under RP_CODEC_BACKEND=device, each CRC checked on the card
@@ -756,6 +761,44 @@ def check_codec_kernels(torch, data, valid, n, offset, label: str):
     return got, want, out_bytes, errs
 
 
+def check_scalar_loads(torch) -> None:
+    """Both emissions where the size pass cannot load four cells of a
+    field at once, exact against the plain versions: rows of 17 cells
+    (n = 272, not a multiple of four cells), and the fused shape's parse
+    vectors copied to views 4 bytes past a 16-byte boundary."""
+    rng = np.random.default_rng(SEED + 9)
+    n = 272
+    chunks = [json_text(rng, n), rng.integers(0, 256, n, dtype=np.uint8).tobytes(), b"a" * 200, b""]
+    batch = np.zeros((len(chunks), n + parse_ops.CELL), np.uint8)
+    for i, c in enumerate(chunks):
+        batch[i, : len(c)] = np.frombuffer(c, np.uint8)
+    valid = torch.tensor([len(c) for c in chunks], dtype=torch.int32, device="cuda")
+    check_codec_kernels(torch, torch.from_numpy(batch).cuda(), valid, n, 0, "cells17")
+    data, valid, n, offset = codec_shapes(torch)["fused"]
+    parse = parse_ops.launch_parse(data, valid, n, offset)
+    shifted = []
+    for t in parse[:-1]:
+        buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+        lead = (-buf.data_ptr() % 16 + 4) // t.element_size()
+        view = buf[lead : lead + t.numel()].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4
+        shifted.append(view)
+    shifted.append(parse[-1])
+    for key, emit, emit_plain in (
+        ("lz4_emit", lz4_ops.lz4_emit, lz4_ops.lz4_emit_plain),
+        ("snappy_emit", snappy_ops.snappy_emit, snappy_ops.snappy_emit_plain),
+    ):
+        p_out, p_len = emit_plain(data, valid, parse, n, offset)
+        k_out, k_len = emit(data, valid, shifted, n, offset)
+        cols = torch.arange(k_out.shape[1], device=k_out.device)[None, :] < p_len[:, None].long()
+        if not (torch.equal(p_len, k_len) and torch.equal(torch.where(cols, k_out, 0), torch.where(cols, p_out, 0))):
+            raise AssertionError(f"{key}@shifted_fields: differs from the plain version")
+    log("[codec] parse, lz4_emit, snappy_emit on 4 rows of 17 cells (n=272), and both emissions on the fused "
+        "shape's parse vectors 4 bytes past a 16-byte boundary (the size pass's scalar loads): equal to plain, "
+        "tolerance exact")
+
+
 def codec_kernel_rows(torch, data, valid, n, offset, label: str, mem_rate: float,
                       reps: int = 10) -> tuple:
     """The parse and both emissions on one staged shape: equal to their
@@ -779,6 +822,8 @@ def codec_kernel_rows(torch, data, valid, n, offset, label: str, mem_rate: float
         "bound_ms": bound(v_sum + 4 * b + 21 * b * nc + 4 * b),
     }}
     lit = int(got[5].sum()) + int((valid - got[6]).clamp(min=0).sum())
+    cells_read = int(((valid.clamp(0, n) + parse_ops.CELL - 1) // parse_ops.CELL).sum())
+    seqs = int(got[0].sum())
     for key, emit, emit_plain in (
         ("lz4_emit", lz4_ops.lz4_emit, lz4_ops.lz4_emit_plain),
         ("snappy_emit", snappy_ops.snappy_emit, snappy_ops.snappy_emit_plain),
@@ -787,10 +832,12 @@ def codec_kernel_rows(torch, data, valid, n, offset, label: str, mem_rate: float
             "shape": f"{shape} out={out_bytes[key]}", "max_abs_err": errs[key],
             "ms": time_kernel(lambda: emit(data, valid, got, n, offset), reps=reps),
             "plain_ms": time_plain(lambda: emit_plain(data, valid, want, n, offset), reps=2),
-            # the parse vectors the emission reads (has, offs, mlen,
-            # lit_start, lit_len: 17 B per cell, plus last_end and
-            # valid), every literal byte once, every block byte once
-            "bound_ms": bound(17 * b * nc + 8 * b + lit + out_bytes[key] + 4 * b),
+            # what the emission must read and write: `has` (1 B) of each
+            # cell below v (no cell past v holds a match), the four int32
+            # fields (offs, mlen, lit_start, lit_len) of each cell with a
+            # match, valid and last_end of each row, every literal byte
+            # once; every block byte and out_len once
+            "bound_ms": bound(cells_read + 16 * seqs + 8 * b + lit + out_bytes[key] + 4 * b),
             "ratio": v_sum / max(out_bytes[key], 1),
         }
     return out, got, want
@@ -817,6 +864,13 @@ def phase_codec_kernels(torch, mem_rate: float) -> dict:
     check_codec_kernels(torch, *edge, "edge")
     log(f"[codec] parse, lz4_emit, snappy_emit on {edge[0].shape[0]} short, empty and ragged rows "
         f"(n={edge[2]}, offset {edge[3]}): equal to plain, tolerance exact")
+    raw = np.random.default_rng(SEED + 8).integers(0, 256, CODEC_BODY, dtype=np.uint8).tobytes()
+    batch, valid, n = lz4_ops.stage_chunks(lz4_ops.as_arrays([raw, b""]), "lz4")
+    _, _, out_bytes, _ = check_codec_kernels(torch, torch.from_numpy(batch).cuda(), torch.from_numpy(valid).cuda(),
+                                             n, 0, "random_v0")
+    log(f"[codec] parse, lz4_emit, snappy_emit on an all-random {CODEC_BODY}-byte row and an empty one "
+        f"(n={n}; blocks of {out_bytes['lz4_emit']} and {out_bytes['snappy_emit']} B): equal to plain, tolerance exact")
+    check_scalar_loads(torch)
     out = {}
     for label, (data, valid, n, offset) in codec_shapes(torch).items():
         b = data.shape[0]
@@ -894,7 +948,10 @@ def phase_per_call(torch, mem_rate: float) -> dict:
     """Phase 5b: the kernels of one call's shape, each equal to its plain
     version (exact) and timed: CRC, parse and LZ4 emission on phase 6's
     one fused row; the zstd encode on phase 8b's one row and the decode of
-    its four streams; the parse on the two full-width skew edges."""
+    its four streams; the parse and both emissions on the two full-width
+    skew edges; and the per-launch floor (one empty kernel)."""
+    from redpanda_tpu_torch.ops import _build
+
     inp = per_call_inputs(torch)
     data, valid, n, offset = inp["row"]["lz4"]
     crc_lens = valid.to(torch.int64) + offset
@@ -915,8 +972,14 @@ def phase_per_call(torch, mem_rate: float) -> dict:
     out.update(zstd_decode_row(torch, inp["items"], "batch", mem_rate))
     for label, staged in inp["edges"].items():
         rows, _, _ = codec_kernel_rows(torch, *staged, label, mem_rate, reps=30)
-        out[f"cell_parse@{label}"] = rows[f"cell_parse@{label}"]
+        out.update(rows)
     log_rows("per-call", out)
+    lib = parse_ops._lib()
+    _build.bind(lib, "rp_empty", 0, 0)
+    stream = _build.stream_of(data)
+    floor_ms = time_kernel(lambda: _build.check(lib, lib.rp_empty(stream), "empty"), reps=30)
+    log(f"[per-call] launch floor: one empty kernel as wide as an emission block at one row, timed as "
+        f"the rows above: {floor_ms:.4f} ms")
     return out
 
 

@@ -122,10 +122,27 @@ def lz4_emit_plain(data, valid, parse, n: int, offset: int = 0):
     return emit_plain(_emit_rows, data, valid, parse, n, offset)
 
 
+def check_parse(data, parse, n: int) -> None:
+    """The parse vectors a kernel launch reads by pointer: `cell_parse`'s
+    seven tensors, contiguous, of its dtypes and shapes ([B, n / CELL],
+    last_end [B]), on the rows' device."""
+    b, dev = data.shape[0], data.get_device()
+    shapes = ((b, n // CELL),) * 6 + ((b,),)
+    dtypes = (torch.bool,) + (torch.int32,) * 6
+    if len(parse) != len(cp.FIELDS) or not all(
+        t.dtype == dt and t.shape == sh and t.get_device() == dev and t.is_contiguous()
+        for t, sh, dt in zip(parse, shapes, dtypes)
+    ):
+        got = [(t.dtype, tuple(t.shape), str(t.device), t.is_contiguous()) for t in parse]
+        raise ValueError(f"parse: expected {len(cp.FIELDS)} contiguous tensors {cp.FIELDS} of dtypes "
+                         f"{dtypes}, shapes {shapes} on {data.device}; got {got}")
+
+
 def launch_emit(entry: str, counter: dict, key: str, data, valid, parse, n: int,
                 offset: int, m: int):
     """One launch of an emission kernel: out [B, m] (bytes past each
     row's out_len are left unwritten) and out_len [B] int32."""
+    check_parse(data, parse, n)
     b, stride = data.shape
     out = torch.empty((b, m), dtype=torch.uint8, device=data.device)
     out_len = torch.empty(b, dtype=torch.int32, device=data.device)

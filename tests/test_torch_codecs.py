@@ -9,9 +9,10 @@ blocks, and the broker's recompressed frames are byte-equal.
 
 The CUDA kernels of csrc/codec.cu cannot run here. Their schemes are
 replayed in Python below, step for step (the block-wide radix sort of
-the positions by hash with its per-warp match_any ranks, the block
-scans as warp shuffles, the per-thread 16-byte emission rounds), and held
-against the plain versions, the way test_torch_crc32c.py replays its
+the positions by hash, the block scans as warp shuffles, the emission's
+staged row, packed size scan, head writers with their deferred parts,
+per-cell literal copy and 16-byte flush), and held against the plain
+versions and the JAX programs, the way test_torch_crc32c.py replays its
 segment scheme.
 """
 
@@ -260,6 +261,29 @@ def test_recompressed_device_without_cuda_raises(monkeypatch):
         tbackend.compress_many_snappy([b"x" * 100])
 
 
+@pytest.mark.parametrize("fault", ["none", "missing", "dtype", "shape", "strided"])
+def test_emission_launch_checks_parse(fault):
+    """An emission launch reads the parse vectors by pointer, so it takes
+    only cell_parse's seven contiguous tensors of its dtypes and shapes."""
+    batch, valid, n = _stage(list(_payloads().values())[:3])
+    data = torch.from_numpy(batch)
+    parse = list(tcp.cell_parse(data, torch.from_numpy(valid), n))
+    if fault == "missing":
+        parse = parse[:-1]
+    elif fault == "dtype":
+        parse[3] = parse[3].long()
+    elif fault == "shape":
+        parse[4] = parse[4][:, :-1]
+    elif fault == "strided":
+        parse[2] = torch.stack([parse[2], parse[2]], dim=2)[:, :, 0]
+        assert not parse[2].is_contiguous()
+    if fault == "none":
+        tlz4.check_parse(data, parse, n)
+    else:
+        with pytest.raises(ValueError, match="parse"):
+            tlz4.check_parse(data, parse, n)
+
+
 def test_backend_registry_round_trips(monkeypatch):
     monkeypatch.setattr(tlz4, "DEFAULT_DEVICE", "cpu")
     monkeypatch.setattr(tsnappy, "DEFAULT_DEVICE", "cpu")
@@ -500,132 +524,253 @@ def _replay_parse(d, v, n, threads=1024, items=4):
     return out, last_end
 
 
-def _lz4_seq_byte(r, lit, mlen, offs, lit_at):
-    n_extra = lambda x: (x - 15) // 255 + 1 if x >= 15 else 0
-    extra = lambda x, i: min(max(x - 15 - 255 * i, 0), 255)
-    a1 = 1 + n_extra(lit)
-    a2 = a1 + lit
-    if r == 0:
-        return (min(lit, 15) << 4) | min(max(mlen - 4, 0), 15)
-    if r < a1:
-        return extra(lit, r - 1)
-    if r < a2:
-        return lit_at(r - a1)
-    if r == a2:
-        return offs & 255
-    if r == a2 + 1:
-        return (offs >> 8) & 255
-    return extra(mlen - 4, r - (a2 + 2))
-
-
-def _lz4_final_byte(fo, f_lit, lit_at):
-    a1 = 1 + ((f_lit - 15) // 255 + 1 if f_lit >= 15 else 0)
-    if fo == 0:
-        return min(f_lit, 15) << 4
-    if fo < a1:
-        return min(max(f_lit - 15 - 255 * (fo - 1), 0), 255)
-    return lit_at(fo - a1)
+def _lz4_n_extra(x):
+    return (x - 15) // 255 + 1 if x >= 15 else 0
 
 
 def _sn_lit_extra(x):
     return 0 if x <= 60 else (1 if x <= 256 else 2)
 
 
-def _sn_lit_byte(r, length, lit_at):
-    ex = _sn_lit_extra(length)
-    if r == 0:
-        return (length - 1) << 2 if ex == 0 else (240 if ex == 1 else 244)
-    if r - 1 < ex:
-        return ((length - 1) >> (8 * (r - 1))) & 255
-    return lit_at(r - 1 - ex)
+# csrc/codec.cu's head writers: every byte of a run but its literals, a long
+# regular part (an LZ4 255-run of more than 4 bytes, more than four snappy
+# copies) handed to `defer(position, length, a, b)`; part_byte(a, b, i) is
+# byte i of such a part. mlen < 0 marks the final run.
+def _lz4_part_byte(x, _b, i):
+    return min(max(x - 255 * i, 0), 255)
 
 
-def _sn_seq_byte(r, lit, mlen, offs, lit_at):
-    ls = 1 + _sn_lit_extra(lit) + lit if lit > 0 else 0
-    if r < ls:
-        return _sn_lit_byte(r, lit, lit_at)
-    c = r - ls
-    ci, role = c // 3, c % 3
+def _lz4_run(put, p, length, defer):
+    ne = _lz4_n_extra(length)
+    if ne > 4:
+        defer(p, ne, length - 15, 0)
+    else:
+        for i in range(ne):
+            put(p + i, _lz4_part_byte(length - 15, 0, i))
+
+
+def _lz4_put_head(put, st, lit, mlen, offs, defer):
+    put(st, (min(lit, 15) << 4) | min(max(mlen - 4, 0), 15))
+    _lz4_run(put, st + 1, lit, defer)
+    if mlen < 0:
+        return
+    a = st + 1 + _lz4_n_extra(lit) + lit
+    put(a, offs & 255)
+    put(a + 1, (offs >> 8) & 255)
+    _lz4_run(put, a + 2, mlen - 4, defer)
+
+
+def _sn_part_byte(mlen, offs, i):
+    ci, role = divmod(i, 3)
     clen = min(max(mlen - 64 * ci, 1), 64)
-    if role == 0:
-        return 2 | ((clen - 1) << 2)
-    return offs & 255 if role == 1 else (offs >> 8) & 255
+    return 2 | ((clen - 1) << 2) if role == 0 else (offs & 255 if role == 1 else (offs >> 8) & 255)
+
+
+def _sn_put_head(put, st, lit, mlen, offs, defer):
+    p = st
+    if lit > 0:
+        ex = _sn_lit_extra(lit)
+        put(p, (lit - 1) << 2 if ex == 0 else (60 << 2 if ex == 1 else 61 << 2))
+        for k in range(ex):
+            put(p + 1 + k, ((lit - 1) >> (8 * k)) & 255)
+        p += 1 + ex + lit
+    if mlen < 0:
+        return
+    nb = 3 * ((mlen + 63) // 64)
+    if nb > 12:
+        defer(p, nb, mlen, offs)
+    else:
+        for i in range(nb):
+            put(p + i, _sn_part_byte(mlen, offs, i))
 
 
 REPLAY_CODECS = {
+    # size(has, lit, mlen), final_size(f_lit), put_head, part_byte,
+    # out_bound, lit_head(lit): where a run's literals start
     "lz4": (
-        lambda has, lit, mlen: 1 + ((lit - 15) // 255 + 1 if lit >= 15 else 0) + lit + 2
-        + ((mlen - 19) // 255 + 1 if mlen - 4 >= 15 else 0) if has else 0,
-        lambda f_lit: 1 + ((f_lit - 15) // 255 + 1 if f_lit >= 15 else 0) + f_lit,
-        _lz4_seq_byte,
-        _lz4_final_byte,
+        lambda has, lit, mlen: 1 + _lz4_n_extra(lit) + lit + 2 + _lz4_n_extra(mlen - 4) if has else 0,
+        lambda f_lit: 1 + _lz4_n_extra(f_lit) + f_lit,
+        _lz4_put_head,
+        _lz4_part_byte,
         tlz4.out_bound,
+        lambda lit: 1 + _lz4_n_extra(lit),
     ),
     "snappy": (
         lambda has, lit, mlen: ((1 + _sn_lit_extra(lit) + lit if lit > 0 else 0)
                                 + 3 * ((mlen + 63) // 64)) if has else 0,
         lambda f_lit: 1 + _sn_lit_extra(f_lit) + f_lit if f_lit > 0 else 0,
-        _sn_seq_byte,
-        lambda fo, f_lit, lit_at: _sn_lit_byte(fo, f_lit, lit_at),
+        _sn_put_head,
+        _sn_part_byte,
         tsnappy.out_bound,
+        lambda lit: 1 + _sn_lit_extra(lit),
     ),
 }
+EMIT_THREADS, DEFER_CAP = 1024, 256
 
 
-def _replay_emit(codec, d, v, parse, n, threads=512, items=8, nbytes=16):
-    """csrc/codec.cu emit_kernel on one row: the size scan, then each
-    thread's 16-byte rounds (binary search, then walk forward)."""
-    size_fn, final_size, seq_byte, final_byte, bound = REPLAY_CODECS[codec]
+def _replay_emit(codec, row, v, parse, n, src_mis=0, dst_mis=0, threads=EMIT_THREADS):
+    """csrc/codec.cu emit_kernel on one row (`row`: its n + CELL bytes),
+    the source at `src_mis` bytes past a 16-byte boundary and the output
+    row at `dst_mis`: the staged row with its unaligned head and tail, the
+    size pass (16-byte loads of four cells a lane) with its one packed
+    scan, each sequence's head written by its cell, the long heads by the
+    whole block, the per-cell literal bytes and shifts, the literal copy a
+    row word a thread (funnel-shifted), and the flush (16-byte stores, the
+    row's first and last 16 bytes byte by byte). Returns (the block bytes
+    on [0, out_len), out_len)."""
+    size_fn, final_size, put_head, part_byte, bound, lit_head = REPLAY_CODECS[codec]
     has, _, offs, mlen, lit_start, lit_len, last_end = parse
-    nc = n // CELL
-    m = bound(n)
+    nc, m = n // CELL, bound(n)
     v = min(max(v, 0), n)
-    sz = [[size_fn(has[c], lit_len[c], mlen[c]) if (c := t * items + i) < nc else 0
-           for i in range(items)] for t in range(threads)]
-    run = _block_scan_excl([sum(s) for s in sz], lambda a, b: a + b, 0, suffix=False)
-    starts, total = [0] * nc, None
-    for t in range(threads):
-        r = run[t]
-        for i in range(items):
-            c = t * items + i
-            if c < nc:
-                starts[c] = r
-            r += sz[t][i]
-            if c == nc - 1:
-                total = r
+    garbage = 0xA5
+    # staging: row_s sits src_mis bytes into its buffer, so the source's
+    # aligned chunks land on aligned shared addresses
+    sbuf = bytearray([garbage]) * (n + CELL + 16)
+    base = src_mis
+    head = min((16 - src_mis) & 15, v)
+    nvec = (v - head) >> 4
+    tail = head + 16 * nvec
+    for i in range(head):
+        sbuf[base + i] = row[i]
+    for k in range(nvec):
+        x = head + 16 * k
+        assert (src_mis + x) % 16 == 0 and (base + x) % 16 == 0, "a cp.async chunk is misaligned"
+        sbuf[base + x : base + x + 16] = bytes(row[x : x + 16])
+    for i in range(tail, v):
+        sbuf[base + i] = row[i]
+
+    # size pass: warp w owns [w * per_warp, (w + 1) * per_warp), lane l the
+    # four cells at 4 l of each 128; only the cells below v
+    ncv = min(nc, (v + CELL - 1) // CELL)
+    per_warp = (ncv + threads * 4 - 1) // (threads * 4) * 128
+    for c in range(ncv, nc):
+        assert not has[c], "a cell at or past v holds a match"
+
+    def pack(c):
+        return (1 << 18) | size_fn(True, lit_len[c], mlen[c]) if c < ncv and has[c] else 0
+
+    cells, wruns = [], []  # (cell, exclusive pack within its warp)
+    for w in range(threads // 32):
+        wrun = 0
+        for i in range(per_warp // 128):
+            lanes = [[w * per_warp + 128 * i + 4 * l + k for k in range(4)] for l in range(32)]
+            xs = [sum(pack(c) for c in cs) for cs in lanes]
+            inc, o = list(xs), 1
+            while o < 32:
+                y = _shfl(inc, o, False)
+                inc = [inc[l] + y[l] if l >= o else inc[l] for l in range(32)]
+                o <<= 1
+            for l, cs in enumerate(lanes):
+                at = wrun + inc[l] - xs[l]
+                for c in cs:
+                    cells.append((w, c, at))
+                    at += pack(c)
+            wrun += inc[31]
+        wruns.append(wrun)
+    bases = _block_scan_excl([wruns[t // 32] if t % 32 == 31 else 0 for t in range(threads)],
+                             lambda a, b: a + b, 0, suffix=False)
+    total_pk = bases[threads - 1] + wruns[-1]
+    ns, total = total_pk >> 18, total_pk & 0x3FFFF
     f_lit = max(v - last_end, 0)
+    fl0 = total + lit_head(f_lit)
     out_len = total + final_size(f_lit)
+
+    out_s = bytearray([garbage]) * (m + 32)  # the block, out_s[dst_mis + o] = byte o
+    seq_s, def_s = {}, []
+    for w, c, at in cells:
+        if c < ncv and has[c]:
+            at += bases[32 * w]
+            for f in (lit_start[c], lit_len[c], mlen[c], offs[c]):
+                assert 0 <= f < 1 << 16, "a sequence field does not fit 16 bits"
+            seq_s[at >> 18] = (at & 0x3FFFF, lit_start[c], lit_len[c], mlen[c], offs[c])
+    assert sorted(seq_s) == list(range(ns))
+    seq_s[ns] = (total, last_end, f_lit, -1, 0)  # the final run
+
+    def put(p, val):
+        if p < m:
+            out_s[dst_mis + p] = val
+
+    def defer(p, length, a, b):
+        def_s.append((p, length, a, b))
+
+    for q in range(ns + 1):  # a thread a sequence, the final run last
+        st, _, lit, ml, of = seq_s[q]
+        put_head(put, st, lit, ml, of, defer)
+    assert len(def_s) <= DEFER_CAP
+
+    for p, length, a, b in def_s:  # the deferred parts, each by the block
+        for i in range(length):
+            put(p + i, part_byte(a, b, i))
+
+    # per cell, in the copy: its literal bytes [lo, hi) and their shift,
+    # from the run of the first sequence at or after it (its scan count)
+    cell_s = {}
+    for w, c, at in cells:
+        if c < ncv:
+            q = (at + bases[32 * w]) >> 18
+            st, ls, lit, _, _ = seq_s[q]
+            lend = ls + lit if q < ns else v
+            l0 = st + lit_head(lit)
+            lo = min(max(ls - CELL * c, 0), CELL)
+            hi = min(max(lend - CELL * c, lo), CELL)
+            cell_s[c] = (lo, hi, l0 - ls)
+
+    def word(a):  # the little-endian shared word at buffer address a (4-aligned)
+        return int.from_bytes(sbuf[a : a + 4], "little")
+
+    for g in range(0, ncv, 32):  # a warp's group of 32 cells, skipped whole without literals
+        group = [cell_s.get(g + lane, (CELL, CELL, 0)) for lane in range(32)]
+        if not any(lo < hi for lo, hi, _ in group):
+            continue
+        for wi in range(128):  # lane wi % 32 copies the group's row word wi
+            lo, hi, delta = group[wi >> 2]
+            x, j0 = CELL * g + 4 * wi, 4 * (wi & 3)
+            if hi <= j0 or lo >= j0 + 4:
+                continue
+            a = base + x
+            wv = (((word((a & ~3) + 4) << 32) | word(a & ~3)) >> (8 * (a & 3))) & FULL
+            for b in range(4):
+                if lo <= j0 + b < hi and x + b + delta < m:
+                    out_s[dst_mis + x + b + delta] = (wv >> (8 * b)) & 255
+
     end = min(out_len, m)
-    out = bytearray(end)
+    out = bytearray([0xEE]) * (m + 16)
+    for j in range((dst_mis + end + 15) // 16):
+        o0 = 16 * j - dst_mis
+        if o0 >= 0 and o0 + 16 <= end:
+            assert (dst_mis + o0) % 16 == 0
+            out[dst_mis + o0 : dst_mis + o0 + 16] = out_s[16 * j : 16 * j + 16]
+        else:
+            for o in range(max(o0, 0), min(o0 + 16, end)):
+                out[dst_mis + o] = out_s[dst_mis + o]
+    return bytes(out[dst_mis : dst_mis + end]), out_len
 
-    def clip(x):
-        return min(max(x, 0), n - 1)
 
-    for t in range(threads):
-        for o0 in range(t * nbytes, end, threads * nbytes):
-            s = -1
-            if o0 < total:
-                lo, hi = 0, nc
-                while lo < hi:
-                    mid = (lo + hi) >> 1
-                    if starts[mid] <= o0:
-                        lo = mid + 1
-                    else:
-                        hi = mid
-                s = lo - 1
-            for k in range(nbytes):
-                o = o0 + k
-                if o >= end:
-                    break
-                if o < total:
-                    while s + 1 < nc and starts[s + 1] <= o:
-                        s += 1
-                    base = lit_start[s]
-                    out[o] = seq_byte(o - starts[s], lit_len[s], mlen[s], offs[s],
-                                      lambda i: int(d[clip(base + i)]))
-                else:
-                    out[o] = final_byte(o - total, f_lit, lambda i: int(d[clip(last_end + i)]))
-    return bytes(out), out_len
+def _roles(codec, parse, v, n):
+    """The role of every output byte: token (LZ4 token, snappy tag),
+    length (LZ4 255-run bytes, snappy literal length bytes), literal,
+    offset."""
+    size_fn, final_size, _, _, _, lit_head = REPLAY_CODECS[codec]
+    has, _, offs, mlen, lit_start, lit_len, last_end = parse
+    roles = []
+    for c in range(n // CELL):
+        if not has[c]:
+            continue
+        lit, ml = lit_len[c], mlen[c]
+        lh = lit_head(lit)
+        if codec == "lz4":
+            seq = ["token"] + ["length"] * (lh - 1) + ["literal"] * lit + ["offset"] * 2
+            seq += ["length"] * (size_fn(True, lit, ml) - len(seq))
+        else:
+            seq = (["token"] + ["length"] * (lh - 1) + ["literal"] * lit if lit else [])
+            seq += ["token", "offset", "offset"] * ((ml + 63) // 64)
+        assert len(seq) == size_fn(True, lit, ml)
+        roles += seq
+    f_lit = max(min(max(v, 0), n) - last_end, 0)
+    if final_size(f_lit):
+        fh = lit_head(f_lit)
+        roles += ["token"] + ["length"] * (fh - 1) + ["literal"] * f_lit
+    return roles
 
 
 def test_kernel_walk_matches_sorted_candidates():
@@ -700,9 +845,113 @@ def test_kernel_replay_matches_plain(which):
         assert last_end == int(plain[-1][i])
         parse = [fields[f] for f in tcp.FIELDS[:-1]] + [last_end]
         for codec, (out, out_len) in blocks.items():
-            got, got_len = _replay_emit(codec, batch[i], int(valid[i]), parse, n)
+            dst_mis = i * REPLAY_CODECS[codec][4](n) % 16  # the row's place in [B, out_bound(n)]
+            got, got_len = _replay_emit(codec, batch[i], int(valid[i]), parse, n, dst_mis=dst_mis)
             assert got_len == int(out_len[i]), (codec, i)
             assert got == out[i, :got_len].numpy().tobytes(), (codec, i)
+
+
+def _tile_row(kind):
+    """"long": 8,000 random bytes, then 1,200 of b"a", 400 random, 300 of
+    b"b": the first sequence's head has long parts (LZ4: a 32-byte literal
+    length run; snappy: 19 copies after a 61 << 2 tag and its two length
+    bytes), which the kernel defers to the block. "short": ten literals before
+    the first match."""
+    rng = np.random.default_rng(11)
+    lead = rng.integers(0, 256, 8000, dtype=np.uint8).tobytes() if kind == "long" else b"0123456789"
+    return (lead + b"a" * 1200 + rng.integers(0, 256, 400, dtype=np.uint8).tobytes() + b"b" * 300)
+
+
+# The block leaves shared memory in 16-byte tiles aligned in device memory;
+# a row whose output starts `dst_mis` bytes past a 16-byte boundary has its
+# first tile boundary at o = 16 - dst_mis. (row, dst_mis, role before the
+# boundary, role after it) putting that boundary right after a token, inside
+# a length run and inside a literal run (the tests check the roles)
+TILE_ROWS = {
+    ("lz4", "token"): ("long", 15, "token", "length"),
+    ("lz4", "length"): ("long", 14, "length", "length"),
+    ("lz4", "literal"): ("short", 14, "literal", "literal"),
+    ("snappy", "token"): ("long", 15, "token", "length"),
+    ("snappy", "length"): ("long", 14, "length", "length"),
+    ("snappy", "literal"): ("short", 14, "literal", "literal"),
+}
+
+
+def _edge_rows(case, codec):
+    """(staged matrix, valid, n, offset) of one emission edge case."""
+    rng = np.random.default_rng(23)
+    if case.startswith("fused"):
+        bodies = [_full_row()[:30000], rng.integers(0, 256, 32768, dtype=np.uint8).tobytes(), b"",
+                  b"\x61" * 20001, b"Z"]
+        prefixes = [rng.integers(0, 256, tfused.PREFIX, dtype=np.uint8).tobytes() for _ in bodies]
+        mat, blen, n = tfused.stage_fused(prefixes, bodies)
+        assert mat.shape[1] == n + 56
+        return mat, blen, n, tfused.PREFIX
+    if case == "cells17":  # n = 272: 17 cells a row, not a multiple of four
+        n = 272
+        chunks = [_full_row()[:n], rng.integers(0, 256, n, dtype=np.uint8).tobytes(), b"a" * 200, b""]
+        batch = np.zeros((len(chunks), n + CELL), np.uint8)
+        for i, c in enumerate(chunks):
+            batch[i, : len(c)] = np.frombuffer(c, np.uint8)
+        return batch, np.array([len(c) for c in chunks], np.int32), n, 0
+    chunks = {
+        "random_64k": lambda: [rng.integers(0, 256, 65536, dtype=np.uint8).tobytes()],
+        "one_byte_64k": lambda: [b"\x61" * 65536],
+        "v0": lambda: [b""],
+        "v1": lambda: [b"Z"],
+        "near_empty_and_full": lambda: [b"Z", _full_row(), b"", rng.integers(0, 256, 65536, dtype=np.uint8).tobytes()],
+        "tile_token": lambda: [_tile_row(TILE_ROWS[(codec, "token")][0])],
+        "tile_length": lambda: [_tile_row(TILE_ROWS[(codec, "length")][0])],
+        "tile_literal": lambda: [_tile_row(TILE_ROWS[(codec, "literal")][0])],
+    }[case]()
+    batch, valid, n = _stage(chunks)
+    return batch, valid, n, 0
+
+
+EDGE_CASES = ("random_64k", "one_byte_64k", "v0", "v1", "fused_offset40", "near_empty_and_full",
+              "tile_token", "tile_length", "tile_literal", "cells17")
+
+
+@pytest.mark.parametrize("codec", ["lz4", "snappy"])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_kernel_replay_edges_match_plain_and_jax(case, codec):
+    """The emission's edge rows, each through the replayed kernel (the
+    source's and the output row's alignment as on the card), the plain
+    version and the JAX program: an all-random 64 KiB row (no sequence,
+    the longest final literal), one repeated byte (one long match: LZ4
+    255-runs, 64-byte snappy copies), v = 0 and v = 1, fused rows read at
+    offset 40 (bodies 8-byte but not 16-byte aligned), a near-empty row
+    beside full ones, rows whose first 16-byte tile boundary falls right
+    after a token, inside a length run and inside a literal run (the long
+    rows also split a head between its sequence and the block), and rows
+    of 17 cells (n = 272), where the size pass loads cells one by one."""
+    jmod, tmod = {"lz4": (jlz4, tlz4), "snappy": (jsnappy, tsnappy)}[codec]
+    data, valid, n, offset = _edge_rows(case, codec)
+    td, tv = torch.from_numpy(data), torch.from_numpy(valid)
+    out, out_len = tmod._compress_chunks(td, tv, n, offset)
+    jout, jlen = jmod._compress_chunks(jnp.asarray(data[:, offset : offset + n + CELL]), jnp.asarray(valid), n)
+    np.testing.assert_array_equal(out_len.numpy(), np.asarray(jlen))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+    parse = tcp.cell_parse(td, tv, n, offset)
+    m = tmod.out_bound(n)
+    stride = data.shape[1]
+    for i in range(data.shape[0]):
+        fields = [t[i].to(torch.int64).tolist() for t in parse[:-1]] + [int(parse[-1][i])]
+        dst_mis = i * m % 16  # the row's place in [B, out_bound(n)]
+        if case.startswith("tile_"):
+            _, dst_mis, before, after = TILE_ROWS[(codec, case[5:])]
+            roles = _roles(codec, fields, int(valid[i]), n)
+            assert (roles[15 - dst_mis], roles[16 - dst_mis]) == (before, after)
+        for threads in (1024, 512):  # the block at <= 132 rows a launch, and past that
+            got, got_len = _replay_emit(codec, data[i, offset : offset + n + CELL], int(valid[i]), fields, n,
+                                        src_mis=(i * stride + offset) % 16, dst_mis=dst_mis, threads=threads)
+            assert got_len == int(out_len[i]), (case, codec, i, threads)
+            assert got == out[i, :got_len].numpy().tobytes(), (case, codec, i, threads)
+    if case == "random_64k":
+        assert int(parse[0].sum()) == 0  # no sequence: the whole block is the final run
+        assert int(out_len[0]) == (65536 + 1 + (65536 - 15) // 255 + 1 if codec == "lz4" else 65536 + 3)
+    if case == "fused_offset40":
+        assert {(i * stride + offset) % 16 for i in range(data.shape[0])} == {0, 8}
 
 
 def test_chip_smoke_decoders_read_port_frames(monkeypatch):
