@@ -12,7 +12,11 @@ Phases, each raising on any mismatch:
      replies with duplicate pairs and stale seqs, H=50,000 heartbeat
      rows), the fold and the commit sweep also at R=5, 3, 12 and 32
      (padded rows, the 16- and 32-slot kernels), and on CRC rows (1,024 ragged rows of ~16.4 KiB, 4,096 rows
-     of 4 KiB); all outputs are integers, so every comparison is exact;
+     of 4 KiB, rows at every start alignment mod 16 with lengths at the
+     kernel's piece, tile and team boundaries, one row of 1 MiB and one of
+     4 MiB + 3 bytes held to the host CRC); all outputs are integers, so
+     every comparison is exact; beside the CRC's times, an empty kernel
+     launched at its launch shape (the floor);
   3. the main path end to end: a 50,000-group ShardGroupArrays at RF=3
      on the card, driven by a TickFrame for 25 ticks of seeded follower
      acks and leader appends (every fifth tick a fused frame_tick with
@@ -454,6 +458,62 @@ def crc_rows(rng, n: int, stride: int, min_len: int):
     return data, lens
 
 
+def crc_floor_ms(torch, n: int) -> float:
+    """One empty kernel launched with crc32c_device's grid, block and
+    shared memory for n rows, timed as the kernels are."""
+    from redpanda_tpu_torch.ops import _build
+
+    lib = crc_ops._lib()
+    _build.bind(lib, "rp_crc32c_empty", 0, 1)
+    stream = torch.cuda.current_stream().cuda_stream
+    return time_kernel(lambda: _build.check(lib, lib.rp_crc32c_empty(n, stream), "empty"), reps=30)
+
+
+def crc_boundary_lengths(team: int, w: int) -> list:
+    """Lengths at the edges of one of the CRC kernel's shapes: the scalar
+    head and tail, a lane's piece (w), a warp's tile, a team's round of
+    tiles."""
+    tile = 32 * w
+    return [0, 1, 3, 4, 5, 7, 8, 9, 15, 16, 17, 19, 20, w - 1, w, w + 1,
+            tile - 1, tile, tile + 1, 2 * tile - 1, 2 * tile + 1,
+            team * tile - 1, team * tile + 1, (2 * team + 1) * tile + 3]
+
+
+def crc_edge_rows(torch, rng) -> None:
+    """crc32c_device on rows at every start alignment mod 16 (odd
+    strides) with lengths at the kernel's boundaries, through both of its
+    launch shapes (up to one row an SM, and more), exact against the
+    plain version and the host CRC; and one row of 1 MiB and one of
+    4 MiB + 3 bytes (Kafka's message.max.bytes is 1,048,588) against the
+    host CRC alone: the plain version steps column by column."""
+    from redpanda_tpu_torch.utils.crc import crc32c_batch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, (team, w) in ((min(64, sms), crc_ops.ONE), (300, crc_ops.MANY)):
+        stride = 32 * w * (2 * team + 2) + 1
+        lens_np = rng.integers(0, stride + 1, n).astype(np.int64)
+        edges = crc_boundary_lengths(team, w)
+        lens_np[: len(edges)] = edges
+        data_np = rng.integers(0, 256, (n, stride), dtype=np.uint8)
+        data = torch.from_numpy(data_np).cuda()
+        lens = torch.from_numpy(lens_np).cuda()
+        got = crc_ops.crc32c_device(data, lens)
+        torch.cuda.synchronize()
+        max_abs_err({"crc": got}, {"crc": crc_ops.crc32c_device_plain(data, lens)})
+        assert_equal(got.cpu().numpy().astype(np.uint32), crc32c_batch(data_np, lens_np.astype(np.uint64)),
+                     f"crc edges B={n} S={stride} vs host")
+        log(f"[kernels] crc32c_device edges B={n} S={stride}: rows at every start mod 16, "
+            f"lengths {sorted(set(edges))[:6]}... {len(edges)} boundary lengths: equal to plain and host")
+    for size in (1 << 20, (4 << 20) + 3):
+        data_np = rng.integers(0, 256, (1, size), dtype=np.uint8)
+        data = torch.from_numpy(data_np).cuda()
+        lens = torch.tensor([size], device="cuda")
+        got = crc_ops.crc32c_device(data, lens).cpu().numpy().astype(np.uint32)
+        assert_equal(got, crc32c_batch(data_np, np.array([size], np.uint64)), f"crc long row {size} vs host")
+        ms = time_kernel(lambda: crc_ops.crc32c_device(data, lens), reps=5)
+        log(f"[kernels] crc32c_device long row of {size} B: equal to the host CRC, {ms:.4f} ms")
+
+
 def phase_kernels(torch, mem_rate: float) -> dict:
     """Phase 2: each kernel vs its plain version on the card."""
     from redpanda_tpu_torch.models.consensus_state import group_state_from_numpy
@@ -565,16 +625,19 @@ def phase_kernels(torch, mem_rate: float) -> dict:
             "plain_ms": time_plain(lambda: crc_ops.crc32c_device_plain(data, lens), reps=1),
             # every row byte once, lens read, one u32 per row written
             "bound_ms": bound(int(lens_np.sum()) + 8 * n + 4 * n),
+            "floor_ms": crc_floor_ms(torch, n),
         }
         if label == "ragged":
             out["crc32c_device"] = entry
         else:
             out["crc32c_device@bench"] = entry
+    crc_edge_rows(torch, rng)
     for name, e in out.items():
+        floor = f", empty kernel at its launch shape {e['floor_ms']:.4f} ms" if "floor_ms" in e else ""
         log(
             f"[kernels] {name:<22} {e['shape']}: equal to plain, tolerance exact "
             f"(max_abs_err {e['max_abs_err']}); "
-            f"kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms"
+            f"kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms{floor}"
         )
     return out
 
@@ -846,6 +909,8 @@ def codec_kernel_rows(torch, data, valid, n, offset, label: str, mem_rate: float
 def log_rows(tag: str, rows: dict, what: str = "equal to plain, tolerance exact") -> None:
     for name, e in rows.items():
         extra = f", ratio {e['ratio']:.3f}" if "ratio" in e else ""
+        if "floor_ms" in e:
+            extra += f", empty kernel at its launch shape {e['floor_ms']:.4f} ms"
         log(f"[{tag}] {name:<22} {e['shape']}: {what}; kernel {e['ms']:.4f} ms, "
             f"bound {e['bound_ms']:.6f} ms, plain {e['plain_ms']:.3f} ms{extra}")
 
@@ -956,15 +1021,17 @@ def phase_per_call(torch, mem_rate: float) -> dict:
     data, valid, n, offset = inp["row"]["lz4"]
     crc_lens = valid.to(torch.int64) + offset
     want = crc_ops.crc32c_device_plain(data, crc_lens)
-    got = crc_ops.crc32c_device(data, crc_lens)
+    # as the fused sequence launches it: the int32 body length and the prefix
+    got = crc_ops.crc32c_rows(data, valid, offset)
     torch.cuda.synchronize()
     out = {"crc32c_device@row": {
         "shape": f"row: B=1 S={data.shape[1]} bytes={int(crc_lens.sum())}",
         "max_abs_err": max_abs_err({"crc": got}, {"crc": want}),
-        "ms": time_kernel(lambda: crc_ops.crc32c_device(data, crc_lens)),
+        "ms": time_kernel(lambda: crc_ops.crc32c_rows(data, valid, offset)),
         "plain_ms": time_plain(lambda: crc_ops.crc32c_device_plain(data, crc_lens), reps=2),
         # the row's bytes and its length read, the CRC (int64) written
-        "bound_ms": (int(crc_lens.sum()) + 8 + 8) / mem_rate * 1e3,
+        "bound_ms": (int(crc_lens.sum()) + 4 + 8) / mem_rate * 1e3,
+        "floor_ms": crc_floor_ms(torch, 1),
     }}
     rows, _, _ = codec_kernel_rows(torch, data, valid, n, offset, "row", mem_rate, reps=30)
     out.update(rows)

@@ -10,8 +10,9 @@ Row layout ([B, PREFIX + n + CELL] uint8, zero-padded):
     [ crc_prefix (40 B) | records body (n bucket) | CELL guard ]
 
 The Kafka batch CRC covers crc_prefix || body (model/record.h:398), so
-`crc32c_device` (csrc/crc32c.cu) runs over the whole rows with lens =
-body_len + PREFIX; it reads only lens[i] bytes of each row, so it needs
+`crc32c_rows` (csrc/crc32c.cu) runs over the whole rows with lengths
+body_len + PREFIX, taking the int32 body lengths and PREFIX itself (no
+cast or add kernel ahead of it); it reads only those bytes, so it needs
 neither the JAX program's 512-byte-aligned slice nor its optimization
 barrier. The parse and emission kernels then read each body in place,
 at column offset PREFIX of the same rows: no second upload, no copy.
@@ -31,7 +32,7 @@ import torch
 from ..models.consensus_state import check_device
 from . import lz4, snappy, zstd
 from .cellparse import CELL
-from .crc32c import crc32c_device
+from .crc32c import crc32c_rows
 
 PREFIX = 40  # models/record.py _CRC_PREFIX packed size
 
@@ -42,14 +43,14 @@ DEFAULT_DEVICE = "cuda"
 def _fused(data: torch.Tensor, body_len: torch.Tensor, n: int):
     """data [B, PREFIX + n + CELL] uint8; body_len int32 [B]. Returns
     (crc int64 [B] over prefix || body, lz4 blocks, their lengths)."""
-    crc = crc32c_device(data, body_len.to(torch.int64) + PREFIX)
+    crc = crc32c_rows(data, body_len, PREFIX)
     out, out_len = lz4._compress_chunks(data, body_len, n, PREFIX)
     return crc, out, out_len
 
 
 def _fused_snappy(data: torch.Tensor, body_len: torch.Tensor, n: int):
     """Same layout as `_fused`, snappy emission instead of LZ4."""
-    crc = crc32c_device(data, body_len.to(torch.int64) + PREFIX)
+    crc = crc32c_rows(data, body_len, PREFIX)
     out, out_len = snappy._compress_chunks(data, body_len, n, PREFIX)
     return crc, out, out_len
 
@@ -125,7 +126,7 @@ def _fused_zstd(data: torch.Tensor, body_len: torch.Tensor, n: int):
     [B]. Returns (crc int64 [B] over prefix || body, and the body's zstd
     entropy stage: nbits uint8 [B, 256], streams uint8 [B, 4, SB], bits
     int32 [B, 4])."""
-    crc = crc32c_device(data, body_len.to(torch.int64) + PREFIX)
+    crc = crc32c_rows(data, body_len, PREFIX)
     nbits, streams, bits = zstd._encode_chunks(data, body_len, n, PREFIX)
     return crc, nbits, streams, bits
 
