@@ -50,11 +50,14 @@ Phases, each raising on any mismatch:
      LZ4 and snappy decoders: the image need not carry liblz4 or
      libsnappy), a flipped wire CRC refused, and 16 x 64 KiB buffers
      through the registry backend's LZ4 and snappy legs;
-  7. the zstd kernels (lengths, emission, decode) against their plain
-     versions, exact on every output: 32 full-width 64 KiB chunks of the
-     phase 8 segment, edge rows at every bucket n = 256 ... 65536, the
-     fused CRC + encode at the fused shape, and tampered, truncated and
-     regen = 0 streams (the decode error names the same stream);
+  7. the zstd kernels (encode, decode) against their plain versions,
+     exact on every output: 32 full-width 64 KiB chunks of the phase 8
+     segment, edge rows at every bucket n = 256 ... 65536, rows of
+     lengths 1-5 and v = 1, 5, 15 (mod 64) at odd column offsets and
+     pitches (quarters at every alignment), one symbol over 64 KiB, the
+     Kraft down loop at 64 KiB, the fused CRC + encode at the fused
+     shape, and tampered, truncated and regen = 0 streams (the decode
+     error names the same stream);
   8. the tiered segment path at full size: one 128 MiB segment of
      serialized record batches (a quarter JSON-like values, a quarter
      random, half zipf-skewed) through compression.compress / uncompress
@@ -134,8 +137,7 @@ KERNELS = {
     "cell_parse": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/cellparse.py:30", parse_ops.LAUNCHES),
     "lz4_emit": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/lz4.py:59", lz4_ops.LAUNCHES),
     "snappy_emit": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/snappy.py:52", snappy_ops.LAUNCHES),
-    "zstd_lengths": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:190", zstd_ops.LAUNCHES),
-    "zstd_emit": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:190", zstd_ops.LAUNCHES),
+    "zstd_encode": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:190", zstd_ops.LAUNCHES),
     "zstd_decode": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:274", zstd_ops.LAUNCHES),
     "health_totals": ("redpanda_tpu_torch/csrc/health.cu", "redpanda_tpu/parallel/mesh_frame.py:63", health_ops.LAUNCHES),
     "cluster_tick": ("redpanda_tpu_torch/csrc/cluster.cu", "redpanda_tpu/parallel/cluster_step.py:105", cluster_ops.LAUNCHES),
@@ -1399,6 +1401,21 @@ def kraft_down_row(rng, n: int) -> bytes:
     return rng.permutation(np.array(syms, np.uint8)).tobytes()
 
 
+def quarter_rows(rng, n: int) -> list:
+    """Rows whose four stream quarters start at every alignment: lengths
+    1-5 (streams of one symbol or none), v = 1, 5 and 15 (mod 64) up to
+    n, one symbol over all n bytes, and the Kraft down loop's row."""
+    w = 1.0 / np.arange(1, 257) ** 1.3
+    p = w / w.sum()
+    lens = [1, 2, 3, 4, 5] + [x for k in (1, 3, 17, n // 64 - 1) for x in (64 * k + 1, 64 * k + 5, 64 * k + 15)
+                              if x <= n]
+    rows = [rng.choice(256, x, p=p).astype(np.uint8).tobytes() for x in lens]
+    rows.append(b"\x07" * n)
+    if n >= 2048:
+        rows.append(kraft_down_row(rng, n))
+    return rows
+
+
 def pad_rows(rows, n: int):
     """(uint8 [len(rows), n] zero-padded matrix, int32 lengths)."""
     mat = np.zeros((len(rows), n), np.uint8)
@@ -1418,7 +1435,7 @@ ENC_FIELDS = ("nbits", "streams", "bits")
 
 
 def check_encode(torch, data, valid, n: int, offset: int = 0) -> tuple:
-    """The encode kernels against the plain version, exact on all three
+    """The encode kernel against the plain version, exact on all three
     outputs (every stream byte up to SB). Returns the kernel's outputs."""
     want = zstd_ops._encode_chunks_plain(data, valid, n, offset)
     got = zstd_ops._encode_chunks(data, valid, n, offset)
@@ -1476,9 +1493,10 @@ def decode_error(fn) -> str:
 def phase_zstd_kernels(torch, segment: bytes, mem_rate: float) -> dict:
     """Phase 7: the zstd kernels against their plain versions on the
     card, exact: 32 full-width 64 KiB chunks of the segment, the edge
-    rows at every bucket n = 256 ... 65536, the fused CRC + encode at the
-    fused shape, and the decode on those chunks' streams plus tampered,
-    truncated and regen = 0 streams."""
+    rows at every bucket n = 256 ... 65536, rows whose quarters start at
+    every alignment, the fused CRC + encode at the fused shape, and the
+    decode on those chunks' streams plus tampered, truncated and regen =
+    0 streams."""
     from redpanda_tpu_torch.ops import fused
     from redpanda_tpu_torch.utils.crc import crc32c_batch
 
@@ -1487,7 +1505,7 @@ def phase_zstd_kernels(torch, segment: bytes, mem_rate: float) -> dict:
     rows = [segment[o : o + ZSTD_BLOCK] for o in range(0, SEGMENT_BYTES, step * ZSTD_BLOCK)]
     data, valid = stage_rows(torch, rows, ZSTD_BLOCK)
     nbits, streams, bits = (t.cpu().numpy() for t in check_encode(torch, data, valid, ZSTD_BLOCK))
-    log(f"[zstd] zstd_lengths, zstd_emit on {len(rows)} full-width 64 KiB chunks of the segment: "
+    log(f"[zstd] zstd_encode on {len(rows)} full-width 64 KiB chunks of the segment: "
         f"equal to plain, tolerance exact (nbits, all {zstd_ops.stream_byte_bound(ZSTD_BLOCK)} stream "
         f"bytes, bits); bits per chunk {int(bits.sum(1).min())}..{int(bits.sum(1).max())}")
     items = stream_items(rows, nbits, streams, bits)
@@ -1496,9 +1514,18 @@ def phase_zstd_kernels(torch, segment: bytes, mem_rate: float) -> dict:
         erows = zstd_edge_rows(rng, n)
         out = [t.cpu().numpy() for t in check_encode(torch, *stage_rows(torch, erows, n), n)]
         edge_items += stream_items(erows, *out)[:12]
-    log("[zstd] zstd_lengths, zstd_emit on the edge rows (lengths 0-257, one and two symbols, "
+    log("[zstd] zstd_encode on the edge rows (lengths 0-257, one and two symbols, "
         "uniform, 200 rare, Kraft down loop, full skewed and random rows) at every bucket "
         "n = 256 ... 65536: equal to plain, tolerance exact")
+    for n, offset, stride in ((65536, 0, 65536), (65536, 5, 65536 + 24), (4096, 40, 4608), (256, 3, 277)):
+        qrows = quarter_rows(rng, n)
+        mat, valid = pad_rows(qrows, n)
+        wide = np.zeros((len(qrows), stride), np.uint8)
+        wide[:, offset : offset + n] = mat
+        check_encode(torch, torch.from_numpy(wide).cuda(), torch.from_numpy(valid).cuda(), n, offset)
+    log("[zstd] zstd_encode on rows of lengths 1-5 (empty streams), v = 1, 5, 15 (mod 64) (quarters at "
+        "every alignment), one symbol over the whole bucket and the Kraft down loop at n = 65536 and "
+        "256, at column offsets 0, 3, 5 and 40 of rows with odd pitches: equal to plain, tolerance exact")
     (s0, r0, t0), (s1, r1, t1), (s2, _, t2) = items[:3]
     traps = [(s0 + b"\x05", r0, t0), (s1[len(s1) // 2 :], r1, t1), (s2, 0, t2)]
     end, _ = check_decode(torch, items + edge_items + traps)
@@ -1742,35 +1769,41 @@ def segment_stages(torch, chunks, dec_args, comp_split, decomp_split) -> dict:
     return {"compress": compress, "hydrate": hydrate}
 
 
+def encode_floor_ms(torch, b: int, n: int) -> float:
+    """One empty kernel launched with the encode's cluster grid (four
+    CTAs a row), block and shared memory, timed as the kernels are."""
+    from redpanda_tpu_torch.ops import _build
+
+    lib = zstd_ops._lib()
+    _build.bind(lib, "rp_zstd_encode_empty", 0, 2)
+    stream = torch.cuda.current_stream().cuda_stream
+    return time_kernel(lambda: _build.check(lib, lib.rp_zstd_encode_empty(b, n, stream), "empty"), reps=30)
+
+
 def zstd_encode_rows(torch, data, vt, n: int, offset: int, label: str, mem_rate: float) -> dict:
-    """The two encode kernels on one staged shape: equal to the plain
-    versions (exact, every stream byte), each timed beside its bytes bound
-    and its plain version."""
+    """The encode kernel on one staged shape: every output (nbits, codes,
+    all SB bytes of the four streams, bits) equal to the plain versions,
+    timed beside its bytes bound, its plain version and the empty-kernel
+    floor at its launch shape."""
     b, v_sum = data.shape[0], int(vt.sum())
     sb = zstd_ops.stream_byte_bound(n)
     check_encode(torch, data, vt, n, offset)
-    nbits, codes = zstd_ops.launch_lengths(data, vt, n, offset)
+    nbits, codes, streams, bits = zstd_ops.launch_encode(data, vt, n, offset)
     p_nbits, p_codes = zstd_ops._lengths_plain(data, vt, n, offset)
+    p_streams, p_bits = zstd_ops._emit_plain(data, vt, p_nbits, p_codes, n, offset)
     torch.cuda.synchronize()
-    max_abs_err({"nbits": nbits, "codes": codes}, {"nbits": p_nbits, "codes": p_codes})
-    shape = f"{label}: B={b} n={n} offset={offset} bytes={v_sum}"
-    return {
-        f"zstd_lengths@{label}": {
-            "shape": shape, "max_abs_err": 0.0,
-            "ms": time_kernel(lambda: zstd_ops.launch_lengths(data, vt, n, offset), reps=10),
-            "plain_ms": time_plain(lambda: zstd_ops._lengths_plain(data, vt, n, offset), reps=1),
-            # valid bytes and lengths read; nbits (1 B) and codes (4 B) written
-            "bound_ms": (v_sum + 4 * b + 5 * 256 * b) / mem_rate * 1e3,
-        },
-        f"zstd_emit@{label}": {
-            "shape": f"{shape} streams={b * 4}x{sb}", "max_abs_err": 0.0,
-            "ms": time_kernel(lambda: zstd_ops.launch_emit(data, vt, nbits, codes, n, offset), reps=10),
-            "plain_ms": time_plain(lambda: zstd_ops._emit_plain(data, vt, nbits, codes, n, offset), reps=1),
-            # valid bytes, lengths, nbits and codes read; all SB bytes of the
-            # four streams and the bit counts written
-            "bound_ms": (v_sum + 4 * b + 5 * 256 * b + b * 4 * (sb + 4)) / mem_rate * 1e3,
-        },
-    }
+    max_abs_err({"nbits": nbits, "codes": codes, "streams": streams, "bits": bits},
+                {"nbits": p_nbits, "codes": p_codes, "streams": p_streams, "bits": p_bits})
+    return {f"zstd_encode@{label}": {
+        "shape": f"{label}: B={b} n={n} offset={offset} bytes={v_sum} streams={b * 4}x{sb}",
+        "max_abs_err": 0.0,
+        "ms": time_kernel(lambda: zstd_ops.launch_encode(data, vt, n, offset), reps=10),
+        "plain_ms": time_plain(lambda: zstd_ops._encode_chunks_plain(data, vt, n, offset), reps=1),
+        # valid bytes and lengths read; nbits (1 B) and codes (4 B) per symbol,
+        # all SB bytes of the four streams and the bit counts written
+        "bound_ms": (v_sum + 4 * b + 5 * 256 * b + b * 4 * (sb + 4)) / mem_rate * 1e3,
+        "floor_ms": encode_floor_ms(torch, b, n),
+    }}
 
 
 def zstd_decode_row(torch, items, label: str, mem_rate: float) -> dict:

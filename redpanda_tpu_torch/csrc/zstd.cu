@@ -1,10 +1,9 @@
 // Device zstd entropy stage: huff0 literals encode and decode.
 //
 // Replaces, from the JAX package:
-//   rp_zstd_lengths  redpanda_tpu/ops/zstd.py:190 _encode_chunks (histogram,
-//                    _kraft_nbits :72, _huff_codes :124)
-//   rp_zstd_emit     redpanda_tpu/ops/zstd.py:190 _encode_chunks (the four
-//                    reversed bitstreams of _encode_one :147)
+//   rp_zstd_encode   redpanda_tpu/ops/zstd.py:190 _encode_chunks (histogram,
+//                    _kraft_nbits :72, _huff_codes :124, the four reversed
+//                    bitstreams of _encode_one :147)
 //   rp_zstd_decode   redpanda_tpu/ops/zstd.py:274 _decode_streams (_decode_one
 //                    :244)
 // and with csrc/crc32c.cu the fused program of redpanda_tpu/ops/fused.py:89.
@@ -14,27 +13,47 @@
 // fused path passes the uploaded [40-byte CRC prefix | body] rows with
 // offset 40, so the body is read in place.
 //
-// zstd_lengths — one block of 256 threads per row (thread = symbol). Bound by
-// bytes: each row's valid bytes are read once (16-byte loads after a scalar
-// head up to alignment) into one shared histogram per warp, so a skewed row
-// does not pile every atomicAdd onto one bin. Warp 0 then runs the JAX
-// program's two Kraft repair loops with each lane holding 8 symbols: each
-// step reduces sum(u) and the arg-min (down loop: smallest count, first
-// index) or arg-max (up loop: largest u, first index) over the warp with
-// composite keys (count * 256 + symbol, u * 256 + 255 - symbol), so ties go
-// to the first index exactly as jnp.argmin / argmax do. The loops run a few
-// hundred steps at most on real rows; one warp is enough. Each thread then
-// computes its symbol's canonical code: base from the per-length counts,
-// rank = the number of lower symbols of the same length.
-//
-// zstd_emit — one block of 512 threads per (row, stream). Bound by bytes:
-// the stream's symbols are read once into shared memory, the whole SB-byte
-// stream (zeros past the marker included) written once. Each thread takes a
-// contiguous run of symbols; a block scan of their code lengths gives every
-// symbol's bit position, and each code is OR-ed (atomicOr on 32-bit words;
-// a code of <= 11 bits spans at most two) into a shared-memory image of the
-// stream. The JAX program's per-output-bit searchsorted becomes one
-// placement per symbol; the bits are the same.
+// zstd_encode — one launch, one cluster of four CTAs a row (grid 4B). Bound
+// by bytes at many rows (each valid byte read once, every stream byte
+// written once) and by its chain of dependent phases at one row, where the
+// launch floor is half the time. CTA q owns stream q, the symbols
+// [q m4, q m4 + slen_q) with m4 = ceil(v / 4): the four ranges partition
+// [0, v) (the first three run a few bytes past v when v < 9), so the row is
+// read once, by 16-byte cp.async copies into shared memory at the source's
+// alignment (fused rows sit at column 40: 8- but not 16-byte aligned; the
+// quarters start at any byte), scalar head and tail. Then:
+//   * the histogram: one per warp over the warp's run of units (16 bytes
+//     a lane a step), plain shared atomicAdds; warp-aggregated adds
+//     (__match_any_sync) and four histograms a warp were both slower on
+//     the skewed rows (PERF.md). A CTA's counts (<= 16,384 a symbol;
+//     a row's reach 65,536, so they are summed in 32 bits) are pushed into
+//     every CTA of the cluster over distributed shared memory (once every
+//     CTA has arrived at a start barrier: a CTA's shared memory may be
+//     written only once it runs) before the one full cluster barrier;
+//     after it no CTA touches another's memory, so none waits for the
+//     others to exit;
+//   * the Kraft lengths, in every CTA alike, exact to _kraft_nbits: the
+//     down loop (only when the seed overshoots, which no main-path row
+//     does) in closed form by each candidate's weighted rank; the up loop in
+//     one warp, one max a climb (kraft_up), no sum inside; then warp 0
+//     builds the canonical codes, ranked by packed per-lane counts scanned
+//     over the warp (no loop over the lower symbols), while the other warps
+//     count their bits;
+//   * the stream: each warp's bits are its histogram against the lengths,
+//     so the warps' bases need no pass over the symbols; a lane packs each
+//     4-byte word of its unit into one code of <= 44 bits, a warp scan of
+//     the units' lengths places them, carried across the warp's steps, and
+//     each is OR-ed (<= 3 words) into a shared image of the stream kept at
+//     the stream row's alignment (the pitch SB is not a multiple of 16), so
+//     all SB bytes, zeros past the marker included, leave in 16-byte stores
+//     with scalar head and tail.
+// The histograms, the inbox and the down loop's pairs live where the image
+// will be, so a 64 KiB row's CTA holds 41 KB of shared memory and five fit
+// an SM. The launch shape goes by row count: up to ENC_FEW_ROWS rows (a
+// cluster's CTAs on SMs of their own; time is the row's chain) 512
+// threads, so a one-call row's quarter takes one step of 16 bytes a lane;
+// above, 256 threads (48 registers), five CTAs an SM. A refused launch
+// returns its error.
 //
 // zstd_decode — latency-bound: a huff0 stream is one dependent chain
 // (each symbol's position depends on every earlier code length), 16,384
@@ -80,6 +99,7 @@
 // squared log2(rmax) times) would need ~8.6 GB per table at one segment;
 // the walk needs none.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -88,11 +108,8 @@ typedef long long i64;
 #define TABLELOG 11
 #define TSIZE 2048
 #define MAX_N 65536
-#define MAX_STREAM_SYMS (MAX_N / 4 + 1)
-#define MAX_STREAM_WORDS (((TABLELOG * MAX_STREAM_SYMS) / 8 + 2 + 3) / 4)
-#define LEN_THREADS 256
-#define LEN_WARPS (LEN_THREADS / 32)
-#define EMIT_THREADS 512
+#define ENC_CLUSTER 4                              // CTAs a row, one per stream
+#define ENC_FEW_ROWS 33                            // up to here a launch is latency-bound: wide CTAs
 #define DEC_THREADS 32                             // one warp per block, one stream per thread
 #define DEC_SLOTS 4                                // streams per group (one table)
 #define DEC_GROUPS (DEC_THREADS / DEC_SLOTS)       // groups (tables) per block
@@ -104,228 +121,414 @@ typedef long long i64;
 #define DEC_SMEM (DEC_TAB_ALIGN + DEC_GROUPS * DEC_TAB + DEC_THREADS * DEC_RING * 4)
 #define FULL 0xFFFFFFFFu
 
+namespace cg = cooperative_groups;
+
 __host__ __device__ constexpr int stream_cap(int n) { return n / 4 + 1; }
 __host__ __device__ constexpr int stream_bytes(int n) { return (TABLELOG * stream_cap(n)) / 8 + 2; }
+__host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
+
+// One encode CTA: THREADS threads (the Kraft and code phases take thread =
+// symbol), a lane taking 16 bytes of symbols a step. Dynamic shared memory,
+// in order: the image region, the staged quarter, then EncShared. The
+// region holds, until the codes are built, the warps' histograms, the
+// inbox of the four quarters' histograms (pushed by the cluster) and the
+// down loop's (key, weight) pairs; then the stream image.
+#define ENC_UNIT 16
+#define ENC_INBOX (ENC_CLUSTER * 256 * 4)
+#define ENC_PAIRS 2048
+__host__ __device__ constexpr int enc_hist_bytes(int threads) { return threads / 32 * 1024; }
+
+__host__ __device__ constexpr int enc_img_bytes(int threads, int n) {
+    return round16(stream_bytes(n) + 15) > enc_hist_bytes(threads) + ENC_INBOX + ENC_PAIRS
+               ? round16(stream_bytes(n) + 15)
+               : enc_hist_bytes(threads) + ENC_INBOX + ENC_PAIRS;
+}
+__host__ __device__ constexpr int enc_sym_bytes(int n) { return round16(n / 4 + 16); }
+
+struct EncShared {
+    int u[256];               // slot counts
+    uint32_t tab[256];        // code | nb << 16
+    int wtot[32];             // bits of each warp's symbols
+    int first[TABLELOG + 1];  // first code of each length
+    int sum, down;            // the seed's sum; whether it overshoots
+};
+
+__host__ __device__ constexpr int enc_smem_bytes(int threads, int n) {
+    return enc_img_bytes(threads, n) + enc_sym_bytes(n) + (int)sizeof(EncShared);
+}
 
 __device__ __forceinline__ int floor_log2(int x) { return 31 - __clz(x); }
 
-__device__ __forceinline__ int warp_sum(int x) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-    return x;
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
 }
 
-// Exclusive prefix sum of one value per thread over the block, in thread
-// order; *total receives the block's sum. `sh` holds 32 ints.
-__device__ int block_scan_excl_sum(int x, int* sh, int* total) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nw = blockDim.x >> 5;
-    int inc = x;
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// arrival that orders nothing: the CTA has started
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+// The up loop, one warp (lane l holds symbols 8l .. 8l + 7): while the sum
+// is under 2048, double the largest present u <= deficit with u < 1024, the
+// first symbol on ties. A doubled symbol is the only candidate of its new
+// level that can fit (any other would have been taken first), so it is
+// taken again while it fits: one step takes the whole climb, k doublings
+// from 2^l with 2^l (2^k - 1) <= deficit, up to 1024. A key (log2 u,
+// 255 - symbol) per symbol finds the climber in one max (u <= deficit is
+// log2 u <= floor_log2(deficit)); the deficit is carried, never re-summed.
+// With `first`, an overshooting seed is flagged for the down loop instead.
+__device__ void kraft_up(EncShared& sh, int lane, bool first) {
+    const int4* u4 = reinterpret_cast<const int4*>(sh.u + 8 * lane);
+    const int4 ua = u4[0], ub = u4[1];
+    const int uu[8] = {ua.x, ua.y, ua.z, ua.w, ub.x, ub.y, ub.z, ub.w};
+    int key[8], s8 = 0;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-        int y = __shfl_up_sync(FULL, inc, o);
-        if (lane >= o) inc += y;
+    for (int k = 0; k < 8; ++k) {
+        s8 += uu[k];
+        // present and below 1024: a candidate; u is 0 exactly when absent
+        key[k] = uu[k] > 0 && uu[k] < 1024 ? floor_log2(uu[k]) << 8 | (255 - (8 * lane + k)) : -1;
     }
-    if (lane == 31) sh[warp] = inc;
+    const int total = (int)__reduce_add_sync(FULL, (unsigned)s8);
+    if (first) {
+        if (lane == 0) {
+            sh.sum = total;
+            sh.down = total > TSIZE;
+        }
+        if (total > TSIZE) return;
+    }
+    int d = TSIZE - total;
+    bool moved = false;
+    while (d > 0) {
+        const int lim = (floor_log2(d) + 1) << 8;  // keys of u <= d
+        int best = -1;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) best = max(best, key[k] < lim ? key[k] : -1);
+        best = __reduce_max_sync(FULL, best);
+        if (best < 0) break;
+        const int lev = best >> 8;
+        int k = floor_log2((d >> lev) + 1);
+        k = lev + k > 10 ? 10 - lev : k;
+        d -= ((1 << k) - 1) << lev;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+            if (key[j] == best) key[j] = lev + k < 10 ? best + (k << 8) : 0x7FFFFFFF;  // 1024: done
+        moved = true;
+    }
+    if (moved) {
+        int w[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) w[j] = key[j] == 0x7FFFFFFF ? 1024 : (key[j] < 0 ? uu[j] : 1 << (key[j] >> 8));
+        int4* w4 = reinterpret_cast<int4*>(sh.u + 8 * lane);
+        w4[0] = make_int4(w[0], w[1], w[2], w[3]);
+        w4[1] = make_int4(w[4], w[5], w[6], w[7]);
+    }
+}
+
+__device__ __forceinline__ int length_of(int u) { return u > 0 ? TABLELOG - floor_log2(u) : 0; }
+
+// The canonical codes, one warp (lane l holds symbols 8l .. 8l + 7): each
+// lane's counts of each length, packed 8 bits a length in three words (a
+// lane's exclusive prefix is <= 248, so no field overflows), scanned over
+// the warp; a symbol's code is the first code of its length (past the slots
+// of every longer code) plus the lower symbols of its length.
+__device__ void make_codes(EncShared& sh, int lane, uint8_t* nbits_row, int32_t* codes_row) {
+    const int4* u4 = reinterpret_cast<const int4*>(sh.u + 8 * lane);
+    const int4 ua = u4[0], ub = u4[1];
+    const int nb[8] = {length_of(ua.x), length_of(ua.y), length_of(ua.z), length_of(ua.w),
+                       length_of(ub.x), length_of(ub.y), length_of(ub.z), length_of(ub.w)};
+    unsigned own[3] = {0, 0, 0}, ex[3];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        const unsigned inc = 1u << (8 * (nb[k] & 3));
+        own[0] += nb[k] >> 2 == 0 ? inc : 0u;
+        own[1] += nb[k] >> 2 == 1 ? inc : 0u;
+        own[2] += nb[k] >> 2 == 2 ? inc : 0u;
+    }
+#pragma unroll
+    for (int w = 0; w < 3; ++w) ex[w] = own[w];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1)
+#pragma unroll
+        for (int w = 0; w < 3; ++w) {
+            const unsigned y = __shfl_up_sync(FULL, ex[w], o);
+            if (lane >= o) ex[w] += y;
+        }
+#pragma unroll
+    for (int w = 0; w < 3; ++w) ex[w] -= own[w];
+    auto field = [](const unsigned* x, int b) { return (int)((x[b >> 2] >> (8 * (b & 3))) & 255u); };
+    if (lane == 31) {
+        // the totals (<= 256) summed unpacked; first[b] = the slots of every
+        // longer code, in b-bit units
+        int slots = 0;
+#pragma unroll
+        for (int b = TABLELOG; b >= 1; --b) {
+            sh.first[b] = slots >> (TABLELOG - b);
+            slots += (field(ex, b) + field(own, b)) << (TABLELOG - b);
+        }
+    }
+    __syncwarp();
+    uint32_t tab[8];
+    int code[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        int r = 0;
+#pragma unroll
+        for (int j = 0; j < k; ++j) r += nb[j] == nb[k];
+        code[k] = nb[k] > 0 ? sh.first[nb[k]] + field(ex, nb[k]) + r : 0;
+        tab[k] = ((uint32_t)code[k] & ((1u << nb[k]) - 1u)) | (uint32_t)nb[k] << 16;
+    }
+    uint4* t4 = reinterpret_cast<uint4*>(sh.tab + 8 * lane);
+    t4[0] = make_uint4(tab[0], tab[1], tab[2], tab[3]);
+    t4[1] = make_uint4(tab[4], tab[5], tab[6], tab[7]);
+    if (nbits_row != nullptr) {
+        reinterpret_cast<uint2*>(nbits_row)[lane] = make_uint2(
+            (uint32_t)nb[0] | (uint32_t)nb[1] << 8 | (uint32_t)nb[2] << 16 | (uint32_t)nb[3] << 24,
+            (uint32_t)nb[4] | (uint32_t)nb[5] << 8 | (uint32_t)nb[6] << 16 | (uint32_t)nb[7] << 24);
+        int4* c4 = reinterpret_cast<int4*>(codes_row) + 2 * lane;
+        c4[0] = make_int4(code[0], code[1], code[2], code[3]);
+        c4[1] = make_int4(code[4], code[5], code[6], code[7]);
+    }
+}
+
+// val (len <= 44 bits) at image bit p: up to three words, each OR-ed in
+// (the neighbouring codes may share the first and the last)
+__device__ __forceinline__ void place(uint32_t* img, uint64_t val, int len, int p) {
+    const int wd = p >> 5, off = p & 31;
+    const uint64_t lo = val << off;
+    if ((uint32_t)lo) atomicOr(&img[wd], (uint32_t)lo);
+    if ((uint32_t)(lo >> 32)) atomicOr(&img[wd + 1], (uint32_t)(lo >> 32));
+    if (off + len > 64) {
+        const uint32_t hi = (uint32_t)(val >> (64 - off));
+        if (hi) atomicOr(&img[wd + 2], hi);
+    }
+}
+
+// bits k of the mask: symbol i0 + k of a unit lies in [0, lim)
+__device__ __forceinline__ unsigned unit_mask(int i0, int lim) {
+    const int lo = i0 < 0 ? -i0 : 0;
+    const int hi = lim - i0 < ENC_UNIT ? lim - i0 : ENC_UNIT;
+    return hi <= lo ? 0u : ((1u << hi) - 1u) & ~((1u << lo) - 1u);
+}
+
+// The whole _encode_chunks of one row in one cluster of four CTAs; CTA q
+// owns stream q, the symbols [q m4, q m4 + slen_q) (m4 = ceil(v / 4)), and
+// reads them from device memory once.
+template <int THREADS>
+__global__ void __cluster_dims__(ENC_CLUSTER, 1, 1) __launch_bounds__(THREADS)
+zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ valid,
+                   uint8_t* __restrict__ nbits_out, int32_t* __restrict__ codes_out,
+                   uint8_t* __restrict__ streams_out, int32_t* __restrict__ bits_out, i64 stride,
+                   i64 offset, int n) {
+    constexpr int WARPS = THREADS / 32, UNIT = ENC_UNIT, HIST = enc_hist_bytes(THREADS);
+    extern __shared__ __align__(16) uint8_t smem[];
+    uint32_t* img = reinterpret_cast<uint32_t*>(smem);  // the stream image, once the codes are built
+    uint32_t* sub = img;                                // before: [WARPS][256] histograms,
+    uint32_t* inbox = img + HIST / 4;                   // [ENC_CLUSTER][256] quarters' histograms,
+    int2* pair = reinterpret_cast<int2*>(smem + HIST + ENC_INBOX);  // and the down loop's pairs
+    uint8_t* sym = smem + enc_img_bytes(THREADS, n);
+    EncShared& sh = *reinterpret_cast<EncShared*>(sym + enc_sym_bytes(n));
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster_arrive_relaxed();  // peers may write this CTA's inbox once every CTA has started
+    const int q = (int)cluster.block_rank();  // the stream
+    const i64 row = blockIdx.x / ENC_CLUSTER;
+    const int sb = stream_bytes(n);
+    const uint8_t* src_row = data + row * stride + offset;
+    int v = valid[row];
+    // the histograms are zeroed while `valid` is on its way
+    for (int i = tid; i < HIST / 16; i += THREADS) reinterpret_cast<uint4*>(sub)[i] = make_uint4(0, 0, 0, 0);
+    v = v < 0 ? 0 : (v > n ? n : v);
+    const int m4 = (v + 3) >> 2;
+    const int start = q * m4;
+    const int slen = q < 3 ? m4 : (v - 3 * m4 > 0 ? v - 3 * m4 : 0);  // start + slen <= n
+    const int hv = v - start < 0 ? 0 : (v - start < slen ? v - start : slen);  // counted: [0, hv)
+    const uint8_t* src = src_row + start;
+    const int a = (int)((uintptr_t)src & 15);  // symbol i at sym[a + i]
+
+    // -- stage the quarter: 16-byte copies in the aligned middle, scalar head and tail
+    {
+        const int head = ((16 - a) & 15) < slen ? (16 - a) & 15 : slen;
+        const int nvec = (slen - head) >> 4;
+        const unsigned s16 = (unsigned)__cvta_generic_to_shared(sym + a + head);
+        for (int i = tid; i < nvec; i += THREADS) cp_async16(s16 + 16 * i, src + head + 16 * i);
+        asm volatile("cp.async.commit_group;" ::: "memory");
+        for (int i = tid; i < head; i += THREADS) sym[a + i] = src[i];
+        for (int i = head + 16 * nvec + tid; i < slen; i += THREADS) sym[a + i] = src[i];
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
     __syncthreads();
-    if (warp == 0) {
-        int w = lane < nw ? sh[lane] : 0;
+
+    // -- each warp's run of 16-byte units (a unit a lane a step; a multiple
+    // of 32 units, so a warp's steps are whole) and its histogram
+    const uint4* sym16 = reinterpret_cast<const uint4*>(sym);
+    const int nun = (a + slen + UNIT - 1) / UNIT;
+    const int cw = (nun + 32 * WARPS - 1) / (32 * WARPS) * 32;
+    const int c0 = warp * cw, c1 = c0 + cw < nun ? c0 + cw : nun;
+    {
+        uint32_t* h = sub + warp * 256;
+        for (int un = c0 + lane; un < c1; un += 32) {
+            const uint4 x = sym16[un];
+            const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+            const unsigned m = unit_mask(UNIT * un - a, hv);
+#pragma unroll
+            for (int k = 0; k < UNIT; ++k)
+                if (m >> k & 1u) atomicAdd(&h[(w[k >> 2] >> (8 * (k & 3))) & 255], 1u);
+        }
+    }
+    __syncthreads();
+    // -- push this quarter's histogram into every CTA of the cluster; after
+    // the barrier no CTA touches another's memory, so none waits to exit
+    cluster_wait();  // every CTA has started
+    if (tid < 256) {
+        uint32_t c = 0;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) c += sub[w * 256 + tid];
+#pragma unroll
+        for (int r = 0; r < ENC_CLUSTER; ++r) cluster.map_shared_rank(inbox + q * 256, r)[tid] = c;
+    }
+    cluster_arrive();
+    cluster_wait();
+
+    // -- the row's counts; the Kraft seed u = clip(2^floor_log2(q), 1, 1024),
+    // q = clip(ceil(c * 2048 / v), 1, 2048) (c * 2048 < 2^28: 32-bit division)
+    int c = 0, u = 0;
+    if (tid < 256) {
+#pragma unroll
+        for (int r = 0; r < ENC_CLUSTER; ++r) c += (int)inbox[r * 256 + tid];
+        const unsigned vv = v > 1 ? (unsigned)v : 1u;
+        unsigned qq = ((unsigned)c * TSIZE + vv - 1) / vv;
+        qq = qq < 1 ? 1 : (qq > TSIZE ? TSIZE : qq);
+        u = 1 << floor_log2((int)qq);
+        u = c > 0 ? (u > 1024 ? 1024 : u) : 0;
+        sh.u[tid] = u;
+        pair[tid] = make_int2(c > 0 ? c * 256 + tid : 0x7FFFFFFF, c > 0 ? u - 1 : 0);
+    }
+    __syncthreads();
+    if (warp == 0) kraft_up(sh, lane, true);
+    __syncthreads();
+    if (sh.down) {
+        // The down loop halves the smallest (count, symbol) among present u >= 2
+        // until the sum is <= 2048; halving keeps the count, so it walks the
+        // candidates in key order and takes each down to 1 in turn. In closed
+        // form: with E the excess and P the weight (u - 1) of the smaller keys,
+        // r = E - P; r > 0 leaves pow2floor(u - r), or 1 where u - r < 1.
+        if (c > 0 && u >= 2) {
+            const int key = c * 256 + tid;
+            int p = 0;
+            const int4* p4 = reinterpret_cast<const int4*>(pair);
+#pragma unroll 8
+            for (int t = 0; t < 128; ++t) {
+                const int4 x = p4[t];
+                p += (x.x < key ? x.y : 0) + (x.z < key ? x.w : 0);
+            }
+            const int r = sh.sum - TSIZE - p;
+            if (r > 0) sh.u[tid] = u - r < 1 ? 1 : 1 << floor_log2(u - r);
+        }
+        __syncthreads();
+        if (warp == 0) kraft_up(sh, lane, false);
+        __syncthreads();
+    }
+
+    // -- warp 0 builds the codes while each other warp counts its bits: its
+    // histogram against the lengths, plus the few symbols past v that a
+    // short row's first three streams carry (uncounted); warp 0 counts after
+    if (warp == 0) make_codes(sh, lane, q == 0 ? nbits_out + row * 256 : nullptr, codes_out + row * 256);
+    {
+        int t = 0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) t += (int)sub[warp * 256 + lane + 32 * i] * length_of(sh.u[lane + 32 * i]);
+        if (lane == 0) {
+            const int lo = UNIT * c0 - a > hv ? UNIT * c0 - a : hv;
+            const int hi = UNIT * c1 - a < slen ? UNIT * c1 - a : slen;
+            for (int i = lo; i < hi; ++i) t += length_of(sh.u[sym[a + i]]);
+        }
+        t = (int)__reduce_add_sync(FULL, (unsigned)t);
+        if (lane == 0) sh.wtot[warp] = t;
+    }
+    __syncthreads();
+    // the image holds stream byte k at byte ad + k, so its 16-byte words are
+    // the stream row's (the row pitch SB is not a multiple of 16)
+    uint8_t* dst = streams_out + (row * ENC_CLUSTER + q) * (i64)sb;
+    const int ad = (int)((uintptr_t)dst & 15);
+    for (int i = tid; i < (ad + sb + 15) >> 4; i += THREADS) reinterpret_cast<uint4*>(img)[i] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+
+    // -- the stream, written in reverse: symbol i takes bits [tb - csum_i,
+    // tb - csum_i + nb_i) (csum inclusive), the end marker bit tb. A lane packs
+    // each word of its unit into one code of <= 44 bits; a warp scan of the
+    // units' lengths places them, carried across the warp's steps.
+    int carry = 0, tb = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+        const int x = sh.wtot[w];
+        carry += w < warp ? x : 0;
+        tb += x;
+    }
+    const int top = tb + 8 * ad;
+    if (tid == 0) atomicOr(&img[top >> 5], 1u << (top & 31));
+    for (int b0 = c0; b0 < c1; b0 += 32) {
+        const int un = b0 + lane;
+        uint64_t val[4];
+        int len[4];
+        uint32_t w[4] = {0, 0, 0, 0};
+        unsigned m = 0;
+        if (un < c1) {
+            const uint4 x = sym16[un];
+            w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+            m = unit_mask(UNIT * un - a, slen);
+        }
+        int bits = 0;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+            val[g] = 0;
+            len[g] = 0;
+#pragma unroll
+            for (int k = 4 * g; k < 4 * g + 4; ++k) {
+                const uint32_t e = m >> k & 1u ? sh.tab[(w[g] >> (8 * (k & 3))) & 255] : 0u;
+                val[g] = val[g] << (e >> 16) | (e & 0xFFFFu);
+                len[g] += (int)(e >> 16);
+            }
+            bits += len[g];
+        }
+        int incl = bits;
 #pragma unroll
         for (int o = 1; o < 32; o <<= 1) {
-            int y = __shfl_up_sync(FULL, w, o);
-            if (lane >= o) w += y;
+            const int y = __shfl_up_sync(FULL, incl, o);
+            if (lane >= o) incl += y;
         }
-        if (lane == 31) *total = w;
-        int we = __shfl_up_sync(FULL, w, 1);
-        if (lane == 0) we = 0;
-        if (lane < nw) sh[lane] = we;
+        int below = top - carry - (incl - bits);  // just above this unit's codes
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+            below -= len[g];
+            place(img, val[g], len[g], below);
+        }
+        carry += __shfl_sync(FULL, incl, 31);
     }
     __syncthreads();
-    return sh[warp] + inc - x;
+
+    // -- all SB bytes out: 16-byte stores in the aligned middle, scalar head and tail
+    const uint8_t* ib = reinterpret_cast<const uint8_t*>(img) + ad;
+    const int head = ((16 - ad) & 15) < sb ? (16 - ad) & 15 : sb;
+    const int nv = (sb - head) >> 4;
+    for (int i = tid; i < nv; i += THREADS)
+        reinterpret_cast<uint4*>(dst + head)[i] = reinterpret_cast<const uint4*>(ib + head)[i];
+    for (int i = tid; i < head; i += THREADS) dst[i] = ib[i];
+    for (int i = head + 16 * nv + tid; i < sb; i += THREADS) dst[i] = ib[i];
+    if (tid == 0) bits_out[row * ENC_CLUSTER + q] = tb;
 }
 
-__global__ void __launch_bounds__(LEN_THREADS)
-zstd_lengths_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ valid,
-                    uint8_t* __restrict__ nbits_out, int32_t* __restrict__ codes_out,
-                    i64 stride, i64 offset, int n) {
-    __shared__ int hist[LEN_WARPS][256];
-    __shared__ int u_s[256];
-    __shared__ int nb_s[256];
-    __shared__ int rc[TABLELOG + 1];
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const i64 row = blockIdx.x;
-    const uint8_t* src = data + row * stride + offset;
-    int v = valid[row];
-    v = v < 0 ? 0 : (v > n ? n : v);
+// the encode's launch shape and shared memory, no work: the launch floor
+template <int THREADS>
+__global__ void __cluster_dims__(ENC_CLUSTER, 1, 1) __launch_bounds__(THREADS) zstd_encode_empty_kernel() {}
 
-    for (int i = tid; i < LEN_WARPS * 256; i += LEN_THREADS) (&hist[0][0])[i] = 0;
-    if (tid <= TABLELOG) rc[tid] = 0;
-    __syncthreads();
-
-    // -- histogram of [0, v)
-    int* h = hist[warp];
-    int head = (int)((16 - ((uintptr_t)src & 15)) & 15);
-    if (head > v) head = v;
-    for (int i = tid; i < head; i += LEN_THREADS) atomicAdd(&h[src[i]], 1);
-    const int nvec = (v - head) >> 4;
-    const uint4* vsrc = reinterpret_cast<const uint4*>(src + head);
-    for (int i = tid; i < nvec; i += LEN_THREADS) {
-        const uint4 x = vsrc[i];
-        const uint32_t w4[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-#pragma unroll
-            for (int b = 0; b < 4; ++b) atomicAdd(&h[(w4[k] >> (8 * b)) & 255], 1);
-    }
-    for (int i = head + 16 * nvec + tid; i < v; i += LEN_THREADS) atomicAdd(&h[src[i]], 1);
-    __syncthreads();
-
-    // -- seed: u = clip(2^floor_log2(q), 1, 1024), q = clip(ceil(c * 2048 / v), 1, 2048)
-    int c = 0;
-#pragma unroll
-    for (int w = 0; w < LEN_WARPS; ++w) c += hist[w][tid];
-    hist[0][tid] = c;  // counts, read back by warp 0 below
-    {
-        const i64 vv = v > 1 ? v : 1;
-        i64 q = ((i64)c * TSIZE + vv - 1) / vv;
-        q = q < 1 ? 1 : (q > TSIZE ? TSIZE : q);
-        int u = 1 << floor_log2((int)q);
-        u = u > 1024 ? 1024 : u;
-        u_s[tid] = c > 0 ? u : 0;
-    }
-    __syncthreads();
-
-    // -- Kraft repair (warp 0; lane holds symbols 8 * lane .. 8 * lane + 7)
-    if (warp == 0) {
-        int uu[8], cc[8];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-            uu[k] = u_s[8 * lane + k];
-            cc[k] = hist[0][8 * lane + k];
-        }
-        auto usum = [&]() {
-            int s = 0;
-#pragma unroll
-            for (int k = 0; k < 8; ++k) s += uu[k];
-            return warp_sum(s);
-        };
-        int sum = usum();
-        while (sum > TSIZE) {  // halve the smallest count among present u >= 2
-            unsigned best = FULL;
-#pragma unroll
-            for (int k = 0; k < 8; ++k) {
-                const unsigned key = (unsigned)cc[k] * 256u + (unsigned)(8 * lane + k);
-                if (cc[k] > 0 && uu[k] >= 2 && key < best) best = key;
-            }
-            best = __reduce_min_sync(FULL, best);
-            if (best == FULL) break;
-            const int s = (int)(best & 255u);
-#pragma unroll
-            for (int k = 0; k < 8; ++k)
-                if (8 * lane + k == s) uu[k] >>= 1;
-            sum = usum();
-        }
-        while (sum < TSIZE) {  // double the largest present u <= deficit, u < 1024
-            const int d = TSIZE - sum;
-            int best = -1;
-#pragma unroll
-            for (int k = 0; k < 8; ++k) {
-                const int key = uu[k] * 256 + (255 - (8 * lane + k));
-                if (cc[k] > 0 && uu[k] <= d && uu[k] < 1024 && key > best) best = key;
-            }
-            best = __reduce_max_sync(FULL, best);
-            if (best < 0) break;
-            const int s = 255 - (best & 255);
-#pragma unroll
-            for (int k = 0; k < 8; ++k)
-                if (8 * lane + k == s) uu[k] <<= 1;
-            sum = usum();
-        }
-#pragma unroll
-        for (int k = 0; k < 8; ++k) u_s[8 * lane + k] = uu[k];
-    }
-    __syncthreads();
-
-    // -- lengths and canonical codes (thread = symbol)
-    const int nb = c > 0 ? TABLELOG - floor_log2(u_s[tid] > 1 ? u_s[tid] : 1) : 0;
-    nb_s[tid] = nb;
-    if (nb > 0) atomicAdd(&rc[nb], 1);
-    __syncthreads();
-    int code = 0;
-    if (nb > 0) {
-        int base = 0;  // slots of every longer code: the b-bit region starts there
-        for (int j = nb + 1; j <= TABLELOG; ++j) base += rc[j] << (TABLELOG - j);
-        int rank = 0;
-        for (int s = 0; s < tid; ++s) rank += nb_s[s] == nb;
-        code = (base >> (TABLELOG - nb)) + rank;
-    }
-    nbits_out[row * 256 + tid] = (uint8_t)nb;
-    codes_out[row * 256 + tid] = code;
-}
-
-__global__ void __launch_bounds__(EMIT_THREADS)
-zstd_emit_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ valid,
-                 const uint8_t* __restrict__ nbits, const int32_t* __restrict__ codes,
-                 uint8_t* __restrict__ streams_out, int32_t* __restrict__ bits_out,
-                 i64 stride, i64 offset, int n) {
-    __shared__ uint32_t img[MAX_STREAM_WORDS];
-    __shared__ uint8_t sym_s[MAX_STREAM_SYMS];
-    __shared__ uint8_t nb_t[256];
-    __shared__ uint32_t code_t[256];
-    __shared__ int scan_sh[32];
-    __shared__ int total_s;
-    const int tid = threadIdx.x;
-    const i64 row = blockIdx.x >> 2;
-    const int st = blockIdx.x & 3;
-    const int sb = stream_bytes(n), words = (sb + 3) / 4;
-    int v = valid[row];
-    v = v < 0 ? 0 : (v > n ? n : v);
-    const int m4 = (v + 3) / 4;
-    const int start = st * m4;
-    const int slen = st < 3 ? m4 : (v - 3 * m4 > 0 ? v - 3 * m4 : 0);
-    const uint8_t* src = data + row * stride + offset;
-
-    for (int i = tid; i < 256; i += EMIT_THREADS) {
-        const int nb = nbits[row * 256 + i];
-        nb_t[i] = (uint8_t)nb;
-        code_t[i] = (uint32_t)codes[row * 256 + i] & ((1u << nb) - 1u);
-    }
-    for (int i = tid; i < words; i += EMIT_THREADS) img[i] = 0;
-    for (int i = tid; i < slen; i += EMIT_THREADS) {
-        const int p = start + i;
-        sym_s[i] = src[p < n ? p : n - 1];
-    }
-    __syncthreads();
-
-    const int per = (slen + EMIT_THREADS - 1) / EMIT_THREADS;
-    const int i0 = tid * per;
-    const int i1 = i0 + per < slen ? i0 + per : slen;
-    int local = 0;
-    for (int i = i0; i < i1; ++i) local += nb_t[sym_s[i]];
-    int c = block_scan_excl_sum(local, scan_sh, &total_s);
-    __syncthreads();
-    const int tb = total_s;
-    // symbol i occupies bits [tb - csum[i], tb - csum[i] + nb[i]), csum inclusive
-    for (int i = i0; i < i1; ++i) {
-        const int s = sym_s[i];
-        const int nb = nb_t[s];
-        c += nb;
-        if (nb) {
-            const int bp = tb - c;
-            const uint32_t code = code_t[s];
-            const int w = bp >> 5, off = bp & 31;
-            atomicOr(&img[w], code << off);
-            if (off + nb > 32) atomicOr(&img[w + 1], code >> (32 - off));
-        }
-    }
-    __syncthreads();
-    if (tid == 0) img[tb >> 5] |= 1u << (tb & 31);  // end marker
-    __syncthreads();
-    uint8_t* dst = streams_out + (row * 4 + st) * (i64)sb;
-    const uint8_t* ib = reinterpret_cast<const uint8_t*>(img);
-    for (int i = tid; i < sb; i += EMIT_THREADS) dst[i] = ib[i];
-    if (tid == 0) bits_out[row * 4 + st] = tb;
-}
 
 __device__ __forceinline__ uint32_t stream_word(const uint32_t* w, int j, int nw) {
     return j >= 0 && j < nw ? __ldg(w + j) : 0u;
@@ -485,30 +688,59 @@ zstd_decode_kernel(const uint8_t* __restrict__ bufs, const int32_t* __restrict__
     end_out[s] = p > 0 ? p : 0;
 }
 
+template <int THREADS>
+static int encode_launch(const uint8_t* data, const int32_t* valid, uint8_t* nbits, int32_t* codes,
+                         uint8_t* streams, int32_t* bits, i64 b_n, i64 stride, i64 offset, int n,
+                         bool empty, cudaStream_t stream) {
+    const int smem = enc_smem_bytes(THREADS, n);
+    const unsigned grid = (unsigned)(ENC_CLUSTER * b_n);
+    if (empty) {
+        cudaError_t e = cudaFuncSetAttribute(zstd_encode_empty_kernel<THREADS>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+        zstd_encode_empty_kernel<THREADS><<<grid, THREADS, smem, stream>>>();
+        return (int)cudaGetLastError();
+    }
+    cudaError_t e = cudaFuncSetAttribute(zstd_encode_kernel<THREADS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    zstd_encode_kernel<THREADS><<<grid, THREADS, smem, stream>>>(data, valid, nbits, codes, streams, bits,
+                                                                   stride, offset, n);
+    return (int)cudaGetLastError();
+}
+
+// the launch shape by row count (see the head of this file)
+static int encode_shape(const uint8_t* data, const int32_t* valid, uint8_t* nbits, int32_t* codes,
+                        uint8_t* streams, int32_t* bits, i64 b_n, i64 stride, i64 offset, i64 n,
+                        bool empty, void* stream) {
+    if (b_n <= 0) return 0;
+    if (n < 4 || n > MAX_N || (n & (n - 1)) || b_n > (1LL << 29)) return (int)cudaErrorInvalidValue;
+    return b_n <= ENC_FEW_ROWS
+               ? encode_launch<512>(data, valid, nbits, codes, streams, bits, b_n, stride, offset, (int)n, empty,
+                                    (cudaStream_t)stream)
+               : encode_launch<256>(data, valid, nbits, codes, streams, bits, b_n, stride, offset, (int)n, empty,
+                                    (cudaStream_t)stream);
+}
+
 extern "C" {
 
 const char* rp_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
 
-// codes: B*256 int32 scratch, read by rp_zstd_emit
-int rp_zstd_lengths(const uint8_t* data, const int32_t* valid, uint8_t* nbits, int32_t* codes,
-                    i64 b_n, i64 stride, i64 offset, i64 n, void* stream) {
-    if (b_n <= 0) return 0;
-    if (n < 4 || n > MAX_N || (n & (n - 1))) return (int)cudaErrorInvalidValue;
-    zstd_lengths_kernel<<<(unsigned)b_n, LEN_THREADS, 0, (cudaStream_t)stream>>>(
-        data, valid, nbits, codes, stride, offset, (int)n);
-    return (int)cudaGetLastError();
+
+// nbits: B*256 uint8; codes: B*256 int32; streams: B*4 rows of
+// stream_bytes(n); bits: B*4 int32. A refused launch (the cluster's
+// shared memory) returns its error.
+int rp_zstd_encode(const uint8_t* data, const int32_t* valid, uint8_t* nbits, int32_t* codes,
+                   uint8_t* streams, int32_t* bits, i64 b_n, i64 stride, i64 offset, i64 n,
+                   void* stream) {
+    return encode_shape(data, valid, nbits, codes, streams, bits, b_n, stride, offset, n, false, stream);
 }
 
-int rp_zstd_emit(const uint8_t* data, const int32_t* valid, const uint8_t* nbits,
-                 const int32_t* codes, uint8_t* streams, int32_t* bits, i64 b_n, i64 stride,
-                 i64 offset, i64 n, void* stream) {
-    if (b_n <= 0) return 0;
-    if (n < 4 || n > MAX_N || (n & (n - 1))) return (int)cudaErrorInvalidValue;
-    zstd_emit_kernel<<<(unsigned)(4 * b_n), EMIT_THREADS, 0, (cudaStream_t)stream>>>(
-        data, valid, nbits, codes, streams, bits, stride, offset, (int)n);
-    return (int)cudaGetLastError();
+// an empty kernel at the encode's launch shape and shared memory for b_n rows of n
+int rp_zstd_encode_empty(i64 b_n, i64 n, void* stream) {
+    return encode_shape(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, b_n, 0, 0, n, true, stream);
 }
 
 // bufs: S rows of sbytes (a multiple of 8, rows 8-byte aligned); out: S

@@ -20,7 +20,7 @@ All three launches go on the current stream, back to back.
 
 The zstd leg uses the JAX program's row width, PREFIX + n rounded up to
 512 bytes (no CELL guard: the huff0 encode reads only [0, n) of the
-body), and runs the CRC, then `rp_zstd_lengths` and `rp_zstd_emit`
+body), and runs two launches: the CRC, then `rp_zstd_encode`
 (csrc/zstd.cu) on the body at column offset PREFIX.
 """
 

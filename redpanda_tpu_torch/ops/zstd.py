@@ -13,10 +13,12 @@ with zero sequences; the frame and block scaffolding is host work
   under; ties go to the first index), canonical huff0 codes (longer
   codes in the low table regions, symbols ascending within a length
   class), and four reversed bitstreams, each closed by an end-marker
-  bit. On the card: `rp_zstd_lengths` (histogram, Kraft loops, codes;
-  one block per row) then `rp_zstd_emit` (one block per stream: a block
-  scan of the code lengths, codes OR-ed into a shared-memory image of
-  the stream), csrc/zstd.cu.
+  bit. On the card: one `rp_zstd_encode` launch, a cluster of four CTAs
+  a row (csrc/zstd.cu): CTA s stages stream s's quarter of the row and
+  histograms it, the four histograms meet over distributed shared
+  memory, every CTA derives the lengths (the down loop in closed form,
+  the up loop as a walk down the levels) and codes, and writes its
+  stream from its staged quarter.
 
   decode — huff0 streams are sequential: with f[p] = max(p -
   nb[peek(p)], 0) over bit positions (peek(p) = the 11 bits just below
@@ -57,7 +59,7 @@ TSIZE = 1 << TABLELOG
 MAX_N = 65536
 DECODE_SLOTS = 4  # streams per decode group (one zstd block's four); csrc/zstd.cu DEC_SLOTS
 
-LAUNCHES = {"zstd_lengths": 0, "zstd_emit": 0, "zstd_decode": 0}
+LAUNCHES = {"zstd_encode": 0, "zstd_decode": 0}
 
 # entries with device=None run here; the CPU tests set it to "cpu"
 DEFAULT_DEVICE = "cuda"
@@ -69,8 +71,7 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = _build.load("zstd")
-        _build.bind(lib, "rp_zstd_lengths", 4, 4)
-        _build.bind(lib, "rp_zstd_emit", 6, 4)
+        _build.bind(lib, "rp_zstd_encode", 6, 4)
         _build.bind(lib, "rp_zstd_decode", 8, 3)
         _LIB = lib
     return _LIB
@@ -177,7 +178,8 @@ def _row_step(n: int) -> int:
 
 
 def _lengths_plain(data, valid, n: int, offset: int = 0):
-    """Plain PyTorch version of `rp_zstd_lengths`: (nbits uint8 [B, 256],
+    """Plain PyTorch version of the code lengths and codes of
+    `rp_zstd_encode`: (nbits uint8 [B, 256],
     codes int32 [B, 256]). The histogram is row-chunked; the Kraft loops
     run over all rows at once."""
     d = data[:, offset : offset + n]
@@ -193,7 +195,8 @@ def _lengths_plain(data, valid, n: int, offset: int = 0):
 
 
 def _emit_plain(data, valid, nbits, codes, n: int, offset: int = 0):
-    """Plain PyTorch version of `rp_zstd_emit`, row-chunked: (streams
+    """Plain PyTorch version of the bitstreams of `rp_zstd_encode`,
+    row-chunked: (streams
     uint8 [B, 4, SB], bits int32 [B, 4])."""
     d = data[:, offset : offset + n]
     b, dev = d.shape[0], d.device
@@ -231,35 +234,25 @@ def _check_encode(data, valid, n: int, offset: int) -> None:
         raise ValueError("data and valid must be contiguous")
 
 
-def launch_lengths(data, valid, n: int, offset: int):
-    """One `rp_zstd_lengths` launch: (nbits uint8 [B, 256], codes int32
-    [B, 256]), the codes being the emission's input."""
+def launch_encode(data, valid, n: int, offset: int):
+    """One `rp_zstd_encode` launch: (nbits uint8 [B, 256], codes int32
+    [B, 256], streams uint8 [B, 4, SB], bits int32 [B, 4]). The codes are
+    written for the comparison with `_lengths_plain`; the launch reads
+    each row's valid bytes once."""
     b, stride = data.shape
-    nbits = torch.empty((b, 256), dtype=torch.uint8, device=data.device)
-    codes = torch.empty((b, 256), dtype=torch.int32, device=data.device)
+    dev = data.device
+    nbits = torch.empty((b, 256), dtype=torch.uint8, device=dev)
+    codes = torch.empty((b, 256), dtype=torch.int32, device=dev)
+    streams = torch.empty((b, 4, stream_byte_bound(n)), dtype=torch.uint8, device=dev)
+    bits = torch.empty((b, 4), dtype=torch.int32, device=dev)
     if b:
         lib = _lib()
-        rc = lib.rp_zstd_lengths(data.data_ptr(), valid.data_ptr(), nbits.data_ptr(),
-                                 codes.data_ptr(), b, stride, offset, n, _build.stream_of(data))
-        _build.check(lib, rc, "zstd_lengths")
-        LAUNCHES["zstd_lengths"] += 1
-    return nbits, codes
-
-
-def launch_emit(data, valid, nbits, codes, n: int, offset: int):
-    """One `rp_zstd_emit` launch: (streams uint8 [B, 4, SB], bits int32
-    [B, 4])."""
-    b, stride = data.shape
-    streams = torch.empty((b, 4, stream_byte_bound(n)), dtype=torch.uint8, device=data.device)
-    bits = torch.empty((b, 4), dtype=torch.int32, device=data.device)
-    if b:
-        lib = _lib()
-        rc = lib.rp_zstd_emit(data.data_ptr(), valid.data_ptr(), nbits.data_ptr(),
-                              codes.data_ptr(), streams.data_ptr(), bits.data_ptr(),
-                              b, stride, offset, n, _build.stream_of(data))
-        _build.check(lib, rc, "zstd_emit")
-        LAUNCHES["zstd_emit"] += 1
-    return streams, bits
+        rc = lib.rp_zstd_encode(data.data_ptr(), valid.data_ptr(), nbits.data_ptr(), codes.data_ptr(),
+                                streams.data_ptr(), bits.data_ptr(), b, stride, offset, n,
+                                _build.stream_of(data))
+        _build.check(lib, rc, "zstd_encode")
+        LAUNCHES["zstd_encode"] += 1
+    return nbits, codes, streams, bits
 
 
 def _encode_chunks(data: torch.Tensor, valid: torch.Tensor, n: int, offset: int = 0):
@@ -270,8 +263,8 @@ def _encode_chunks(data: torch.Tensor, valid: torch.Tensor, n: int, offset: int 
     _check_encode(data, valid, n, offset)
     if data.device.type == "cpu":
         return _encode_chunks_plain(data, valid, n, offset)
-    nbits, codes = launch_lengths(data, valid, n, offset)
-    return (nbits, *launch_emit(data, valid, nbits, codes, n, offset))
+    nbits, _, streams, bits = launch_encode(data, valid, n, offset)
+    return nbits, streams, bits
 
 
 def streams_of(nbits, streams, bits, count: int) -> "list[tuple[np.ndarray, list[bytes]]]":
@@ -286,8 +279,8 @@ def streams_of(nbits, streams, bits, count: int) -> "list[tuple[np.ndarray, list
 
 def encode_chunks(chunks: "list[bytes | np.ndarray]", device=None) -> "list[tuple[np.ndarray, list[bytes]]]":
     """Encode each <= 64 KiB chunk on the card: (code lengths, 4 huff0
-    streams) per chunk, one upload and one lengths + emission launch
-    for all of them. Frame / block assembly from these is
+    streams) per chunk, one upload and one encode launch for all of
+    them. Frame / block assembly from these is
     zstd_frame.build_block's job."""
     if not chunks:
         return []

@@ -9,13 +9,17 @@ stream, stream bit counts, decoded rows and `end` on every row, the
 decode errors, frames, fused CRCs and recompressed record batches.
 
 The CUDA kernels of csrc/zstd.cu cannot run here. Their schemes are
-replayed in Python below and held against the plain versions: the
-warp's Kraft loops with composite arg-min / arg-max keys, the
-emission's per-thread symbol runs with one placement per code, and the
-decoder's grouped walk: one stream per thread, four threads per table,
-the 64-bit window of 32-bit words, the ring of words staged ahead (its
-reads and refills checked), the select-only window step and the
-unclamped position.
+replayed in Python below and held against the plain versions and the
+JAX programs: the encode's cluster of four CTAs a row at both launch
+shapes (quarters staged at their alignment, per-warp histograms of
+runs of units, the Kraft down loop in closed form and the up loop as a
+walk down the levels, codes from packed per-lane counts scanned over a
+warp, 4-symbol packed codes placed by a warp scan into an image at the
+stream row's alignment), the closed form also against the JAX loops
+on seeded and fixed count vectors; and the decoder's grouped walk: one
+stream per thread, four threads per table, the 64-bit window of 32-bit
+words, the ring of words staged ahead (its reads and refills checked),
+the select-only window step and the unclamped position.
 """
 
 import ctypes
@@ -23,6 +27,7 @@ import ctypes.util
 import random
 import struct
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -485,80 +490,199 @@ def test_differential_fuzz_2k():
 
 
 # ------------------------------------------------------ kernel replays
-def _replay_kraft(counts: np.ndarray, v: int) -> np.ndarray:
-    """rp_zstd_lengths' warp loops: lane l holds symbols 8l..8l+7; each
-    step reduces a composite key over the 32 lanes."""
-    u = np.zeros(256, np.int64)
+ENC_THREADS = (512, 256)  # csrc/zstd.cu: threads a CTA for few rows and for many
+ENC_UNIT = 16  # bytes of symbols a lane takes a step
+
+
+def _seed_u(counts: np.ndarray, v: int) -> np.ndarray:
+    """The Kraft seed: u = clip(2^floor_log2(q), 1, 1024) for present
+    symbols, q = clip(ceil(c * 2048 / v), 1, 2048)."""
     vv = max(v, 1)
-    for s in range(256):
-        if counts[s]:
-            q = min(max((int(counts[s]) * 2048 + vv - 1) // vv, 1), 2048)
-            u[s] = min(1 << (q.bit_length() - 1), 1024)
-    lanes = u.reshape(32, 8)
-    cc = counts.reshape(32, 8)
+    q = np.clip((counts * 2048 + vv - 1) // vv, 1, 2048)
+    return np.where(counts > 0, np.minimum(1 << (np.floor(np.log2(q)).astype(np.int64)), 1024), 0)
+
+
+def _pow2floor(x: int) -> int:
+    return 1 << (x.bit_length() - 1)
+
+
+def _replay_kraft(counts: np.ndarray, v: int) -> tuple:
+    """rp_zstd_encode's Kraft lengths: the down loop in closed form (each
+    candidate's weighted rank over (count, symbol) keys, broadcast over
+    the 256 pairs), then the up loop as one warp runs it, lane l holding
+    symbols 8l..8l+7: a step is one max over keys (log2 u, 255 - symbol)
+    and takes the chosen symbol's whole climb (k doublings while
+    2^l (2^k - 1) <= deficit, up to 1024); the deficit is carried, never
+    re-summed. Returns (nbits, down symbols touched, climbs)."""
+    counts = np.asarray(counts, np.int64)
+    u = _seed_u(counts, v)
+    present = counts > 0
+    s_sum = int(u.sum())
+    touched = 0
+    if s_sum > 2048:
+        e = s_sum - 2048
+        key = counts * 256 + np.arange(256)
+        w = np.where(present, u - 1, 0)
+        new = u.copy()
+        for s in np.flatnonzero(present & (u >= 2)):
+            r = e - int(w[present & (key < key[s])].sum())
+            if r > 0:
+                new[s] = 1 if u[s] - r < 1 else _pow2floor(int(u[s]) - r)
+                touched += 1
+        u = new
+    lanes = u.reshape(32, 8).copy()
+    pres = lanes > 0
+    lg = np.where(pres, np.log2(np.maximum(lanes, 1)).astype(np.int64), 0)
     sym = np.arange(256).reshape(32, 8)
-    while lanes.sum() > 2048:
-        keys = np.where((cc > 0) & (lanes >= 2), cc * 256 + sym, 0xFFFFFFFF)
-        best = int(keys.min(axis=1).min())  # per-lane min, then __reduce_min_sync
-        if best == 0xFFFFFFFF:
-            break
-        lanes[(best & 255) // 8, (best & 255) % 8] >>= 1
-    while lanes.sum() < 2048:
-        d = 2048 - lanes.sum()
-        keys = np.where((cc > 0) & (lanes <= d) & (lanes < 1024), lanes * 256 + (255 - sym), -1)
-        best = int(keys.max(axis=1).max())
+    d = 2048 - int(lanes.sum())  # one warp sum before the first step
+    steps = 0
+    while d > 0:
+        keys = np.where(pres & (lanes <= d) & (lanes < 1024), lg * 256 + (255 - sym), -1)
+        best = int(keys.max(axis=1).max())  # per-lane max, then __reduce_max_sync
         if best < 0:
             break
-        s = 255 - (best & 255)
-        lanes[s // 8, s % 8] <<= 1
-    return np.where(counts > 0, 11 - np.floor(np.log2(np.maximum(u, 1))).astype(np.int64), 0)
+        s, lev = 255 - (best & 255), best >> 8
+        k = min(((d >> lev) + 1).bit_length() - 1, 10 - lev)
+        lanes[s // 8, s % 8] <<= k
+        lg[s // 8, s % 8] += k
+        d -= ((1 << k) - 1) << lev
+        steps += 1
+    u = lanes.reshape(256)
+    nb = np.where(present, 11 - np.floor(np.log2(np.maximum(u, 1))).astype(np.int64), 0)
+    return nb, touched, steps
 
 
 def _replay_codes(nbits: np.ndarray) -> np.ndarray:
-    rc = np.bincount(nbits[nbits > 0], minlength=12)
+    """Canonical codes as the kernel's warp 0 computes them: lane l holds
+    symbols 8l..8l+7 and counts its symbols of each length, packed 8 bits
+    a length into three words; a warp scan of the packed words gives each
+    lane the lower lanes' counts (<= 248, so no field overflows); lane 31
+    turns the totals into each length's first code (past the slots of
+    every longer code); a symbol adds its lane's lower symbols of its
+    length."""
+    nb = nbits.reshape(32, 8).astype(np.int64)
+    own = np.zeros((32, 3), np.int64)
+    for lane in range(32):
+        for x in nb[lane]:
+            own[lane, x >> 2] += 1 << (8 * (x & 3))
+    incl = np.cumsum(own, 0)
+    ex = incl - own
+    assert (ex < 1 << 32).all()
+    field = lambda words, b: (int(words[b >> 2]) >> (8 * (b & 3))) & 255  # noqa: E731
+    first, slots = [0] * 12, 0
+    for b in range(11, 0, -1):
+        first[b] = slots >> (11 - b)
+        slots += (field(ex[31], b) + field(own[31], b)) << (11 - b)
     codes = np.zeros(256, np.int64)
-    for s in range(256):
-        nb = int(nbits[s])
-        if nb:
-            base = sum(int(rc[j]) << (11 - j) for j in range(nb + 1, 12))
-            rank = int((nbits[:s] == nb).sum())
-            codes[s] = (base >> (11 - nb)) + rank
+    for lane in range(32):
+        for k in range(8):
+            b = int(nb[lane, k])
+            if b:
+                codes[8 * lane + k] = first[b] + field(ex[lane], b) + int((nb[lane, :k] == b).sum())
     return codes
 
 
-def _replay_emit(row: bytes, n: int, nbits: np.ndarray, codes: np.ndarray, threads: int = 512):
-    """rp_zstd_emit for the four streams of one row: per-thread symbol
-    runs, an exclusive scan of their lengths, one placement per code into
-    32-bit words, the marker, then all SB bytes."""
-    d = np.zeros(n, np.int64)
-    d[: len(row)] = np.frombuffer(row, np.uint8)
-    v = len(row)
-    sb = tz.stream_byte_bound(n)
+def _quarters(v: int):
     m4 = (v + 3) // 4
-    out, tbs = [], []
-    for st in range(4):
-        slen = m4 if st < 3 else max(v - 3 * m4, 0)
-        syms = d[np.minimum(st * m4 + np.arange(slen), n - 1)]
-        per = -(-slen // threads)
-        runs = [syms[t * per : (t + 1) * per] for t in range(threads)]
-        local = np.array([int(nbits[r].sum()) for r in runs])
-        excl = np.concatenate([[0], np.cumsum(local)[:-1]])
-        tb = int(local.sum())
-        img = np.zeros((sb + 3) // 4, np.uint64)
-        for run, c in zip(runs, excl):
-            for s in run:
-                nb = int(nbits[s])
-                c += nb
-                if nb:
-                    bp = tb - c
-                    code = int(codes[s]) & ((1 << nb) - 1)
-                    img[bp >> 5] |= np.uint64((code << (bp & 31)) & 0xFFFFFFFF)
-                    if (bp & 31) + nb > 32:
-                        img[(bp >> 5) + 1] |= np.uint64(code >> (32 - (bp & 31)))
-        img[tb >> 5] |= np.uint64(1 << (tb & 31))
-        out.append(img.astype("<u4").tobytes()[:sb])
-        tbs.append(tb)
-    return out, tbs
+    return [(s * m4, m4 if s < 3 else max(v - 3 * m4, 0)) for s in range(4)]
+
+
+def _units(a: int, slen: int, warps: int):
+    """The 16-byte units of a staged quarter (shared bytes a .. a + slen)
+    and each warp's run of them, a multiple of 32 units."""
+    nun = (a + slen + ENC_UNIT - 1) // ENC_UNIT
+    return nun, -(-nun // (32 * warps)) * 32
+
+
+def _replay_encode(mat: np.ndarray, valid: np.ndarray, n: int, offset: int = 0, threads: int = ENC_THREADS[1]):
+    """rp_zstd_encode on a staged matrix (rows of `stride` bytes, the
+    chunk at column `offset`, the matrix 16-byte aligned): four CTAs a
+    row, CTA s staging quarter s at shared byte (its address & 15), per-
+    warp histograms of runs of 16-byte chunks, the four summed, the
+    Kraft lengths and codes above, the warps' bit totals from their
+    histograms of runs of units, the four pushed to every CTA and summed,
+    the Kraft lengths and codes above, the warps' bit totals from their
+    histograms, a lane packing each word of its unit into one code of
+    <= 44 bits, a warp scan of the units' lengths, each code OR-ed into
+    an image shifted by the stream row's address & 15, and the flush of
+    SB bytes; at `threads` a CTA. Returns (nbits,
+    codes, streams, bits) and the Kraft step counts per row."""
+    b_n, stride = mat.shape
+    warps, unit = threads // 32, ENC_UNIT
+    sb = tz.stream_byte_bound(n)
+    nbits = np.zeros((b_n, 256), np.uint8)
+    codes = np.zeros((b_n, 256), np.int32)
+    streams = np.zeros((b_n, 4, sb), np.uint8)
+    bits = np.zeros((b_n, 4), np.int32)
+    steps = []
+    for r in range(b_n):
+        v = min(max(int(valid[r]), 0), n)
+        row = mat[r, offset : offset + n]
+        staged, subs, hv = [], [], []
+        for start, slen in _quarters(v):
+            a = (r * stride + offset + start) % 16
+            sh = np.zeros(a + slen + unit, np.int64)
+            sh[a : a + slen] = row[start : start + slen]
+            nun, cw = _units(a, slen, warps)
+            h = min(max(v - start, 0), slen)
+            sub = np.zeros((warps, 256), np.int64)
+            for w in range(warps):
+                for j in range(w * cw, min((w + 1) * cw, nun)):
+                    for k in range(unit):
+                        if 0 <= unit * j + k - a < h:
+                            sub[w, sh[unit * j + k]] += 1
+            staged.append((a, slen, sh, nun, cw))
+            subs.append(sub)
+            hv.append(h)
+        counts = sum(sub.sum(0) for sub in subs)  # pushed into every CTA of the cluster
+        np.testing.assert_array_equal(counts, np.bincount(row[:v], minlength=256))
+        nb, touched, up = _replay_kraft(counts, v)
+        steps.append((touched, up))
+        code = _replay_codes(nb)
+        nbits[r], codes[r] = nb, code
+        for s, ((a, slen, sh, nun, cw), sub, h) in enumerate(zip(staged, subs, hv)):
+            tot = []
+            for w in range(warps):
+                t = int((sub[w] * nb).sum())
+                lo, hi = max(w * cw * unit - a, h), min(min((w + 1) * cw, nun) * unit - a, slen)
+                t += sum(int(nb[sh[a + i]]) for i in range(lo, hi))  # past v: uncounted
+                tot.append(t)
+            tb = sum(tot)
+            a_dst = ((r * 4 + s) * sb) % 16
+            img = np.zeros((a_dst + sb + 15) // 16 * 4 + 1, np.uint64)
+            top = tb + 8 * a_dst
+            img[top >> 5] |= np.uint64(1 << (top & 31))  # the end marker
+            for w in range(warps):
+                carry = sum(tot[:w])
+                end = min((w + 1) * cw, nun)
+                for j0 in range(w * cw, end, 32):
+                    packs = []  # per lane: its unit's 4-symbol codes (value, bits), first symbol highest
+                    for lane in range(32):
+                        j = j0 + lane
+                        pk = []
+                        for g in range(unit // 4):
+                            val = ln = 0
+                            for k in range(4 * g, 4 * g + 4):
+                                if j < end and 0 <= unit * j + k - a < slen:
+                                    x = int(nb[sh[unit * j + k]])
+                                    val = (val << x) | (int(code[sh[unit * j + k]]) & ((1 << x) - 1))
+                                    ln += x
+                            assert ln <= 44
+                            pk.append((val, ln))
+                        packs.append(pk)
+                    incl = np.cumsum([sum(ln for _, ln in pk) for pk in packs])
+                    for pk, c in zip(packs, incl):
+                        below = top - carry - (int(c) - sum(ln for _, ln in pk))
+                        for val, ln in pk:
+                            below -= ln
+                            for jw in range(3):  # <= 44 bits at any offset: three words
+                                img[(below >> 5) + jw] |= np.uint64(((val << (below & 31)) >> (32 * jw)) & 0xFFFFFFFF)
+                    carry += int(incl[-1])
+            assert carry == tb
+            raw = img.astype("<u4").tobytes()
+            streams[r, s] = np.frombuffer(raw[a_dst : a_dst + sb], np.uint8)
+            bits[r, s] = tb
+    return (nbits, codes, streams, bits), steps
 
 
 def _fshr(lo: int, hi: int, shift: int) -> int:
@@ -631,19 +755,99 @@ def _replay_decode(bufs, tbits, regen, tsym, tnb, index, sbytes: int, rmax: int,
     return out, end
 
 
+def _replay_rows(n: int) -> list:
+    """The edge rows plus lengths 1-5 and v = 1, 5, 15 (mod 64): quarters
+    at every alignment, empty streams, rows shorter than four."""
+    rng = np.random.default_rng(31 + n)
+    extra = [bytes([7] * k) for k in (1, 2, 3, 4)] + [b"ab\x00cd"]
+    extra += [rng.integers(0, 40, k, dtype=np.uint8).tobytes() for k in (65, 69, 79, 129, 133, 143) if k <= n]
+    return _edge_rows(n, seed=13) + extra
+
+
 @pytest.mark.parametrize("n", (256, 4096))
 def test_kernel_replay_encode_matches_plain(n):
-    rows = _edge_rows(n, seed=13)
+    """The encode kernel's scheme, replayed, against the plain version and
+    the JAX program: in place at column 40 of 512-byte-aligned rows (the
+    fused layout) and at column 0 of rows of n bytes."""
+    rows = _replay_rows(n)
     batch, valid = _stage(rows, n)
-    nbits, streams, bits = (t.numpy() for t in tz._encode_chunks(
-        torch.from_numpy(batch), torch.from_numpy(valid), n))
-    for i, r in enumerate(rows):
-        counts = np.bincount(np.frombuffer(r, np.uint8), minlength=256).astype(np.int64)
-        nb = _replay_kraft(counts, len(r))
-        np.testing.assert_array_equal(nb, nbits[i].astype(np.int64), err_msg=f"row {i}")
-        got, tbs = _replay_emit(r, n, nb, _replay_codes(nb))
-        assert tbs == list(bits[i]), i
-        assert got == [streams[i, s].tobytes() for s in range(4)], i
+    want = [t.numpy() for t in tz._encode_chunks(torch.from_numpy(batch), torch.from_numpy(valid), n)]
+    jwant = [np.asarray(x) for x in jz._encode_chunks(jnp.asarray(batch), jnp.asarray(valid), n)]
+    _, codes = tz._lengths_plain(torch.from_numpy(batch), torch.from_numpy(valid), n)
+    width = (40 + n + 511) // 512 * 512
+    wide = np.zeros((len(rows), width), np.uint8)
+    wide[:, 40 : 40 + n] = batch
+    for mat, offset, threads in ((batch, 0, ENC_THREADS[0]), (batch, 0, ENC_THREADS[1]), (wide, 40, ENC_THREADS[1])):
+        (nbits, got_codes, streams, bits), _ = _replay_encode(mat, valid, n, offset, threads)
+        for got, w, jw in zip((nbits, streams, bits), want, jwant):
+            np.testing.assert_array_equal(got, w)
+            np.testing.assert_array_equal(got, jw)
+        np.testing.assert_array_equal(got_codes, codes.numpy())
+
+
+_JAX_KRAFT = jax.jit(jz._kraft_nbits)
+
+
+def _jax_nbits(counts: np.ndarray) -> np.ndarray:
+    return np.asarray(_JAX_KRAFT(jnp.asarray(counts.astype(np.int32)), jnp.int32(int(counts.sum()))))
+
+
+KRAFT_FIXED = {
+    "one_symbol_65536": np.bincount(np.full(65536, 9), minlength=256),
+    "down_loop_100": np.bincount(np.frombuffer(chip_smoke.kraft_down_row(np.random.default_rng(0), 65536),
+                                               np.uint8), minlength=256),
+    "uniform_256": np.full(256, 256),
+    "two_symbols": np.bincount(np.array([3] * 5 + [200] * 65531), minlength=256),
+}
+
+
+@pytest.mark.parametrize("case", KRAFT_FIXED)
+def test_kraft_closed_form_fixed_vectors(case):
+    counts = KRAFT_FIXED[case].astype(np.int64)
+    nb, touched, _ = _replay_kraft(counts, int(counts.sum()))
+    np.testing.assert_array_equal(nb, _jax_nbits(counts))
+    np.testing.assert_array_equal(nb, tz._kraft_nbits(torch.from_numpy(counts)[None], torch.tensor([int(counts.sum())]))[0].numpy())
+    if case == "down_loop_100":
+        assert touched == 100
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_kraft_closed_form_matches_jax(seed):
+    """Seeded count vectors (a few to all 256 symbols present, flat to
+    heavy-tailed, rare symbols beside dominant ones, rare symbols just
+    past one slot beside power-of-two shares) through the closed form and
+    the JAX loops; some overshoot the 2,048 slots in every seed."""
+    rng = np.random.default_rng(seed)
+    overshoot = 0
+    for _ in range(24):
+        k = int(rng.integers(2, 257))
+        counts = np.zeros(256, np.int64)
+        at = rng.choice(256, k, replace=False)
+        kind = int(rng.integers(0, 6))
+        if kind >= 3:  # rare symbols just past one slot beside power-of-two shares: the seed overshoots
+            unit = 32
+            rare = np.zeros(256, np.int64)
+            rare[at] = unit + rng.integers(1, unit, k)
+            left = 2048 * unit - int(rare.sum())
+            for sym in rng.permutation(np.setdiff1d(np.arange(256), at)):
+                share = unit << int(rng.integers(2, 10))
+                if left <= 0:
+                    break
+                rare[sym] = min(share, left)
+                left -= rare[sym]
+            counts = rare
+        elif kind == 0:
+            counts[at] = rng.integers(1, 400, k)
+        elif kind == 1:
+            counts[at] = np.maximum(1, (rng.pareto(1.2, k) * 30).astype(np.int64))
+        else:
+            counts[at] = rng.integers(1, 3, k)
+            counts[at[: int(rng.integers(1, 6))]] = rng.integers(2000, 60000)
+        counts = np.minimum(counts, 65536 // 2)
+        nb, touched, _ = _replay_kraft(counts, int(counts.sum()))
+        overshoot += touched > 0
+        np.testing.assert_array_equal(nb, _jax_nbits(counts), err_msg=str(counts.tolist()))
+    assert overshoot > 0
 
 
 def test_kernel_replay_decode_matches_plain():
