@@ -11,7 +11,8 @@ Phases, each raising on any mismatch:
      replication tick's shapes (G=50,000 groups, R=8 slots, M=100,000
      replies with duplicate pairs and stale seqs, H=50,000 heartbeat
      rows), the fold and the commit sweep also at R=5, 3, 12 and 32
-     (padded rows, the 16- and 32-slot kernels), and on CRC rows (1,024 ragged rows of ~16.4 KiB, 4,096 rows
+     (padded rows, the 16- and 32-slot kernels; the fold's cooperative
+     grid logged), and on CRC rows (1,024 ragged rows of ~16.4 KiB, 4,096 rows
      of 4 KiB, rows at every start alignment mod 16 with lengths at the
      kernel's piece, tile and team boundaries, one row of 1 MiB and one of
      4 MiB + 3 bytes held to the host CRC); all outputs are integers, so
@@ -73,8 +74,10 @@ Phases, each raising on any mismatch:
      (duplicates, stale seqs) through a TickFrame and one
      health_refresh, against the numpy host leg built from the same
      seed (lanes, advanced rows, health lanes, fleet totals), then at
-     D=3 on 100,003 rows (padding rows); health_totals against its plain
-     version and the frame's launch sequence on the device clock;
+     D=3 on 100,003 rows (padding rows); health_totals, fold_replies and
+     quorum_commit_step against their plain versions at 1M rows (each
+     timed alone beside its bound) and the fold and the sweep also on the
+     D=3 run's lanes; the frame's launch sequence on the device clock;
   10. the RF=3 ring cluster at 1,000,000 groups over D=8 blocks, resident
      on the card: __graft_entry__.dryrun_multichip's scenario with its
      assertions, then 20 seeded ticks (elections every fifth tick,
@@ -550,6 +553,9 @@ def phase_kernels(torch, mem_rate: float) -> dict:
     cell = rows * R + slots
     fresh = seqs > fields["last_seq"].reshape(-1)[cell]
     uniq, uniq_fresh = len(np.unique(cell)), len(np.unique(cell[fresh]))
+    blocks, threads, its = quorum_ops.fold_grid(len(rows))
+    log(f"[kernels] fold_replies: one cooperative launch of {blocks} blocks x {threads} threads, {its} "
+        f"reply(ies) a thread, at M={len(rows)}")
     out["fold_replies"] = {
         "shape": f"G={G} R={R} M={len(rows)} (of which {M_REPLIES} real, {int(fresh.sum())} fresh)",
         "max_abs_err": err,
@@ -2013,8 +2019,9 @@ def phase_mesh(torch, mem_rate: float) -> dict:
     clock against their bounds, health_totals against its plain version."""
     reset_launches()
     out = run_mesh_slice(MESH_G, MESH_D, "cuda")
-    run_mesh_slice(MESH_PAD_G, MESH_PAD_D, "cuda", windows=2, big_windows=1)
+    pad = run_mesh_slice(MESH_PAD_G, MESH_PAD_D, "cuda", windows=2, big_windows=1)
     launches = {k: KERNELS[k][2][k] for k in ("fold_replies", "quorum_commit_step", "health_totals")}
+    mesh_pad_kernels(torch, pad, MESH_PAD_D)
     st = out["stage_ms"]
     log(f"[mesh] G={MESH_G} D={MESH_D}: {out['frames'] - 1} frames ({MESH_WINDOWS} x {MESH_WINDOW}, "
         f"{MESH_BIG_WINDOWS} x {MESH_BIG_WINDOW} replies) + one health_refresh equal to the host leg "
@@ -2084,11 +2091,73 @@ def mesh_kernels(torch, arrays, rows, k: int, mem_rate: float, device: str = "cu
         # and the health lanes written
         "bound_ms": seq_bytes / mem_rate * 1e3,
     }
+    alone = quorum_alone(torch, base, work, reset, replies, f"G={gp} R={r} D={MESH_D}", mem_rate)
+    out.update({f"{name}@mesh": e for name, e in alone.items()})
+    blocks, threads, its = quorum_ops.fold_grid(len(replies[0]))
+    log(f"[mesh] fold_replies: one cooperative launch of {blocks} blocks x {threads} threads, {its} "
+        f"reply(ies) a thread, at M={len(replies[0])}")
     for name, e in out.items():
-        log(f"[mesh] {name:<16} {e['shape']}: kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, "
+        log(f"[mesh] {name:<24} {e['shape']}: kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, "
             f"plain {e['plain_ms']:.3f} ms" + (" (equal to plain, tolerance exact)"
-                                               if name == "health_totals" else ""))
+                                               if name != "mesh_tick_frame" else ""))
     return out
+
+
+def quorum_alone(torch, base, work, reset, replies, shape: str, mem_rate: float, timed: bool = True) -> dict:
+    """fold_replies and quorum_commit_step alone on a placed mesh state,
+    each against its plain version (exact) and, if `timed`, on the device
+    clock beside its bytes bound: the fold's as in phase 2 (group, slot,
+    seq of every entry, dirty and flushed of every fresh reply, last_seq
+    once per addressed pair, three lanes written once per fresh pair), the
+    sweep's the [G, R] lanes and four [G] lanes read, two written."""
+    gp, r = base.match_index.shape
+    rows, slots, _, _, seqs = replies
+    cell = rows * r + slots
+    fresh = seqs > base.last_seq.reshape(-1)[cell]
+    m, nf = len(rows), int(fresh.sum())
+    uniq, uniq_fresh = int(torch.unique(cell).numel()), int(torch.unique(cell[fresh]).numel())
+    out = {}
+    for name, kern, plain, args, nbytes in (
+        ("fold_replies", quorum_ops.fold_replies, quorum_ops.fold_replies_plain, replies,
+         24 * m + 16 * nf + 8 * uniq + 40 * uniq_fresh),
+        ("quorum_commit_step", quorum_ops.quorum_commit_step, quorum_ops.quorum_commit_step_plain, (),
+         gp * r * (8 + 8 + 1 + 1) + gp * (1 + 8 + 8 + 8) + gp * 16),
+    ):
+        reset()
+        want = {k: getattr(plain(work, *args), k).clone() for k in work._fields}
+        reset()
+        got = {k: getattr(kern(work, *args), k).clone() for k in work._fields}
+        torch.cuda.synchronize()
+        e = {"shape": shape + (f" M={m}" if args else ""), "max_abs_err": max_abs_err(got, want)}
+        if timed:
+            e.update(ms=time_kernel(lambda: kern(work, *args), reset),
+                     plain_ms=time_plain(lambda: plain(work, *args), reset), bound_ms=nbytes / mem_rate * 1e3)
+        out[name] = e
+    reset()
+    return out
+
+
+def mesh_pad_kernels(torch, run: dict, devices: int) -> None:
+    """fold_replies and quorum_commit_step against their plain versions on
+    the padded mesh run's lanes placed as `devices` blocks, with a next
+    window of the big size padded as _mesh_full_frame pads it."""
+    from redpanda_tpu_torch.parallel import mesh_frame
+
+    arrays, rows = run["arrays"], run["rows"]
+    frame = mesh_frame.MeshFrame(devices, "cuda")
+    base, work = frame.place_state(arrays), frame.place_state(arrays)
+    window = mesh_window(np.random.default_rng(SEED + 14), rows, MESH_BIG_WINDOW, run["frames"],
+                         arrays.replica_slots)
+    replies = [torch.from_numpy(a).cuda() for a in padded_window(window)]
+
+    def reset():
+        for a, b in zip(work, base):
+            a.copy_(b)
+
+    gp, r = base.match_index.shape
+    quorum_alone(torch, base, work, reset, replies, "", 0.0, timed=False)
+    log(f"[mesh] fold_replies, quorum_commit_step at G={gp} (D={devices} blocks of {gp // devices} rows) R={r} "
+        f"M={len(replies[0])}: equal to plain, tolerance exact")
 
 
 def padded_window(window):
@@ -2498,6 +2567,9 @@ def main() -> int:
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "shape": e["shape"],
         })
+        at_mesh = results.get(f"{name}@mesh")
+        if at_mesh is not None:  # the same kernel alone at the mesh frame's shape
+            kernels[-1]["mesh"] = {k: at_mesh[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
         one = per_call.get(f"{name}@row", per_call.get(f"{name}@batch"))
         if one is not None:  # the same kernel at the shape one call gives it
             kernels[-1]["per_call"] = {k: one[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}

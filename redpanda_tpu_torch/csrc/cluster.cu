@@ -28,7 +28,7 @@
 // five [G] lanes), the five mirror lanes, log_start and new_dirty (~273 B
 // per group) and writes slots 0..2 of match / flushed, commit, visible and
 // four mirror lanes (~128 B): ~401 MB, ~120 us at 3.35 TB/s. The work per
-// group is the commit rule's sorting networks, far below the integer rate.
+// group is the commit rule's rank masks, far below the integer rate.
 // election_round reads ~66 B and writes ~42 B per group: ~32 us.
 //
 // The rules shared with ops/quorum.py (the leader commit, the follower

@@ -24,74 +24,74 @@ __device__ __forceinline__ i64 wrap_add(i64 a, i64 b) {
     return (i64)((unsigned long long)a + (unsigned long long)b);
 }
 
+// Rank masks of one row: bit t of before[s] is set when slot t sorts
+// before slot s, that is v[t] < v[s], or v[t] == v[s] and t < s. One
+// compare a pair of slots (N (N - 1) / 2 of them) serves every subset of
+// the row, so the current and the old voter sets share it.
 template <int N>
-__device__ __forceinline__ void bitonic_sort(i64 (&v)[N]) {
+__device__ __forceinline__ void rank_masks(const i64 (&v)[N], unsigned (&before)[N]) {
 #pragma unroll
-    for (int k = 2; k <= N; k <<= 1) {
+    for (int s = 0; s < N; ++s) before[s] = 0u;
 #pragma unroll
-        for (int j = k >> 1; j > 0; j >>= 1) {
+    for (int a = 0; a < N; ++a)
 #pragma unroll
-            for (int i = 0; i < N; ++i) {
-                const int l = i ^ j;
-                if (l > i) {
-                    const i64 a = v[i], b = v[l];
-                    const i64 lo = a < b ? a : b, hi = a < b ? b : a;
-                    const bool up = (i & k) == 0;
-                    v[i] = up ? lo : hi;
-                    v[l] = up ? hi : lo;
-                }
-            }
+        for (int b = a + 1; b < N; ++b) {
+            const bool a_first = v[a] <= v[b];
+            before[b] |= (unsigned)a_first << a;
+            before[a] |= (unsigned)!a_first << b;
         }
-    }
 }
 
-// Majority order statistic over the slots set in `mask` (n of them):
-// the reference fills masked-out slots with i64 min, sorts ascending and
-// takes index clip(R - n + (n - 1) // 2, 0, R - 1); n == 0 gives i64 min.
+// Majority order statistic over the slots set in `mask` (n of them): the
+// reference fills masked-out slots with i64 min, sorts ascending and takes
+// index clip(R - n + (n - 1) // 2, 0, R - 1); n == 0 gives i64 min. The
+// fill sorts below (or ties with) every masked value, so that index holds
+// the masked values' ((n - 1) / 2)-th smallest: the one masked slot that
+// exactly (n - 1) / 2 masked slots sort before. No sort, and the padding
+// past R never matters.
 template <int N>
-__device__ __forceinline__ i64 masked_quorum(const i64 (&vals)[N],
-                                             unsigned mask, int n) {
-    if (n == 0) return RP_I64_MIN;
-    i64 v[N];
+__device__ __forceinline__ i64 masked_quorum(const i64 (&v)[N],
+                                             const unsigned (&before)[N],
+                                             unsigned mask) {
+    const int k = (__popc(mask) - 1) >> 1;  // -1 when mask is empty: no slot
+    i64 out = RP_I64_MIN;
 #pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = ((mask >> i) & 1u) ? vals[i] : RP_I64_MIN;
-    bitonic_sort(v);
-    // n >= 1 here, so C's truncating (n - 1) / 2 equals Python's floor
-    // division, and N - n + (n - 1) / 2 already lies in [0, N - 1]
-    const int idx = N - n + (n - 1) / 2;
-    i64 out = v[0];
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-        if (i == idx) out = v[i];
+    for (int s = 0; s < N; ++s)
+        if (((mask >> s) & 1u) && __popc(before[s] & mask) == k) out = v[s];
     return out;
 }
 
+// One lane's majority over a row (c = min(flushed, match) for the commit,
+// match for the visible offset): the masked order statistic over the
+// current voters, and the min of it and the old voters' under joint
+// consensus (om != 0).
+template <int N>
+__device__ __forceinline__ i64 lane_majority(const i64 (&v)[N], unsigned vm,
+                                             unsigned om) {
+    unsigned before[N];
+    rank_masks(v, before);
+    const i64 cur = masked_quorum(v, before, vm);
+    return om != 0u ? imin(cur, masked_quorum(v, before, om)) : cur;
+}
+
 // The leader commit rule for one row held in registers: m = match, c =
-// min(flushed, match) per slot (i64 min past the row's R slots, which
-// sorts below every real offset exactly as the reference's masked fill),
-// vm / om = current and old voter bitmasks, self_flushed = flushed[0].
-// Returns the new commit and writes the new last_visible to *visible.
+// min(flushed, match) per slot (anything past the row's R slots, which
+// no mask selects), vm / om = current and old voter bitmasks (no bit at
+// or past R), self_flushed = flushed[0]. Returns the new commit and
+// writes the new last_visible to *visible.
 template <int N>
 __device__ __forceinline__ i64 commit_row(const i64 (&m)[N], const i64 (&c)[N],
                                           unsigned vm, unsigned om,
                                           i64 self_flushed, bool leader,
                                           i64 term_start, i64 commit,
                                           i64* visible) {
-    const int n_cur = __popc(vm), n_old = __popc(om);
-    i64 majority = masked_quorum(c, vm, n_cur);
-    i64 majority_dirty = masked_quorum(m, vm, n_cur);
-    if (n_old > 0) {  // joint consensus: min over both quorums
-        majority = imin(majority, masked_quorum(c, om, n_old));
-        majority_dirty = imin(majority_dirty, masked_quorum(m, om, n_old));
-    }
     // clamp to the leader's own flushed / dirty offset (slot 0)
-    majority = imin(majority, self_flushed);
-    majority_dirty = imin(majority_dirty, m[0]);
-    const bool advance =
-        leader && n_cur > 0 && majority > commit && majority >= term_start;
+    const i64 majority = imin(lane_majority(c, vm, om), self_flushed);
+    const i64 majority_dirty = imin(lane_majority(m, vm, om), m[0]);
+    const bool lead = leader && vm != 0u;
+    const bool advance = lead && majority > commit && majority >= term_start;
     const i64 new_commit = advance ? majority : commit;
-    if (leader && n_cur > 0)
-        *visible = imax(*visible, imax(new_commit, majority_dirty));
+    if (lead) *visible = imax(*visible, imax(new_commit, majority_dirty));
     return new_commit;
 }
 

@@ -43,6 +43,8 @@ the JAX program donates its buffers the same way (donate_argnums=0).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..models.consensus_state import SELF_SLOT, GroupState
@@ -66,7 +68,9 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = _build.load("quorum")
-        _build.bind(lib, "rp_fold_replies", 9, 3)
+        _build.bind(lib, "rp_fold_replies", 8, 3)
+        lib.rp_fold_grid.argtypes = [ctypes.c_int64, ctypes.c_void_p]
+        lib.rp_fold_grid.restype = ctypes.c_int
         _build.bind(lib, "rp_commit_step", 8, 2)
         _build.bind(lib, "rp_build_heartbeats", 9, 3)
         _build.bind(lib, "rp_follower_commit", 4, 2)
@@ -145,7 +149,8 @@ def fold_replies(
     match/flushed/last_seq, in place. Replies with seq <= last_seq[g, r]
     (pre-batch) are dropped (reordered responses, types.h:107-117);
     duplicate (g, r) pairs resolve by per-target max; pairs outside
-    [0, G) x [0, R) are skipped."""
+    [0, G) x [0, R) are skipped. On the card: one cooperative launch
+    (`fold_grid`); a batch too large for a co-resident grid raises."""
     check_state(state)
     dev = state.match_index.device
     m = group_idx.shape[0]
@@ -165,7 +170,6 @@ def fold_replies(
         return state
     g, r = state.match_index.shape
     lib = _lib()
-    fresh = torch.empty(m, dtype=torch.uint8, device=dev)
     rc = lib.rp_fold_replies(
         state.match_index.data_ptr(),
         state.flushed_index.data_ptr(),
@@ -175,13 +179,21 @@ def fold_replies(
         last_dirty.data_ptr(),
         last_flushed.data_ptr(),
         seq.data_ptr(),
-        fresh.data_ptr(),
         m, g, r,
         _build.stream_of(group_idx),
     )
     _build.check(lib, rc, "fold_replies")
     LAUNCHES["fold_replies"] += 1
     return state
+
+
+def fold_grid(m: int) -> tuple[int, int, int]:
+    """The fold kernel's cooperative grid on the current card for a batch
+    of m replies: (blocks, threads a block, runs of replies a thread)."""
+    lib = _lib()
+    out = (ctypes.c_int64 * 3)()
+    _build.check(lib, lib.rp_fold_grid(m, ctypes.addressof(out)), "fold_grid")
+    return int(out[0]), int(out[1]), int(out[2])
 
 
 # ----------------------------------------------------------- commit
