@@ -1,38 +1,46 @@
 #!/usr/bin/env python3
-"""On-card breakdown and A/B timing of the replication tick's reply fold
-and commit sweep (one H100).
+"""On-card breakdown and A/B timing of the replication tick's kernels
+(one H100): the reply fold, the commit sweep, the heartbeat gather, the
+health reduction and the tick frame kernel that runs them in one launch.
 
     mkdir -p .chipcheck/old
-    for f in quorum.cu quorum_rules.cuh cluster.cu chip_blocks.cuh; do
+    for f in quorum.cu quorum_rules.cuh health.cu chip_blocks.cuh cluster.cu; do
         git show <commit>:redpanda_tpu_torch/csrc/$f > .chipcheck/old/$f; done
     python3 chip_quorum.py breakdown .chipcheck/old [OUT_DIR]
     python3 chip_quorum.py ab .chipcheck/old [OUT_DIR]
 
-`breakdown` takes a csrc directory whose fold is the two-launch pair
-(`rp_fold_replies` with a `fresh` scratch: a guard launch, then an
-atomicMax launch) and whose commit sweep sorts rows (`rp_commit_step`),
-appends variant kernels to its quorum.cu (the guard and the apply alone;
-the sweep cut to its loads, to its loads as 16-byte vectors, to its
-loads and the row rule without stores; the sweep with clock64() marks a
-warp after its loads and after the rule; empty kernels at each launch
-shape, plain and cooperative, with and without a grid barrier) and times
-each with CUDA events at two shapes: the tick (G = 50,000, R = 8,
-M = 131,072 replies, chip_smoke phase 2) and the mesh frame's
-(1,000,000 rows, R = 8, an 8,192-reply bucket, chip_smoke phase 9).
+The old directory holds a tree whose tick frame is a launch sequence
+(fold, sweep, gather, and the health reduction for tick_frame_health)
+with the same C entry points and argument lists as this tree's
+(`rp_fold_replies`, `rp_commit_step`, `rp_build_heartbeats`,
+`rp_health_reduce`, `rp_health_totals`, the cluster kernels).
 
-`ab` times that directory's kernels beside this tree's and beside copies
-of this tree's quorum.cu with one design choice patched back
-(`NEW_VARIANTS`: the fold's block size, when it raises match / flushed,
-its one-reply-a-thread path; the sweep's block size and load hint), in
-turns (old, each new side, then the same in reverse): the fold, the
-sweep, the tick's three launch sequences and the mesh frame's at their
-shapes, and the ring cluster's two kernels (cluster.cu shares the
-sweep's row rule) at 1,000,000 groups over 8 blocks. Every output of
-each side is held exactly against the old one, and this tree's against
-the plain versions, before anything is timed.
+`breakdown`, at the tick's shape (G = 50,000, R = 8, M = 131,072
+replies, H = 50,000 heartbeat rows; chip_smoke phase 2): the old tree's
+kernels alone and its three sequences; this tree's frame kernel cut to
+its phases (the sweep alone, with health, with the gather behind the
+second barrier, with the fold but no gather, whole with and without
+health), the two-launch variant (the fold kernel, then the frame kernel
+with no replies), the standalone health_reduce and build_heartbeats; and
+empty kernels at the sweep's shape and, launched cooperatively, at the
+frame's grid with 0, 1 and 2 grid barriers.
 
-Variants are built under .chipcheck/quorum (git-ignored); results are
-printed and written to OUT_DIR/quorum_<mode>.json (default .chipcheck/).
+`ab` times the old tree's kernels beside this tree's and beside copies
+of this tree's quorum.cu with one frame design choice patched
+(`NEW_VARIANTS`: the block size, a register cap, the later phases'
+first loads moved back into their phases),
+and the two-launch variant, in turns (old, each new side, then the same
+in reverse): the fold, the sweep, the gather, the health reduction and
+the tick's three sequences at the tick's shape, the fold, the sweep and
+the mesh frame's sequence at its shape (1,000,000 rows, an 8,192-reply
+bucket, chip_smoke phase 9), and the ring cluster's two kernels at
+1,000,000 groups over 8 blocks. Every output of each side is held
+exactly against the old one, and this tree's against the plain
+versions, before anything is timed.
+
+Variants are built under .chipcheck/quorum (git-ignored) with `-Xptxas
+-v` (registers and spills printed); results are printed and written to
+OUT_DIR/quorum_<mode>.json (default .chipcheck/).
 """
 
 from __future__ import annotations
@@ -55,167 +63,46 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, ".chipcheck", "quorum")
 OUT = os.path.join(REPO, ".chipcheck")
 MESH_BUCKET = 8192
-MAGIC = "0x5a5a5a5a5a5a5a5aLL"
 
-# Appended to the old quorum.cu: each stage of the pair alone, the sweep
-# cut after its loads (scalar as the kernel loads them, or as 16-byte
-# vectors and one 8-byte word a voter mask) and after its rule, the
-# sweep with marks, and empty kernels at a launch shape.
+# Appended to this tree's quorum.cu for the breakdown: an empty kernel,
+# launched plainly or cooperatively with `syncs` grid barriers.
 EXTRAS = r"""
-#include <cooperative_groups.h>
-
-__device__ long long g_marks[3 << 15];
-
-__device__ __forceinline__ long long clock_after(long long dep) {
-    long long t;
-    asm volatile("mov.u64 %0, %%clock64;" : "=l"(t) : "l"(dep) : "memory");
-    return t;
-}
-
-__device__ __forceinline__ unsigned nz_bytes(unsigned long long w) {
-    w |= w >> 4; w |= w >> 2; w |= w >> 1;
-    return (unsigned)(((w & 0x0101010101010101ull) * 0x0102040810204080ull) >> 56);
-}
-
-// VARIANT 0: loads only; 1: loads + rule, no stores; 2: loads as vectors
-// (R = 8 rows only); 3: the whole kernel with marks
-template <int VARIANT>
-__global__ void __launch_bounds__(THREADS)
-commit_variant_kernel(const i64* __restrict__ term_start,
-                      const u8* __restrict__ is_leader, i64* __restrict__ commit,
-                      i64* __restrict__ last_visible,
-                      const i64* __restrict__ match,
-                      const i64* __restrict__ flushed,
-                      const u8* __restrict__ voter, const u8* __restrict__ voter_old,
-                      i64 g_n, int r_n) {
-    constexpr int N = 8;
-    const long long t0 = clock64();
-    const i64 g = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-    if (g >= g_n) return;
-    const i64 base = g * r_n;
-    i64 m[N], c[N];
-    unsigned vm = 0u, om = 0u;
-    if (VARIANT == 2) {
-        const longlong2* pm = reinterpret_cast<const longlong2*>(match + base);
-        const longlong2* pf = reinterpret_cast<const longlong2*>(flushed + base);
-#pragma unroll
-        for (int i = 0; i < N / 2; ++i) {
-            const longlong2 a = pm[i], b = pf[i];
-            m[2 * i] = a.x; m[2 * i + 1] = a.y;
-            c[2 * i] = b.x < a.x ? b.x : a.x;
-            c[2 * i + 1] = b.y < a.y ? b.y : a.y;
-        }
-        vm = nz_bytes(*reinterpret_cast<const unsigned long long*>(voter + base));
-        om = nz_bytes(*reinterpret_cast<const unsigned long long*>(voter_old + base));
-    } else {
-#pragma unroll
-        for (int r = 0; r < N; ++r) {
-            if (r < r_n) {
-                const i64 mv = match[base + r], fv = flushed[base + r];
-                m[r] = mv;
-                c[r] = fv < mv ? fv : mv;
-                vm |= (unsigned)(voter[base + r] != 0) << r;
-                om |= (unsigned)(voter_old[base + r] != 0) << r;
-            } else {
-                m[r] = RP_I64_MIN;
-                c[r] = RP_I64_MIN;
-            }
-        }
-    }
-    if (VARIANT == 0 || VARIANT == 2) {
-        i64 acc = (i64)vm ^ ((i64)om << 32);
-#pragma unroll
-        for (int r = 0; r < N; ++r) acc ^= m[r] + c[r];
-        if (acc == MAGIC) commit[g] = acc;
-        return;
-    }
-    i64 dep = (i64)vm ^ ((i64)om << 32);
-#pragma unroll
-    for (int r = 0; r < N; ++r) dep ^= m[r] ^ c[r];
-    const long long t1 = clock_after(dep);
-    const i64 lv = last_visible[g];
-    i64 nv = lv;
-    const i64 x = commit_row(m, c, vm, om, flushed[base], is_leader[g] != 0,
-                             term_start[g], commit[g], &nv);
-    if (VARIANT == 1) {
-        if (x == MAGIC && nv == MAGIC) commit[g] = x;
-        return;
-    }
-    const long long t2 = clock_after(x ^ nv);
-    commit[g] = x;
-    if (nv != lv) last_visible[g] = nv;
-    const long long t3 = clock64();
-    const i64 w = g >> 5;
-    if ((threadIdx.x & 31) == 0 && w < (1 << 15)) {
-        g_marks[3 * w] = t1 - t0;
-        g_marks[3 * w + 1] = t2 - t1;
-        g_marks[3 * w + 2] = t3 - t2;
-    }
-}
-
 __global__ void rp_empty_kernel(int) {}
-__global__ void rp_empty_sync_kernel(int) { cooperative_groups::this_grid().sync(); }
+__global__ void rp_empty_sync_kernel(int syncs) {
+    for (int i = 0; i < syncs; ++i) cooperative_groups::this_grid().sync();
+}
 
 extern "C" {
 
-int rp_fold_guard_only(const i64* last_seq, const i64* group_idx, const i64* slot,
-                       const i64* seq, u8* fresh, i64 m, i64 g_n, i64 r_n, void* stream) {
-    fold_guard_kernel<<<blocks_for(m), THREADS, 0, (cudaStream_t)stream>>>(
-        last_seq, group_idx, slot, seq, fresh, m, g_n, r_n);
-    return (int)cudaGetLastError();
-}
-
-int rp_fold_apply_only(i64* match, i64* flushed, i64* last_seq, const i64* group_idx,
-                       const i64* slot, const i64* dirty, const i64* flushed_in,
-                       const i64* seq, const u8* fresh, i64 m, i64 r_n, void* stream) {
-    fold_apply_kernel<<<blocks_for(m), THREADS, 0, (cudaStream_t)stream>>>(
-        match, flushed, last_seq, group_idx, slot, dirty, flushed_in, seq, fresh, m, r_n);
-    return (int)cudaGetLastError();
-}
-
-int rp_commit_variant(const i64* term_start, const u8* is_leader, i64* commit,
-                      i64* last_visible, const i64* match, const i64* flushed,
-                      const u8* voter, const u8* voter_old, i64 g_n, i64 r_n,
-                      i64 variant, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-#define RP_V(V) commit_variant_kernel<V><<<blocks_for(g_n), THREADS, 0, s>>>( \
-        term_start, is_leader, commit, last_visible, match, flushed, voter, voter_old, g_n, (int)r_n)
-    if (variant == 0) RP_V(0);
-    else if (variant == 1) RP_V(1);
-    else if (variant == 2) RP_V(2);
-    else RP_V(3);
-#undef RP_V
-    return (int)cudaGetLastError();
-}
-
-int rp_marks(void* host, i64 n) {
-    return (int)cudaMemcpyFromSymbol(host, g_marks, n * 8);
-}
-
-int rp_empty_shape(i64 blocks, i64 threads, i64 coop, i64 sync, void* stream) {
-    int dummy = 0;
-    void* args[1] = {&dummy};
+int rp_empty_shape(i64 blocks, i64 threads, i64 coop, i64 syncs, void* stream) {
+    int n = (int)syncs;
+    void* args[1] = {&n};
     if (!coop) {
         rp_empty_kernel<<<(unsigned)blocks, (unsigned)threads, 0, (cudaStream_t)stream>>>(0);
         return (int)cudaGetLastError();
     }
-    return (int)cudaLaunchCooperativeKernel(
-        sync ? (const void*)rp_empty_sync_kernel : (const void*)rp_empty_kernel,
-        dim3((unsigned)blocks), dim3((unsigned)threads), args, 0, (cudaStream_t)stream);
-}
-
-int rp_coop_blocks_per_sm(i64 threads, i64* out) {
-    int n = 0, dev = 0, sms = 0;
-    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, rp_empty_sync_kernel, (int)threads, 0);
-    if (e == cudaSuccess) e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    out[0] = n;
-    out[1] = sms;
-    return (int)e;
+    return (int)cudaLaunchCooperativeKernel((const void*)rp_empty_sync_kernel, dim3((unsigned)blocks),
+                                            dim3((unsigned)threads), args, 0, (cudaStream_t)stream);
 }
 
 }  // extern "C"
-""".replace("MAGIC", MAGIC)
+"""
+
+# this tree's quorum.cu ("new") beside copies with another frame block size
+NEW_VARIANTS = {
+    "new": [],
+    "frame_t128": [("#define FRAME_THREADS 256", "#define FRAME_THREADS 128")],
+    "frame_t512": [("#define FRAME_THREADS 256", "#define FRAME_THREADS 512")],
+    "frame_t1024": [("#define FRAME_THREADS 256", "#define FRAME_THREADS 1024")],
+    # the sweep's flags and the gather's index and term loaded in their phases, not at the start
+    "frame_late_loads": [("        if (g != first) {", "        if (true) {"),
+                         ("const i64 g = i == first ? g0 : gather_row(hb.idx[i], g_n);",
+                          "const i64 g = gather_row(hb.idx[i], g_n);"),
+                         ("hb.term[i] = i == first ? term0 : s.term[g];", "hb.term[i] = s.term[g];")],
+    # 256-thread blocks capped at 64 registers: four blocks an SM, one reply a thread
+    "frame_min4": [("__launch_bounds__(FRAME_THREADS)\ntick_frame_kernel",
+                    "__launch_bounds__(FRAME_THREADS, 4)\ntick_frame_kernel")],
+}
 
 
 def nvcc(name: str, src: str, include: str) -> tuple:
@@ -247,10 +134,35 @@ def build(sources: dict) -> dict:
     return libs
 
 
-def bind_old(lib) -> None:
-    _build.bind(lib, "rp_fold_replies", 9, 3)
-    _build.bind(lib, "rp_commit_step", 8, 2)
-    _build.bind(lib, "rp_build_heartbeats", 9, 3)
+def patched(src: str, patches: list, name: str) -> str:
+    for a, b in patches:
+        if src.count(a) != 1:
+            raise AssertionError(f"variant {name}: patch does not apply once: {a[:60]!r}")
+        src = src.replace(a, b)
+    return src
+
+
+def old_libs(old_dir: str, extra: dict) -> dict:
+    """The old tree's quorum, health and cluster libraries plus `extra`
+    sources, built together, the old ones bound with this tree's
+    argument lists for their shared entry points."""
+    from redpanda_tpu_torch.parallel import cluster_step as cluster_ops
+
+    sources = {f"old_{n}": (open(os.path.join(old_dir, f"{n}.cu")).read(), old_dir)
+               for n in ("quorum", "health", "cluster")}
+    libs = build({**sources, **extra})
+    _build.bind(libs["old_quorum"], "rp_fold_replies", 8, 3)
+    _build.bind(libs["old_quorum"], "rp_commit_step", 8, 2)
+    _build.bind(libs["old_quorum"], "rp_build_heartbeats", 9, 3)
+    libs["old_quorum"].rp_fold_grid.argtypes = [ctypes.c_int64, ctypes.c_void_p]
+    health_ops.bind(libs["old_health"])
+    for lib in (libs["old_cluster"], cluster_ops._lib()):
+        _build.bind(lib, "rp_cluster_tick", 18, 3)
+        _build.bind(lib, "rp_election_round", 9, 4)
+    _build.build_all(("quorum", "health", "cluster"))
+    quorum_ops._lib()
+    health_ops._lib()
+    return libs
 
 
 def time_us(fn, reset=None, reps: int = 30) -> float:
@@ -284,178 +196,53 @@ def mesh_fields(g: int, r: int, seed: int) -> dict:
 
 
 class Shape:
-    """A state (base and work copies) and a padded reply batch on the card."""
+    """A state (base and work copies), a padded reply batch, heartbeat
+    rows and the two health flags on the card."""
 
-    def __init__(self, torch, label, fields, replies):
+    def __init__(self, torch, label, fields, replies, rng):
         from redpanda_tpu_torch.models.consensus_state import group_state_from_numpy
 
         self.label = label
         self.base = group_state_from_numpy(fields, "cuda")
         self.work = group_state_from_numpy(fields, "cuda")
         self.replies = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in replies]
+        self.none = [t[:0] for t in self.replies]
         self.m = len(replies[0])
         self.g, self.r = fields["match_index"].shape
-        self.fresh = torch.zeros(self.m, dtype=torch.uint8, device="cuda")
+        self.hb = torch.from_numpy(rng.permutation(self.g)[: min(cs.H_ROWS, self.g)].astype(np.int64)).cuda()
+        self.known = torch.from_numpy(rng.random(self.g) < 0.5).cuda()
+        self.active = torch.from_numpy(rng.random(self.g) < 0.95).cuda()
         self.stream = _build.stream_of(self.replies[0])
 
     def reset(self):
         for a, b in zip(self.work, self.base):
             a.copy_(b)
 
-    def lanes(self):
-        return {k: getattr(self.work, k).clone() for k in self.work._fields}
-
-    def fold_old(self, lib):
-        w, rep = self.work, self.replies
-        return lambda: _build.check(lib, lib.rp_fold_replies(
-            w.match_index.data_ptr(), w.flushed_index.data_ptr(), w.last_seq.data_ptr(),
-            *(t.data_ptr() for t in rep), self.fresh.data_ptr(), self.m, self.g, self.r, self.stream), "fold")
-
-    def guard_only(self, lib):
-        w, (gi, sl, _, _, sq) = self.work, self.replies
-        return lambda: _build.check(lib, lib.rp_fold_guard_only(
-            w.last_seq.data_ptr(), gi.data_ptr(), sl.data_ptr(), sq.data_ptr(), self.fresh.data_ptr(),
-            self.m, self.g, self.r, self.stream), "guard")
-
-    def apply_only(self, lib):
-        w, rep = self.work, self.replies
-        return lambda: _build.check(lib, lib.rp_fold_apply_only(
-            w.match_index.data_ptr(), w.flushed_index.data_ptr(), w.last_seq.data_ptr(),
-            *(t.data_ptr() for t in rep), self.fresh.data_ptr(), self.m, self.r, self.stream), "apply")
-
-    def _commit_ptrs(self):
+    def health(self):
         w = self.work
-        return (w.term_start.data_ptr(), w.is_leader.data_ptr(), w.commit_index.data_ptr(),
-                w.last_visible.data_ptr(), w.match_index.data_ptr(), w.flushed_index.data_ptr(),
-                w.is_voter.data_ptr(), w.is_voter_old.data_ptr())
+        return health_ops.health_reduce(w.match_index, w.commit_index, w.is_voter, w.is_voter_old,
+                                        w.is_leader, self.known, self.active)
 
-    def commit_old(self, lib):
-        return lambda: _build.check(lib, lib.rp_commit_step(*self._commit_ptrs(), self.g, self.r, self.stream),
-                                    "commit")
+    def health_plain(self):
+        w = self.work
+        return health_ops.health_reduce_plain(w.match_index, w.commit_index, w.is_voter, w.is_voter_old,
+                                              w.is_leader, self.known, self.active)
 
-    def commit_variant(self, lib, v):
-        return lambda: _build.check(lib, lib.rp_commit_variant(*self._commit_ptrs(), self.g, self.r, v,
-                                                               self.stream), f"commit variant {v}")
+    def frame(self, replies, hb, health=True):
+        """The frame kernel through launch_frame: `replies` or none (m = 0),
+        `hb` or none (h = 0), health or not."""
+        return lambda: quorum_ops.launch_frame(self.work, replies, hb,
+                                               *((self.known, self.active) if health else ()))
 
 
 def shapes(torch) -> dict:
     rng = np.random.default_rng(cs.SEED)
     fields = cs.random_state_fields(rng, cs.G, cs.R)
-    out = {"tick": Shape(torch, "tick", fields, cs.padded_replies(rng, cs.G, cs.R, cs.M_REPLIES))}
+    out = {"tick": Shape(torch, "tick", fields, cs.padded_replies(rng, cs.G, cs.R, cs.M_REPLIES), rng)}
     fields = mesh_fields(cs.MESH_G, cs.R, cs.SEED + 9)
     window = cs.mesh_window(np.random.default_rng(cs.SEED + 13), np.arange(cs.MESH_G), MESH_BUCKET, 13, cs.R)
-    out["mesh"] = Shape(torch, "mesh", fields, cs.padded_window(window))
+    out["mesh"] = Shape(torch, "mesh", fields, cs.padded_window(window), rng)
     return out
-
-
-def empties(lib, shp) -> dict:
-    """Empty kernels at the old launch shapes and at cooperative grids."""
-    _build.bind(lib, "rp_empty_shape", 0, 4)
-    lib.rp_coop_blocks_per_sm.argtypes = [ctypes.c_int64, ctypes.c_void_p]
-    occ = np.zeros(2, np.int64)
-    _build.check(lib, lib.rp_coop_blocks_per_sm(256, occ.ctypes.data), "occupancy")
-    per_sm, sms = int(occ[0]), int(occ[1])
-    fold_blocks = -(-shp.m // 256)
-    shapes_ = [
-        (f"256 x {-(-shp.g // 256)} (the sweep's shape)", -(-shp.g // 256), 256, 0, 0),
-        (f"256 x {fold_blocks} (each fold launch's shape)", fold_blocks, 256, 0, 0),
-        (f"cooperative 256 x {fold_blocks}, no barrier", fold_blocks, 256, 1, 0),
-        (f"cooperative 256 x {fold_blocks}, one grid barrier", fold_blocks, 256, 1, 1),
-        (f"cooperative 256 x {per_sm * sms} (full co-residency), one grid barrier", per_sm * sms, 256, 1, 1),
-        (f"cooperative 1024 x {sms}, one grid barrier", sms, 1024, 1, 1),
-    ]
-    out = {"co-resident blocks of 256 a SM": per_sm, "SMs": sms}
-    for label, blocks, threads, coop, sync in shapes_:
-        if blocks > per_sm * sms and coop:
-            continue
-        out[label] = time_us(lambda: _build.check(lib, lib.rp_empty_shape(blocks, threads, coop, sync, shp.stream),
-                                                  "empty"))
-    return out
-
-
-def marks(torch, lib, shp) -> dict:
-    """One marked sweep: cycles a warp (lane 0) from the start to its
-    loads' arrival, through the rule, and to the stores' issue."""
-    lib.rp_marks.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-    shp.reset()
-    shp.commit_variant(lib, 3)()
-    torch.cuda.synchronize()
-    warps = min(-(-shp.g // 32), 1 << 15)
-    d = np.zeros(3 * warps, np.int64)
-    _build.check(lib, lib.rp_marks(d.ctypes.data, d.size), "marks")
-    d = d.reshape(warps, 3)
-    names = ("start to loads arrived", "row rule", "stores issued")
-    return {k: {"mean": float(d[:, i].mean()), "p50": float(np.median(d[:, i])), "max": int(d[:, i].max())}
-            for i, k in enumerate(names)}
-
-
-def breakdown(torch, old_dir: str) -> dict:
-    src = open(os.path.join(old_dir, "quorum.cu")).read()
-    lib = build({"base": (src + EXTRAS, old_dir)})["base"]
-    bind_old(lib)
-    _build.bind(lib, "rp_fold_guard_only", 5, 3)
-    _build.bind(lib, "rp_fold_apply_only", 9, 2)
-    _build.bind(lib, "rp_commit_variant", 8, 3)
-    res = {"card": cs.nvidia_smi(), "clocks": clocks()}
-    for label, shp in shapes(torch).items():
-        # the variants against the kernel: the marked sweep writes what
-        # the kernel writes; the fold's stages alone write what the pair does
-        shp.reset()
-        shp.commit_old(lib)()
-        want = shp.lanes()
-        shp.reset()
-        shp.commit_variant(lib, 3)()
-        torch.cuda.synchronize()
-        if any(not torch.equal(want[k], v) for k, v in shp.lanes().items()):
-            raise AssertionError(f"{label}: the marked sweep differs from the kernel")
-        shp.reset()
-        shp.fold_old(lib)()
-        want = shp.lanes()
-        shp.reset()
-        shp.guard_only(lib)()
-        shp.apply_only(lib)()
-        torch.cuda.synchronize()
-        if any(not torch.equal(want[k], v) for k, v in shp.lanes().items()):
-            raise AssertionError(f"{label}: guard + apply differ from the pair")
-        fns = {
-            "fold: the pair (one call)": shp.fold_old(lib),
-            "fold: guard launch alone": shp.guard_only(lib),
-            "fold: apply launch alone": shp.apply_only(lib),
-            "sweep: loads only (scalar, as the kernel)": shp.commit_variant(lib, 0),
-            "sweep: loads only (16-byte vectors, 8-byte mask words)": shp.commit_variant(lib, 2),
-            "sweep: loads + rule, no stores": shp.commit_variant(lib, 1),
-            "sweep: whole kernel": shp.commit_old(lib),
-        }
-        t = {}
-        for turn in range(2):
-            for name in (list(fns) if turn == 0 else list(fns)[::-1]):
-                # guard_only leaves fresh from the last full pair: apply reads it
-                t.setdefault(name, []).append(time_us(fns[name], shp.reset))
-        r = {"G": shp.g, "R": shp.r, "M": shp.m, "us": {k: float(np.mean(v)) for k, v in t.items()},
-             "us turns": t, "empty us": empties(lib, shp), "marks (cycles a warp)": marks(torch, lib, shp)}
-        res[label] = r
-        print(label, json.dumps(r), flush=True)
-    return res
-
-
-class OldQuorum:
-    """The old quorum library behind this tree's `rp_fold_replies`
-    argument list: the old fold takes a `fresh` scratch, allocated per
-    call as its wrapper did."""
-
-    def __init__(self, lib):
-        bind_old(lib)
-        self.lib = lib
-
-    def rp_fold_replies(self, match, flushed, last_seq, gi, sl, dirty, fl, seq, m, g, r, stream):
-        import torch
-
-        fresh = torch.empty(m, dtype=torch.uint8, device="cuda")
-        return self.lib.rp_fold_replies(match, flushed, last_seq, gi, sl, dirty, fl, seq, fresh.data_ptr(),
-                                        m, g, r, stream)
-
-    def __getattr__(self, name):
-        return getattr(self.lib, name)
 
 
 def tensors(x) -> list:
@@ -478,41 +265,173 @@ def same(a: list, b: list, what: str) -> None:
         raise AssertionError(f"{what} differs")
 
 
-# this tree's quorum.cu ("new") beside copies with another design choice
-# patched in, each bound with the same argument lists
-FOLD_EARLY = """        // match and flushed never feed a guard: raise them before the barrier
-        if (fresh) {
-            atomicMax(&match[k], d);
-            atomicMax(&flushed[k], fl);
-        }
-        // no last_seq cell moves before every guard of the batch has read it
-        cooperative_groups::this_grid().sync();
-        if (fresh) atomicMax(&last_seq[k], sq);
-"""
-FOLD_LATE = """        cooperative_groups::this_grid().sync();
-        if (fresh) {
-            atomicMax(&match[k], d);
-            atomicMax(&flushed[k], fl);
-            atomicMax(&last_seq[k], sq);
-        }
-"""
-NEW_VARIANTS = {
-    "new": [],
-    # the fold at 1,024-thread blocks whatever the batch size
-    "fold_1024": [("    const int threads = m <= (i64)FOLD_FEW_THREADS * sms ? FOLD_FEW_THREADS : FOLD_THREADS;",
-                   "    const int threads = FOLD_THREADS;")],
-    # match / flushed raised after the barrier with last_seq
-    "fold_late": [(FOLD_EARLY, FOLD_LATE)],
-    # every batch through the runs path (ballot words, replies read again)
-    "fold_runs": [("static const void* fold_instance(int threads, bool one_run) {\n",
-                   "static const void* fold_instance(int threads, bool one_run) {\n    one_run = false;\n")],
-    "sweep_t64": [("#define COMMIT_THREADS 128", "#define COMMIT_THREADS 64")],
-    "sweep_t256": [("#define COMMIT_THREADS 128", "#define COMMIT_THREADS 256")],
-    # the row lanes and the mask words read without the streaming hint
-    "sweep_ld": [("            if (2 * i < r_n) x = __ldcs(p + i);", "            if (2 * i < r_n) x = p[i];"),
-                 ("            if (8 * i < r_n) mask |= nonzero_bytes(__ldcs(p + i)) << (8 * i);",
-                  "            if (8 * i < r_n) mask |= nonzero_bytes(p[i]) << (8 * i);")],
-}
+class Sides:
+    """Runs a function with the wrappers bound to one side's libraries."""
+
+    def __init__(self, quorum: dict, health: dict, cluster: dict):
+        from redpanda_tpu_torch.parallel import cluster_step as cluster_ops
+
+        self.cluster_ops = cluster_ops
+        self.quorum, self.health, self.cluster = quorum, health, cluster
+        self.home = (quorum_ops._LIB, health_ops._LIB, cluster_ops._LIB)
+
+    def run(self, side, fn):
+        quorum_ops._LIB = self.quorum[side]
+        health_ops._LIB = self.health[side]
+        self.cluster_ops._LIB = self.cluster[side]
+        try:
+            return fn()
+        finally:
+            quorum_ops._LIB, health_ops._LIB, self.cluster_ops._LIB = self.home
+
+
+def tick_items(shp) -> dict:
+    """name -> (this tree's call, the old tree's call or None for the
+    same, the plain chain or None). The old tree's frames are its launch
+    sequences."""
+    w, rep, hb = shp.work, shp.replies, shp.hb
+
+    def old_frame(health):
+        def run():
+            quorum_ops.fold_replies(w, *rep)
+            quorum_ops.quorum_commit_step(w)
+            beats = quorum_ops.build_heartbeats(w, hb)
+            return (beats, shp.health()) if health else beats
+        return run
+
+    def plain_frame(health):
+        def run():
+            quorum_ops.quorum_commit_step_plain(quorum_ops.fold_replies_plain(w, *rep))
+            beats = quorum_ops.build_heartbeats_plain(w, hb)
+            return (beats, shp.health_plain()) if health else beats
+        return run
+
+    def new_frame(health):
+        def run():
+            _, beats, lanes = shp.frame(rep, hb, health)()
+            return (beats, lanes) if health else beats
+        return run
+
+    return {
+        "fold_replies": (lambda: quorum_ops.fold_replies(w, *rep), None,
+                         lambda: quorum_ops.fold_replies_plain(w, *rep)),
+        "quorum_commit_step": (lambda: quorum_ops.quorum_commit_step(w), None,
+                               lambda: quorum_ops.quorum_commit_step_plain(w)),
+        "build_heartbeats": (lambda: quorum_ops.build_heartbeats(w, hb), None,
+                             lambda: quorum_ops.build_heartbeats_plain(w, hb)),
+        "health_reduce": (shp.health, None, shp.health_plain),
+        "heartbeat_tick": (lambda: quorum_ops.heartbeat_tick(w, *rep), None, None),
+        "tick_frame": (new_frame(False), old_frame(False), plain_frame(False)),
+        "tick_frame_health": (new_frame(True), old_frame(True), plain_frame(True)),
+    }
+
+
+def two_launch(shp):
+    """The two-launch variant of tick_frame_health: the fold kernel, then
+    the frame kernel with no replies (sweep, health, barrier, gather)."""
+    def run():
+        quorum_ops.fold_replies(shp.work, *shp.replies)
+        _, beats, lanes = shp.frame(shp.none, shp.hb)()
+        return beats, lanes
+    return run
+
+
+def held(sides, shp, name, fns: dict, plain=None) -> None:
+    """Every side's outputs and lanes equal to the old side's, and the
+    new side's to the plain chain's."""
+    outs = {}
+    for side, fn in fns.items():
+        shp.reset()
+        outs[side] = tensors(sides.run(side, fn)) + tensors(shp.work)
+        same(outs[side], outs["old"], f"{shp.label} {name}: {side} vs old")
+    if plain is not None:
+        shp.reset()
+        same(outs["new"], tensors(plain()) + tensors(shp.work), f"{shp.label} {name}: new vs plain")
+
+
+def in_turns(sides, shp, fns: dict, t: dict, prefix: str = "") -> None:
+    order = list(fns)
+    for side in order + order[::-1]:
+        t.setdefault(f"{prefix}{side}", []).append(time_us(lambda: sides.run(side, fns[side]), shp.reset))
+
+
+def empties(lib, shp, frame: tuple) -> dict:
+    """Empty kernels at the sweep's shape and, cooperative, at the
+    frame's grid with 0, 1 and 2 grid barriers."""
+    _build.bind(lib, "rp_empty_shape", 0, 4)
+    blocks, threads, _ = frame
+    shapes_ = [
+        (f"256 x {-(-shp.g // 256)} (a plain launch at the old sweep's rows)", -(-shp.g // 256), 256, 0, 0),
+        (f"cooperative {threads} x {blocks} (the frame's grid), no barrier", blocks, threads, 1, 0),
+        (f"cooperative {threads} x {blocks}, one grid barrier", blocks, threads, 1, 1),
+        (f"cooperative {threads} x {blocks}, two grid barriers", blocks, threads, 1, 2),
+    ]
+    out = {}
+    for label, b, th, coop, syncs in shapes_:
+        out[label] = time_us(lambda: _build.check(lib, lib.rp_empty_shape(b, th, coop, syncs, shp.stream), "empty"))
+    return out
+
+
+def breakdown(torch, old_dir: str) -> dict:
+    new_src = open(os.path.join(_build.CSRC_DIR, "quorum.cu")).read()
+    libs = old_libs(old_dir, {"new": (new_src + EXTRAS, _build.CSRC_DIR)})
+    quorum_ops.bind(libs["new"])
+    sides = Sides({"old": libs["old_quorum"], "new": libs["new"]},
+                  {"old": libs["old_health"], "new": health_ops._lib()},
+                  {"old": libs["old_cluster"], "new": libs["old_cluster"]})
+    res = {"card": cs.nvidia_smi(), "clocks": clocks()}
+    shp = shapes(torch)["tick"]
+    items = tick_items(shp)
+    frame = sides.run("new", lambda: quorum_ops.frame_grid(shp.m, shp.g, shp.r, len(shp.hb)))
+    for name, (new, old, plain) in items.items():
+        held(sides, shp, name, {"old": old or new, "new": new}, plain)
+    # the frame's phases and the two-launch variant, each against its plain chain
+    none_hb = shp.hb[:0]
+    w = shp.work
+
+    def cut(replies, hb, health=True):
+        def run():
+            _, beats, lanes = shp.frame(replies, hb, health)()
+            return [x for x in (beats if len(hb) else None, lanes) if x is not None]
+        return run
+
+    def chain(fold, hb, health=True):
+        def run():
+            if fold:
+                quorum_ops.fold_replies_plain(w, *shp.replies)
+            quorum_ops.quorum_commit_step_plain(w)
+            beats = quorum_ops.build_heartbeats_plain(w, hb) if len(hb) else None
+            return [x for x in (beats, shp.health_plain() if health else None) if x is not None]
+        return run
+
+    cuts = {
+        "frame: sweep alone (m = 0, H = 0)": (cut(shp.none, none_hb, False), chain(False, none_hb, False)),
+        "frame: sweep + health (m = 0, H = 0)": (cut(shp.none, none_hb), chain(False, none_hb)),
+        "frame: sweep + health, barrier, gather (m = 0)": (cut(shp.none, shp.hb), chain(False, shp.hb)),
+        "frame: fold, barrier, sweep + health (H = 0)": (cut(shp.replies, none_hb), chain(True, none_hb)),
+        "frame: whole, no health (tick_frame)": (cut(shp.replies, shp.hb, False), chain(True, shp.hb, False)),
+        "frame: whole, health (tick_frame_health)": (cut(shp.replies, shp.hb), chain(True, shp.hb)),
+        "two launches: fold, then the frame with m = 0": (two_launch(shp), chain(True, shp.hb)),
+    }
+    for name, (fn, plain) in cuts.items():
+        shp.reset()
+        got = tensors(sides.run("new", fn)) + tensors(w)
+        shp.reset()
+        same(got, tensors(plain()) + tensors(w), f"{name} vs plain")
+    fns = {f"old: {name}": (lambda fn=(old or new): sides.run("old", fn))
+           for name, (new, old, _) in items.items()}
+    fns.update({f"new: {name}": (lambda fn=new: sides.run("new", fn))
+                for name, (new, _, _) in items.items() if name in ("health_reduce", "build_heartbeats")})
+    fns.update({name: (lambda fn=fn: sides.run("new", fn)) for name, (fn, _) in cuts.items()})
+    t = {}
+    for turn in range(2):
+        for name in (list(fns) if turn == 0 else list(fns)[::-1]):
+            t.setdefault(name, []).append(time_us(fns[name], shp.reset))
+    res["tick"] = {"G": shp.g, "R": shp.r, "M": shp.m, "H": len(shp.hb), "frame grid": frame,
+                   "us": {k: float(np.mean(v)) for k, v in t.items()}, "us turns": t,
+                   "empty us": empties(libs["new"], shp, frame)}
+    print("tick", json.dumps(res["tick"]), flush=True)
+    return res
 
 
 def ab(torch, old_dir: str) -> dict:
@@ -520,82 +439,53 @@ def ab(torch, old_dir: str) -> dict:
     from redpanda_tpu_torch.parallel import mesh_frame
 
     new_src = open(os.path.join(_build.CSRC_DIR, "quorum.cu")).read()
-    sources = {
-        "old_quorum": (open(os.path.join(old_dir, "quorum.cu")).read(), old_dir),
-        "old_cluster": (open(os.path.join(old_dir, "cluster.cu")).read(), old_dir),
-    }
-    for name, patches in NEW_VARIANTS.items():
-        src = new_src
-        for a, b in patches:
-            if src.count(a) != 1:
-                raise AssertionError(f"variant {name}: patch does not apply once: {a[:60]!r}")
-            src = src.replace(a, b)
-        sources[name] = (src, _build.CSRC_DIR)
-    libs = build(sources)
-    _build.build_all(("quorum", "health", "cluster"))
-    for lib in (libs["old_cluster"], cluster_ops._lib()):
-        _build.bind(lib, "rp_cluster_tick", 18, 3)
-        _build.bind(lib, "rp_election_round", 9, 4)
+    libs = old_libs(old_dir, {name: (patched(new_src, p, name), _build.CSRC_DIR)
+                              for name, p in NEW_VARIANTS.items()})
     for name in NEW_VARIANTS:
-        libs[name].rp_fold_grid.argtypes = [ctypes.c_int64, ctypes.c_void_p]
-        _build.bind(libs[name], "rp_fold_replies", 8, 3)
-        _build.bind(libs[name], "rp_commit_step", 8, 2)
-        _build.bind(libs[name], "rp_build_heartbeats", 9, 3)
-    quorum = {"old": OldQuorum(libs["old_quorum"]), **{name: libs[name] for name in NEW_VARIANTS}}
-    cluster = {side: cluster_ops._lib() for side in quorum}
-    cluster["old"] = libs["old_cluster"]
-    quorum_ops._lib()
-    health_ops._lib()
-    sides = list(quorum)
-
-    def run(side, fn):
-        quorum_ops._LIB, cluster_ops._LIB = quorum[side], cluster[side]
-        try:
-            return fn()
-        finally:
-            quorum_ops._LIB, cluster_ops._LIB = quorum["new"], cluster["new"]
-
+        quorum_ops.bind(libs[name])
+    news = list(NEW_VARIANTS)
+    new_sides = news + ["two_launch"]  # two_launch: this tree's kernels, fold and frame apart
+    sides = Sides({"old": libs["old_quorum"], "two_launch": libs["new"], **{n: libs[n] for n in news}},
+                  {"old": libs["old_health"], **{n: health_ops._lib() for n in new_sides}},
+                  {"old": libs["old_cluster"], **{n: cluster_ops._lib() for n in new_sides}})
     res = {"card": cs.nvidia_smi(), "clocks": clocks()}
-    rng = np.random.default_rng(cs.SEED + 21)
     for label, shp in shapes(torch).items():
         w, rep = shp.work, shp.replies
-        known = torch.from_numpy(rng.random(shp.g) < 0.5).cuda()
-        active = torch.from_numpy(rng.random(shp.g) < 0.95).cuda()
-        items = {
-            "fold_replies": (lambda: quorum_ops.fold_replies(w, *rep),
-                             lambda: quorum_ops.fold_replies_plain(w, *rep)),
-            "quorum_commit_step": (lambda: quorum_ops.quorum_commit_step(w),
-                                   lambda: quorum_ops.quorum_commit_step_plain(w)),
-        }
+        r = {"G": shp.g, "R": shp.r, "M": shp.m, "H": len(shp.hb),
+             "fold grid (blocks, threads, runs)": quorum_ops.fold_grid(shp.m),
+             "frame grid (blocks, threads, runs)": {
+                 n: sides.run(n, lambda: quorum_ops.frame_grid(shp.m, shp.g, shp.r, len(shp.hb))) for n in news}}
         if label == "tick":
-            hb = torch.from_numpy(rng.permutation(shp.g)[: cs.H_ROWS].astype(np.int64)).cuda()
-            items["heartbeat_tick"] = (lambda: quorum_ops.heartbeat_tick(w, *rep), None)
-            items["tick_frame"] = (lambda: quorum_ops.tick_frame(w, *rep, hb), None)
-            items["tick_frame_health"] = (lambda: health_ops.tick_frame_health(w, *rep, hb, known, active), None)
+            items = tick_items(shp)
         else:
-            items["mesh_tick_frame"] = (lambda: mesh_frame.mesh_tick_frame(w, *rep, known, active, cs.MESH_D), None)
-        r = {"G": shp.g, "R": shp.r, "M": shp.m, "fold grid (blocks, runs a block)": quorum_ops.fold_grid(shp.m)}
-        # exact first: every side against the old one, the kernels against the plain versions
-        for name, (fn, plain) in items.items():
-            outs = {}
-            for side in sides:
-                shp.reset()
-                outs[side] = tensors(run(side, fn)) + tensors(w)
-                torch.cuda.synchronize()
-                same(outs[side], outs["old"], f"{label} {name}: {side} vs old")
-            if plain is not None:
-                shp.reset()
-                same(outs["new"], tensors(plain()) + tensors(w), f"{label} {name}: new vs plain")
+            def mesh(w=w, rep=rep, shp=shp):
+                return mesh_frame.mesh_tick_frame(w, *rep, shp.known, shp.active, cs.MESH_D)
+
+            items = {k: v for k, v in tick_items(shp).items() if k in ("fold_replies", "quorum_commit_step")}
+            items["mesh_tick_frame"] = (mesh, None, None)
         t = {}
-        for name, (fn, _) in items.items():
-            for side in sides + sides[::-1]:
-                t.setdefault(f"{name} {side}", []).append(time_us(lambda: run(side, fn), shp.reset))
+        for name, (new, old, plain) in items.items():
+            # the block-size variants change only the frame kernel
+            frame = name in ("tick_frame", "tick_frame_health")
+            fns = {"old": old or new, **{n: new for n in (news if frame else ["new"])}}
+            if name == "tick_frame_health":
+                fns["two_launch"] = two_launch(shp)
+            held(sides, shp, name, fns, plain)
+            in_turns(sides, shp, fns, t, f"{name} ")
         r["us"] = {k: float(np.mean(v)) for k, v in t.items()}
         r["us turns"] = t
         res[label] = r
         print(label, json.dumps(r), flush=True)
-    # the ring cluster at 1M groups over 8 blocks: commit_row is shared
-    fields = cs.cluster_fields(np.random.default_rng(cs.SEED + 22), cs.CLUSTER_G)
+    res["cluster"] = cluster_ab(torch, sides)
+    return res
+
+
+def cluster_ab(torch, sides) -> dict:
+    """The ring cluster's kernels at 1M groups over 8 blocks, old and new
+    in turns, exact against each other and the plain versions."""
+    cluster_ops = sides.cluster_ops
+    rng = np.random.default_rng(cs.SEED + 22)
+    fields = cs.cluster_fields(rng, cs.CLUSTER_G)
     base, work = cs.cluster_state(fields, "cuda"), cs.cluster_state(fields, "cuda")
     g = cs.CLUSTER_G
 
@@ -623,7 +513,7 @@ def ab(torch, old_dir: str) -> dict:
         outs = {}
         for side in ("old", "new"):
             reset()
-            outs[side] = tensors(run(side, fn)[1:]) + lanes()
+            outs[side] = tensors(sides.run(side, fn)[1:]) + lanes()
         reset()
         want = tensors(plain()[1:]) + lanes()
         same(outs["new"], outs["old"], f"cluster {name}: new vs old")
@@ -631,12 +521,11 @@ def ab(torch, old_dir: str) -> dict:
     t = {}
     for name, (fn, _) in items.items():
         for side in ("old", "new", "new", "old"):
-            t.setdefault(f"{name} {side}", []).append(time_us(lambda: run(side, fn), reset))
+            t.setdefault(f"{name} {side}", []).append(time_us(lambda: sides.run(side, fn), reset))
     r["us"] = {k: float(np.mean(v)) for k, v in t.items()}
     r["us turns"] = t
-    res["cluster"] = r
     print("cluster", json.dumps(r), flush=True)
-    return res
+    return r
 
 
 def clocks() -> str:

@@ -10,9 +10,15 @@ Phases, each raising on any mismatch:
   2. every kernel against its plain PyTorch version on the card at the
      replication tick's shapes (G=50,000 groups, R=8 slots, M=100,000
      replies with duplicate pairs and stale seqs, H=50,000 heartbeat
-     rows), the fold and the commit sweep also at R=5, 3, 12 and 32
-     (padded rows, the 16- and 32-slot kernels; the fold's cooperative
-     grid logged), and on CRC rows (1,024 ragged rows of ~16.4 KiB, 4,096 rows
+     rows), the fold, the commit sweep and the tick frame kernel also at
+     R=5, 3, 12 and 32 (padded rows, the 16- and 32-slot kernels; the
+     fold's and the frame's cooperative grids logged); the tick's launch
+     sequences (heartbeat_tick: fold + sweep; tick_frame and
+     tick_frame_health: one launch of the frame kernel) against their
+     plain chains; batches that mix rows -1, -G, -G-1, G, G+5 and slots
+     -1, -R, -R-1, R with in-range replies through fold_replies,
+     local_append_update, build_heartbeats and the frame (both forms),
+     each exact against its plain version; and on CRC rows (1,024 ragged rows of ~16.4 KiB, 4,096 rows
      of 4 KiB, rows at every start alignment mod 16 with lengths at the
      kernel's piece, tile and team boundaries, one row of 1 MiB and one of
      4 MiB + 3 bytes held to the host CRC); all outputs are integers, so
@@ -21,7 +27,9 @@ Phases, each raising on any mismatch:
   3. the main path end to end: a 50,000-group ShardGroupArrays at RF=3
      on the card, driven by a TickFrame for 25 ticks of seeded follower
      acks and leader appends (every fifth tick a fused frame_tick with
-     heartbeat rows), held lane for lane against the numpy host leg;
+     heartbeat rows: one launch of the frame kernel, health included),
+     then one health_refresh on the device backend (health_reduce), all
+     held lane for lane against the numpy host leg;
   4. the second half of the main path: Kafka CRCs of 1,024 record
      batches (16 records of 1 KiB each) through models.record.batch_crcs
      on the card, against the CRCs the host computed at build time, and
@@ -87,7 +95,8 @@ Phases, each raising on any mismatch:
      caller, held against their plain versions) on the device clock.
 The launch counters are zeroed just before each main-path phase (3, 4,
 6, 8, 8b, 9 and 10) and read just after; every kernel must have
-launched there, except follower_commit_step and local_append_update.
+launched there, except those in OFF_PATH (follower_commit_step,
+local_append_update, build_heartbeats).
 
 Output: progress lines, the card line, one JSON line of per-kernel
 numbers, and last `{"ok": true, "device": {...}}`. Without a CUDA card
@@ -135,6 +144,7 @@ KERNELS = {
     "fold_replies": ("redpanda_tpu_torch/csrc/quorum.cu", "redpanda_tpu/ops/quorum.py:172", quorum_ops.LAUNCHES),
     "quorum_commit_step": ("redpanda_tpu_torch/csrc/quorum.cu", "redpanda_tpu/ops/quorum.py:110", quorum_ops.LAUNCHES),
     "build_heartbeats": ("redpanda_tpu_torch/csrc/quorum.cu", "redpanda_tpu/ops/quorum.py:196", quorum_ops.LAUNCHES),
+    "tick_frame": ("redpanda_tpu_torch/csrc/quorum.cu", "redpanda_tpu/ops/quorum.py:283", quorum_ops.LAUNCHES),
     "health_reduce": ("redpanda_tpu_torch/csrc/health.cu", "redpanda_tpu/ops/health.py:39", health_ops.LAUNCHES),
     "crc32c_device": ("redpanda_tpu_torch/csrc/crc32c.cu", "redpanda_tpu/ops/crc32c.py:226", crc_ops.LAUNCHES),
     "cell_parse": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/cellparse.py:30", parse_ops.LAUNCHES),
@@ -169,9 +179,14 @@ MESH_G, MESH_D = 1_000_000, 8
 MESH_WINDOW, MESH_WINDOWS, MESH_BIG_WINDOW, MESH_BIG_WINDOWS = 512, 10, 8192, 2
 MESH_PAD_G, MESH_PAD_D = 100_003, 3
 CLUSTER_G, CLUSTER_TICKS = 1_000_000, 20
-# kernels with no caller on a main path (as in the reference): held against
-# their plain versions at the cluster shape, launched 0 times on the paths
-OFF_PATH = ("follower_commit_step", "local_append_update")
+# the frame kernel also replaces the health stage of tick_frame_health
+ALSO_REPLACES = {"tick_frame": "redpanda_tpu/ops/health.py:90"}
+# kernels with no caller on a main path, as in the reference: the follower
+# rules (held against their plain versions at the cluster shape) and the
+# standalone heartbeat gather, whose one caller, the tick frame, runs it
+# inside the frame kernel (the reference's build_heartbeats_jit has no
+# caller outside tick_frame either)
+OFF_PATH = ("follower_commit_step", "local_append_update", "build_heartbeats")
 
 
 def log(msg: str) -> None:
@@ -613,6 +628,7 @@ def phase_kernels(torch, mem_rate: float) -> dict:
         "bound_ms": bound(G * R * (8 + 1 + 1) + G * (8 + 3) + G * (8 + 2)),
     }
     sequences(torch, out, work, reset, replies, hb_idx, known, active, fresh, uniq, uniq_fresh, bound)
+    mixed_indices(torch, rng, fields, known, active)
     # -- crc32c_device at the ragged record-batch shape and the bench shape
     for label, (n, stride, min_len) in (
         ("ragged", (1024, 16_800, 16_000)),
@@ -652,15 +668,18 @@ def phase_kernels(torch, mem_rate: float) -> dict:
 
 def sequences(torch, out, work, reset, replies, hb_idx, known, active, fresh, uniq, uniq_fresh,
               bound) -> None:
-    """The launch sequences of the tick (heartbeat_tick, tick_frame,
-    tick_frame_health) on the device clock at the path's shapes, beside
-    the bytes each must move as one function: the replies (group, slot,
-    seq of every entry; dirty, flushed of every fresh one), last_seq once
-    per addressed pair, match / flushed / both voter masks over [G, R]
-    and four [G] lanes read once, the fresh pairs' three lanes and two
-    [G] lanes written; the heartbeat gather adds hb_idx and term read and
-    four fields written per row; the health reduction adds two [G] flags
-    read and max_lag plus two flags written."""
+    """The tick's sequences at the path's shapes, each held exactly
+    against its plain chain (state lanes, heartbeat fields, health
+    lanes) and timed on the device clock beside the bytes it must move
+    as one function: the replies (group, slot, seq of every entry; dirty,
+    flushed of every fresh one), last_seq once per addressed pair, match /
+    flushed / both voter masks over [G, R] and four [G] lanes read once,
+    the fresh pairs' three lanes and two [G] lanes written; the heartbeat
+    gather adds hb_idx and term read and four fields written per row; the
+    health adds two [G] flags read and max_lag plus two flags written.
+    heartbeat_tick is two launches (fold, sweep); tick_frame and
+    tick_frame_health one launch of the frame kernel each, entered as
+    "tick_frame" (the health form is the one the main path calls)."""
     m, nf = len(replies[0]), int(fresh.sum())
     tick = (24 * m + 16 * nf + 8 * uniq + G * R * (8 + 8 + 1 + 1) + G * (1 + 8 + 8 + 8)
             + 24 * uniq_fresh + 16 * G)
@@ -669,34 +688,142 @@ def sequences(torch, out, work, reset, replies, hb_idx, known, active, fresh, un
 
     def plain_tick(hb_rows=None, health_lanes=False):
         state = quorum_ops.quorum_commit_step_plain(quorum_ops.fold_replies_plain(work, *replies))
+        outs = [state._asdict()]
         if hb_rows is not None:
-            quorum_ops.build_heartbeats_plain(state, hb_rows)
+            outs.append(quorum_ops.build_heartbeats_plain(state, hb_rows))
         if health_lanes:
-            health_ops.health_reduce_plain(state.match_index, state.commit_index, state.is_voter,
-                                           state.is_voter_old, state.is_leader, known, active)
+            outs.append(health_ops.health_reduce_plain(state.match_index, state.commit_index, state.is_voter,
+                                                       state.is_voter_old, state.is_leader, known, active))
+        return outs
 
+    def kernel_tick():
+        return [quorum_ops.heartbeat_tick(work, *replies)._asdict()]
+
+    def kernel_frame():
+        state, beats = quorum_ops.tick_frame(work, *replies, hb_idx)
+        return [state._asdict(), beats]
+
+    def kernel_frame_health():
+        state, beats, lanes = health_ops.tick_frame_health(work, *replies, hb_idx, known, active)
+        return [state._asdict(), beats, lanes]
+
+    def held(fn, plain) -> float:
+        reset()
+        got = [{k: v.clone() for k, v in d.items()} for d in fn()]
+        torch.cuda.synchronize()
+        reset()
+        want = plain()
+        return max(max_abs_err(a, b) for a, b in zip(got, want))
+
+    entries = {}
     for name, fn, plain, nbytes in (
-        ("heartbeat_tick", lambda: quorum_ops.heartbeat_tick(work, *replies), plain_tick, tick),
-        ("tick_frame", lambda: quorum_ops.tick_frame(work, *replies, hb_idx),
-         lambda: plain_tick(hb_idx), tick + hb),
-        ("tick_frame_health", lambda: health_ops.tick_frame_health(work, *replies, hb_idx, known, active),
-         lambda: plain_tick(hb_idx, True), tick + hb + health),
+        ("heartbeat_tick", kernel_tick, plain_tick, tick),
+        ("tick_frame@no_health", kernel_frame, lambda: plain_tick(hb_idx), tick + hb),
+        ("tick_frame", kernel_frame_health, lambda: plain_tick(hb_idx, True), tick + hb + health),
     ):
-        out[name] = {
-            "shape": f"G={G} R={R} M={m} H={H_ROWS}", "max_abs_err": 0.0,
+        entries[name] = {
+            "shape": f"G={G} R={R} M={m} H={H_ROWS}", "max_abs_err": held(fn, plain),
             "ms": time_kernel(fn, reset), "plain_ms": time_plain(plain, reset),
             "bound_ms": bound(nbytes),
         }
+    blocks, threads, its = quorum_ops.frame_grid(m, G, R, H_ROWS)
+    log(f"[kernels] tick_frame: one cooperative launch of {blocks} blocks x {threads} threads, {its} "
+        f"reply(ies) a thread, at M={m} G={G} H={H_ROWS}")
+    no_health = entries.pop("tick_frame@no_health")
+    entries["tick_frame"]["max_abs_err"] = max(entries["tick_frame"]["max_abs_err"], no_health["max_abs_err"])
+    entries["tick_frame"]["no_health"] = {k: no_health[k] for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"[kernels] tick_frame without health (quorum tick_frame): equal to plain, kernel "
+        f"{no_health['ms']:.4f} ms, bound {no_health['bound_ms']:.4f} ms, plain {no_health['plain_ms']:.3f} ms")
+    out.update(entries)
+
+
+def mixed_index_batch(rng, g: int, r: int, m: int):
+    """padded_replies with replies at rows -1, -G, -G-1, G, G+5 (in-range
+    slots), at slots -1, -R, -R-1, R (in-range rows), at both, and the
+    in-range twin of every wrapped pair, written over seeded entries with
+    fresh seqs; and H_ROWS heartbeat rows with the same bad rows among
+    duplicated in-range ones."""
+    rows, slots, dirty, flushed, seqs = padded_replies(rng, g, r, m)
+    bad_rows, bad_slots = [-1, -g, -g - 1, g, g + 5], [-1, -r, -r - 1, r]
+    pairs = [(b, int(rng.integers(0, r))) for b in bad_rows] + [(int(rng.integers(0, g)), s) for s in bad_slots]
+    pairs += [(b, s) for b in bad_rows for s in bad_slots]
+    pairs += [(b + g if b < 0 else b, s + r if s < 0 else s) for b, s in pairs if -g <= b < g and -r <= s < r]
+    at = rng.choice(m, len(pairs), replace=False)
+    rows[at] = [p[0] for p in pairs]
+    slots[at] = [p[1] for p in pairs]
+    seqs[at] = rng.integers(5, 12, len(at))
+    hb = rng.integers(0, g, H_ROWS).astype(np.int64)
+    hb[rng.choice(H_ROWS, 70, replace=False)] = np.repeat(np.array(bad_rows, np.int64), 14)
+    return (rows, slots, dirty, flushed, seqs), hb
+
+
+def mixed_indices(torch, rng, fields, known, active) -> None:
+    """Phase 2's out-of-range rows and slots: fold_replies,
+    local_append_update, build_heartbeats, tick_frame and
+    tick_frame_health on mixed_index_batch at G groups, each exact
+    against its plain version (JAX's rule: wrap once, then drop or
+    clamp)."""
+    from redpanda_tpu_torch.models.consensus_state import group_state_from_numpy
+
+    replies_np, hb_np = mixed_index_batch(rng, G, R, M_REPLIES)
+    replies = [torch.from_numpy(a).cuda() for a in replies_np]
+    hb = torch.from_numpy(hb_np).cuda()
+    rows, _, dirty, flushed, _ = replies
+
+    def state():
+        return group_state_from_numpy(fields, "cuda")
+
+    def fold(s):
+        return [quorum_ops.fold_replies(s, *replies)._asdict()]
+
+    def fold_plain(s):
+        return [quorum_ops.fold_replies_plain(s, *replies)._asdict()]
+
+    def frame(s, health):
+        if health:
+            st, beats, lanes = health_ops.tick_frame_health(s, *replies, hb, known, active)
+            return [st._asdict(), beats, lanes]
+        st, beats = quorum_ops.tick_frame(s, *replies, hb)
+        return [st._asdict(), beats]
+
+    def frame_plain(s, health):
+        st = quorum_ops.quorum_commit_step_plain(quorum_ops.fold_replies_plain(s, *replies))
+        outs = [st._asdict(), quorum_ops.build_heartbeats_plain(st, hb)]
+        if health:
+            outs.append(health_ops.health_reduce_plain(st.match_index, st.commit_index, st.is_voter,
+                                                       st.is_voter_old, st.is_leader, known, active))
+        return outs
+
+    for name, kern, plain in (
+        ("fold_replies", fold, fold_plain),
+        ("local_append_update", lambda s: [quorum_ops.local_append_update(s, rows, dirty, flushed)._asdict()],
+         lambda s: [quorum_ops.local_append_update_plain(s, rows, dirty, flushed)._asdict()]),
+        ("build_heartbeats", lambda s: [quorum_ops.build_heartbeats(s, hb)],
+         lambda s: [quorum_ops.build_heartbeats_plain(s, hb)]),
+        ("tick_frame", lambda s: frame(s, False), lambda s: frame_plain(s, False)),
+        ("tick_frame_health", lambda s: frame(s, True), lambda s: frame_plain(s, True)),
+    ):
+        got = kern(state())
+        torch.cuda.synchronize()
+        for a, b in zip(got, plain(state())):
+            max_abs_err(a, b)
+    log(f"[kernels] rows {{-1, -G, -G-1, G, G+5}} x slots {{-1, -R, -R-1, R}} among {M_REPLIES} replies and "
+        f"{H_ROWS} heartbeat rows: fold_replies, local_append_update, build_heartbeats, tick_frame, "
+        f"tick_frame_health equal to plain, tolerance exact")
 
 
 def padded_slot_counts(torch, rng) -> None:
-    """fold_replies and quorum_commit_step against their plain versions
-    at G groups for each R in EXTRA_SLOTS, exact."""
+    """fold_replies, quorum_commit_step and the tick frame kernel (with
+    health) against their plain versions at G groups for each R in
+    EXTRA_SLOTS, exact."""
     from redpanda_tpu_torch.models.consensus_state import group_state_from_numpy
 
     for r in EXTRA_SLOTS:
         fields = random_state_fields(rng, G, r)
         replies = [torch.from_numpy(a).cuda() for a in padded_replies(rng, G, r, M_REPLIES)]
+        hb = torch.from_numpy(rng.integers(0, G, H_ROWS).astype(np.int64)).cuda()
+        known = torch.from_numpy(rng.random(G) < 0.5).cuda()
+        active = torch.from_numpy(rng.random(G) < 0.95).cuda()
         for name, kern, plain, args in (
             ("fold_replies", quorum_ops.fold_replies, quorum_ops.fold_replies_plain, replies),
             ("quorum_commit_step", quorum_ops.quorum_commit_step, quorum_ops.quorum_commit_step_plain, ()),
@@ -705,7 +832,17 @@ def padded_slot_counts(torch, rng) -> None:
             got = kern(group_state_from_numpy(fields, "cuda"), *args)
             torch.cuda.synchronize()
             max_abs_err(got._asdict(), want._asdict())
-        log(f"[kernels] fold_replies, quorum_commit_step at G={G} R={r}: equal to plain, tolerance exact")
+        st, beats, lanes = health_ops.tick_frame_health(group_state_from_numpy(fields, "cuda"), *replies, hb,
+                                                        known, active)
+        torch.cuda.synchronize()
+        want = quorum_ops.quorum_commit_step_plain(
+            quorum_ops.fold_replies_plain(group_state_from_numpy(fields, "cuda"), *replies))
+        max_abs_err(st._asdict(), want._asdict())
+        max_abs_err(beats, quorum_ops.build_heartbeats_plain(want, hb))
+        max_abs_err(lanes, health_ops.health_reduce_plain(want.match_index, want.commit_index, want.is_voter,
+                                                          want.is_voter_old, want.is_leader, known, active))
+        log(f"[kernels] fold_replies, quorum_commit_step, tick_frame (health) at G={G} R={r}: equal to plain, "
+            f"tolerance exact; frame grid {quorum_ops.frame_grid(len(replies[0]), G, r, H_ROWS, r % 8 == 0)}")
 
 
 def phase_record_batches(torch) -> dict:
@@ -2520,7 +2657,7 @@ def main() -> int:
     s = run_slice(G, TICKS, "cuda")
     path_launches = {
         name: KERNELS[name][2][name]
-        for name in ("fold_replies", "quorum_commit_step", "build_heartbeats", "health_reduce")
+        for name in ("fold_replies", "quorum_commit_step", "build_heartbeats", "tick_frame", "health_reduce")
     }
     st = s["stage_ms"]
     log(
@@ -2567,6 +2704,10 @@ def main() -> int:
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "shape": e["shape"],
         })
+        if name in ALSO_REPLACES:
+            kernels[-1]["also_replaces"] = ALSO_REPLACES[name]
+        if "no_health" in e:  # the frame kernel as quorum.tick_frame launches it
+            kernels[-1]["no_health"] = e["no_health"]
         at_mesh = results.get(f"{name}@mesh")
         if at_mesh is not None:  # the same kernel alone at the mesh frame's shape
             kernels[-1]["mesh"] = {k: at_mesh[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}

@@ -1,10 +1,13 @@
 // Batched quorum kernels for the replication tick: the reply fold, the
-// commit sweep and the heartbeat gather; and the two follower-side rules.
+// commit sweep, the heartbeat gather and the whole tick frame in one
+// launch; and the two follower-side rules.
 //
-// Replaces (redpanda_tpu/ops/quorum.py):
+// Replaces (redpanda_tpu/ops/quorum.py, and ops/health.py for the frame):
 //   fold_replies          :172  scatter-max of M replies into [G, R] lanes
 //   quorum_commit_step    :110  masked majority order statistic per group
 //   build_heartbeats      :196  gather of the heartbeat payload fields
+//   tick_frame            :283  fold, sweep, gather (health.py:90
+//                               tick_frame_health: and the row health)
 //   follower_commit_step  :154  commit = min(leader_commit, flushed[0])
 //   local_append_update   :211  scatter-max of M appends into slot 0
 //
@@ -15,6 +18,10 @@
 // of three lanes; the gather reads H random rows. At the tick's sizes one
 // launch costs about as much as the work, so the launch count matters.
 //
+// Indices follow JAX's rule: a row in [-G, 0) or a slot in [-R, 0) counts
+// from the end, once; the scatters (fold, local append) then drop what is
+// still out of range and the gather clamps it to [0, G - 1].
+//
 // Design:
 //   * fold_replies is ONE cooperative launch. Every reply's seq guard must
 //     read the PRE-batch last_seq: two replies for one (g, r) pair both
@@ -23,25 +30,37 @@
 //     be co-resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor; the
 //     cooperative launch fails rather than run otherwise), block b takes
 //     `its` runs of consecutive replies, one a thread, and keeps their
-//     guards in registers (its == 1, every batch of the tick) or as ballot
-//     words in shared memory. Fresh replies raise match and flushed at
-//     once (the guard never reads them); one grid barrier; then the fresh
-//     replies raise last_seq. Max commutes, so the result does not depend
-//     on the atomics' order. The barrier costs more with more blocks, and
-//     a few big blocks leave SMs idle: 256-thread blocks while the batch
-//     fits one a SM, else 1,024-thread blocks.
+//     guards in registers (its == 1) or as ballot words in shared memory.
+//     Fresh replies raise match and flushed at once (the guard never
+//     reads them); one grid barrier; then the fresh replies raise
+//     last_seq. Max commutes, so the result does not depend on the
+//     atomics' order. The barrier costs more with more blocks, and a few
+//     big blocks leave SMs idle: 256-thread blocks while the batch fits
+//     one a SM, else 1,024-thread blocks.
 //   * quorum_commit_step runs one thread per group. A row's match and
 //     flushed come in as 16-byte vectors and each voter mask as one 8-byte
-//     word a group of 8 slots, all with the streaming hint (rows of a
-//     multiple of 8 slots at aligned addresses; other rows load slot by
-//     slot). No row is sorted: one compare per pair of slots builds rank
-//     masks (quorum_rules.cuh) that the current and the old voter set
-//     share, and the order statistic is the masked slot with the right
-//     masked rank. R <= 32, padded to 8, 16 or 32 slots in registers.
-//     128-thread blocks spread the tick's 50k rows over more SMs than 256.
-//   * build_heartbeats is a separate gather launched after the commit
-//     sweep: hb_idx rows are arbitrary, so it must read the
-//     post-advance lanes of rows other threads wrote.
+//     word a group of 8 slots (quorum_rows.cuh). No row is sorted: one
+//     compare per pair of slots builds rank masks (quorum_rules.cuh) that
+//     the current and the old voter set share, and the order statistic is
+//     the masked slot with the right masked rank. R <= 32, padded to 8, 16
+//     or 32 slots in registers. 128-thread blocks spread the tick's 50k
+//     rows over more SMs than 256.
+//   * tick_frame (and tick_frame_health: the health lanes are nullable)
+//     is ONE cooperative launch of three phases. A: the fold above, with
+//     its barrier; up to two replies a thread stay in registers (the
+//     tick's 131,072-reply bucket is two at 256-thread blocks). B: the
+//     sweep over rows and from the same registers the row's health (two
+//     [G] flags read, three [G] lanes written: the standalone
+//     health_reduce re-reads the [G, R] lanes). A second grid barrier,
+//     because the heartbeat rows are arbitrary and were swept by other
+//     threads; then C: the gather. Each launch boundary it removes cost
+//     ~4-4.5 us inside the frame's launch sequence, a grid barrier ~1.3
+//     us. What the sweep and the gather read that no phase writes is
+//     loaded at the start, beside the fold's loads. Rows and heartbeat rows go to blocks in warp-sized chunks
+//     round-robin, so the SMs share them evenly. The grid is sized for
+//     the fold (`its` runs a block, as the fold's) and spread over the
+//     rows up to co-residency (frame_grid).
+//   * build_heartbeats alone is a one-row-a-thread gather.
 //   * follower_commit_step is one thread per group (four [G] lanes read,
 //     two written: bytes); local_append_update one thread per append,
 //     atomicMax into slot 0 because one batch may name a row twice. Both
@@ -54,9 +73,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "quorum_rules.cuh"
-
-typedef unsigned char u8;
+#include "quorum_rows.cuh"
 
 #define THREADS 256
 // the fold's launch shape by batch size: 256-thread blocks while that
@@ -67,62 +84,106 @@ typedef unsigned char u8;
 // the ballot words of a block's runs live in at most 48 KB
 #define FOLD_MAX_SMEM (48 * 1024)
 #define COMMIT_THREADS 128
+// the frame's block: the sweep holds a row in registers (72 at R <= 8,
+// 140 at R <= 16, 255 at R <= 32), so a block of 256 threads keeps
+// every instance within the register file
+#define FRAME_THREADS 256
 
 static inline unsigned blocks_for(i64 n) {
     return (unsigned)((n + THREADS - 1) / THREADS);
 }
 
+// ------------------------------------------------------------- indices
+// JAX's rule for an index into an axis of n: one in [-n, 0) counts from
+// the end, once
+__device__ __forceinline__ i64 wrap_index(i64 i, i64 n) { return i < 0 ? i + n : i; }
+
+// the scatter's cell of (g, r), or -1 where it is still out of range
+// (dropped)
+__device__ __forceinline__ i64 scatter_cell(i64 g, i64 r, i64 g_n, i64 r_n) {
+    g = wrap_index(g, g_n);
+    r = wrap_index(r, r_n);
+    return (g >= 0 && g < g_n && r >= 0 && r < r_n) ? g * r_n + r : -1;
+}
+
+// the gather's row: wrapped, then clamped to [0, g_n - 1]
+__device__ __forceinline__ i64 gather_row(i64 g, i64 g_n) {
+    g = wrap_index(g, g_n);
+    return g < 0 ? 0 : (g >= g_n ? g_n - 1 : g);
+}
+
+static cudaError_t sm_count(int* out) {
+    static int sms_of[64];  // per device; 0 = not yet asked
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= 64) return cudaErrorInvalidDevice;
+    if (sms_of[dev] == 0) {
+        e = cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
+        if (e != cudaSuccess) return e;
+    }
+    *out = sms_of[dev];
+    return cudaSuccess;
+}
+
 // ---------------------------------------------------------------- fold
-// kOneRun: one reply a thread (its == 1), held in registers across the
-// barrier; else `its` runs of kThreads replies a block, the guards kept
-// as ballot words in shared memory and the fresh replies read again
-// after the barrier.
-template <int kThreads, bool kOneRun>
-__global__ void __launch_bounds__(kThreads)
-fold_kernel(i64* __restrict__ match, i64* __restrict__ flushed,
-            i64* last_seq,  // read before the barrier, raised after it
-            const i64* __restrict__ group_idx, const i64* __restrict__ slot,
-            const i64* __restrict__ dirty, const i64* __restrict__ flushed_in,
-            const i64* __restrict__ seq, i64 m, i64 g_n, i64 r_n, int its) {
+// The fold of a co-resident grid's replies, grid barrier included. Block
+// b takes replies [b * its * kThreads, (b + 1) * its * kThreads), a thread
+// every kThreads-th. kRegRuns > 0: its == kRegRuns, each thread's replies
+// loaded at once and held in registers across the barrier; 0: `its` runs,
+// the guards kept as ballot words in shared memory and the fresh replies
+// read again after the barrier. match, flushed and last_seq are not
+// __restrict__: the frame reads match and flushed again after the barrier.
+template <int kThreads, int kRegRuns>
+__device__ __forceinline__ void fold_phase(
+    i64* match, i64* flushed, i64* last_seq, const i64* __restrict__ group_idx,
+    const i64* __restrict__ slot, const i64* __restrict__ dirty,
+    const i64* __restrict__ flushed_in, const i64* __restrict__ seq, i64 m, i64 g_n,
+    i64 r_n, int its, unsigned* fresh_words) {
     constexpr int kWarps = kThreads / 32;
-    extern __shared__ unsigned fresh_words[];  // its * kWarps ballots
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const i64 first = (i64)blockIdx.x * its * kThreads + threadIdx.x;
-    if (kOneRun) {
-        bool fresh = false;
-        i64 k = 0, sq = 0, d = 0, fl = 0;
-        if (first < m) {
-            const i64 g = group_idx[first], r = slot[first];
-            sq = seq[first];
-            d = dirty[first];  // loaded beside the guard's inputs, not after it
-            fl = flushed_in[first];
-            if (g >= 0 && g < g_n && r >= 0 && r < r_n) {  // else skipped
-                k = g * r_n + r;
-                fresh = sq > last_seq[k];
+    if (kRegRuns > 0) {
+        constexpr int kRuns = kRegRuns > 0 ? kRegRuns : 1;
+        i64 k[kRuns], sq[kRuns], d[kRuns], fl[kRuns];
+        bool fresh[kRuns];
+#pragma unroll
+        for (int s = 0; s < kRuns; ++s) {
+            const i64 i = first + (i64)s * kThreads;
+            k[s] = -1;
+            sq[s] = d[s] = fl[s] = 0;
+            if (i < m) {
+                k[s] = scatter_cell(group_idx[i], slot[i], g_n, r_n);
+                sq[s] = seq[i];
+                d[s] = dirty[i];  // loaded beside the guard's inputs, not after it
+                fl[s] = flushed_in[i];
             }
         }
+#pragma unroll
+        for (int s = 0; s < kRuns; ++s) fresh[s] = k[s] >= 0 && sq[s] > last_seq[k[s]];
         // match and flushed never feed a guard: raise them before the barrier
-        if (fresh) {
-            atomicMax(&match[k], d);
-            atomicMax(&flushed[k], fl);
-        }
+#pragma unroll
+        for (int s = 0; s < kRuns; ++s)
+            if (fresh[s]) {
+                atomicMax(&match[k[s]], d[s]);
+                atomicMax(&flushed[k[s]], fl[s]);
+            }
         // no last_seq cell moves before every guard of the batch has read it
         cooperative_groups::this_grid().sync();
-        if (fresh) atomicMax(&last_seq[k], sq);
+#pragma unroll
+        for (int s = 0; s < kRuns; ++s)
+            if (fresh[s]) atomicMax(&last_seq[k[s]], sq[s]);
         return;
     }
     for (int s = 0; s < its; ++s) {
         const i64 i = first + (i64)s * kThreads;
         bool fresh = false;
         if (i < m) {
-            const i64 g = group_idx[i], r = slot[i];
-            if (g >= 0 && g < g_n && r >= 0 && r < r_n) {
-                const i64 k = g * r_n + r;
-                fresh = seq[i] > last_seq[k];
-                if (fresh) {
-                    atomicMax(&match[k], dirty[i]);
-                    atomicMax(&flushed[k], flushed_in[i]);
-                }
+            const i64 k = scatter_cell(group_idx[i], slot[i], g_n, r_n);
+            fresh = k >= 0 && seq[i] > last_seq[k];
+            if (fresh) {
+                atomicMax(&match[k], dirty[i]);
+                atomicMax(&flushed[k], flushed_in[i]);
             }
         }
         const unsigned w = __ballot_sync(0xffffffffu, fresh);
@@ -132,9 +193,21 @@ fold_kernel(i64* __restrict__ match, i64* __restrict__ flushed,
     for (int s = 0; s < its; ++s) {
         if ((fresh_words[s * kWarps + warp] >> lane) & 1u) {
             const i64 i = first + (i64)s * kThreads;
-            atomicMax(&last_seq[group_idx[i] * r_n + slot[i]], seq[i]);
+            atomicMax(&last_seq[scatter_cell(group_idx[i], slot[i], g_n, r_n)], seq[i]);
         }
     }
+}
+
+template <int kThreads, bool kOneRun>
+__global__ void __launch_bounds__(kThreads)
+fold_kernel(i64* __restrict__ match, i64* __restrict__ flushed,
+            i64* last_seq,  // read before the barrier, raised after it
+            const i64* __restrict__ group_idx, const i64* __restrict__ slot,
+            const i64* __restrict__ dirty, const i64* __restrict__ flushed_in,
+            const i64* __restrict__ seq, i64 m, i64 g_n, i64 r_n, int its) {
+    extern __shared__ unsigned fresh_words[];  // its * kWarps ballots
+    fold_phase<kThreads, kOneRun ? 1 : 0>(match, flushed, last_seq, group_idx, slot, dirty,
+                                          flushed_in, seq, m, g_n, r_n, its, fresh_words);
 }
 
 static const void* fold_instance(int threads, bool one_run) {
@@ -145,42 +218,37 @@ static const void* fold_instance(int threads, bool one_run) {
                    : (const void*)fold_kernel<FOLD_THREADS, false>;
 }
 
-// The fold's co-resident grid for m replies: blocks of `threads`, each
+// A co-resident grid of `threads`-thread blocks for m replies, each block
 // taking `its` runs of `threads` replies, with as few runs a block as the
-// occupancy at that run count's shared memory allows.
-struct FoldGrid {
+// occupancy at that run count's shared memory allows, and at least
+// `spread` blocks where the occupancy allows them.
+struct CoopGrid {
     int blocks, threads, its;
     size_t smem;
 };
 
-static cudaError_t fold_grid(i64 m, FoldGrid* out) {
-    static int sms_of[64];  // per device; 0 = not yet asked
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
+template <typename Instance>
+static cudaError_t coop_grid(i64 m, int threads, i64 spread, Instance instance,
+                             CoopGrid* out) {
+    int sms = 0;
+    cudaError_t e = sm_count(&sms);
     if (e != cudaSuccess) return e;
-    if (dev >= 64) return cudaErrorInvalidDevice;
-    if (sms_of[dev] == 0) {
-        int sms = 0;
-        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (e != cudaSuccess) return e;
-        sms_of[dev] = sms;
-    }
-    const i64 sms = sms_of[dev];
-    const int threads = m <= (i64)FOLD_FEW_THREADS * sms ? FOLD_FEW_THREADS : FOLD_THREADS;
     const size_t words = (size_t)(threads / 32) * sizeof(unsigned);  // a run's ballots
     i64 its = 1;
     for (int tries = 0; tries < 16; ++tries) {
         const size_t smem = (size_t)its * words;
         if (smem > FOLD_MAX_SMEM) break;
         int occ = 0;
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fold_instance(threads, its == 1),
-                                                          threads, smem);
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, instance(its == 1), threads,
+                                                          smem);
         if (e != cudaSuccess) return e;
         const i64 co_resident = (i64)occ * sms;
         if (co_resident <= 0) break;
         const i64 blocks = (m + its * threads - 1) / (its * threads);
         if (blocks <= co_resident) {
-            *out = FoldGrid{(int)blocks, threads, (int)its, smem};
+            const i64 wide = spread < co_resident ? spread : co_resident;
+            const i64 n = blocks > wide ? blocks : (wide > 0 ? wide : 1);
+            *out = CoopGrid{(int)n, threads, (int)its, smem};
             return cudaSuccess;
         }
         its = (m + co_resident * threads - 1) / (co_resident * threads);
@@ -188,54 +256,57 @@ static cudaError_t fold_grid(i64 m, FoldGrid* out) {
     return cudaErrorCooperativeLaunchTooLarge;
 }
 
+// the fold alone: 256-thread blocks while the batch fits one a SM
+static cudaError_t fold_grid(i64 m, CoopGrid* out) {
+    int sms = 0;
+    cudaError_t e = sm_count(&sms);
+    if (e != cudaSuccess) return e;
+    const int threads = m <= (i64)FOLD_FEW_THREADS * sms ? FOLD_FEW_THREADS : FOLD_THREADS;
+    return coop_grid(m, threads, 0, [threads](bool one_run) {
+        return fold_instance(threads, one_run);
+    }, out);
+}
+
 // --------------------------------------------------------------- commit
-// a row's R slots of an i64 lane, past R i64 min (never selected);
-// kAligned: R a multiple of 8 and 16-byte aligned lanes, 16-byte loads
-// with the streaming hint (each byte is read once)
+// The per-row inputs of the commit rule other than match and flushed:
+// the voter bitmasks and four [G] lanes.
+struct RowFlags {
+    unsigned vm, om;
+    bool leader;
+    i64 term_start, commit, visible;
+};
+
 template <int N, bool kAligned>
-__device__ __forceinline__ void load_row(const i64* __restrict__ lane, i64 base,
-                                         int r_n, i64 (&v)[N]) {
-    if (kAligned) {
-        const longlong2* p = reinterpret_cast<const longlong2*>(lane + base);
-#pragma unroll
-        for (int i = 0; i < N / 2; ++i) {
-            longlong2 x = make_longlong2(RP_I64_MIN, RP_I64_MIN);
-            if (2 * i < r_n) x = __ldcs(p + i);
-            v[2 * i] = x.x;
-            v[2 * i + 1] = x.y;
-        }
-    } else {
-#pragma unroll
-        for (int r = 0; r < N; ++r) v[r] = r < r_n ? lane[base + r] : RP_I64_MIN;
-    }
+__device__ __forceinline__ RowFlags load_flags(const i64* term_start, const u8* is_leader,
+                                               const i64* commit, const i64* last_visible,
+                                               const u8* voter, const u8* voter_old, i64 g,
+                                               int r_n) {
+    const i64 base = g * r_n;
+    return RowFlags{load_mask<N, kAligned>(voter, base, r_n),
+                    load_mask<N, kAligned>(voter_old, base, r_n), is_leader[g] != 0,
+                    term_start[g], commit[g], last_visible[g]};
 }
 
-// bit k set when byte k of w is nonzero
-__device__ __forceinline__ unsigned nonzero_bytes(unsigned long long w) {
-    w |= w >> 4;
-    w |= w >> 2;
-    w |= w >> 1;
-    return (unsigned)(((w & 0x0101010101010101ull) * 0x0102040810204080ull) >> 56);
-}
-
-// a row's bool lane as a bitmask of its R slots; kAligned: one 8-byte
-// word a group of 8 slots
+// The commit rule of row g: loads its match (m, past R i64 min) and
+// flushed, writes commit and, where it moved, last_visible; returns the
+// new commit.
 template <int N, bool kAligned>
-__device__ __forceinline__ unsigned load_mask(const u8* __restrict__ lane, i64 base,
-                                              int r_n) {
-    unsigned mask = 0u;
-    if (kAligned) {
-        const unsigned long long* p =
-            reinterpret_cast<const unsigned long long*>(lane + base);
+__device__ __forceinline__ i64 sweep_row(const RowFlags& f, i64* commit, i64* last_visible,
+                                         const i64* match, const i64* flushed, i64 g,
+                                         int r_n, i64 (&m)[N]) {
+    const i64 base = g * r_n;
+    i64 c[N];
+    load_row<N, kAligned>(match, base, r_n, m);
+    load_row<N, kAligned>(flushed, base, r_n, c);
+    const i64 self_flushed = c[0];
 #pragma unroll
-        for (int i = 0; i < N / 8; ++i)
-            if (8 * i < r_n) mask |= nonzero_bytes(__ldcs(p + i)) << (8 * i);
-    } else {
-#pragma unroll
-        for (int r = 0; r < N; ++r)
-            if (r < r_n) mask |= (unsigned)(lane[base + r] != 0) << r;
-    }
-    return mask;
+    for (int r = 0; r < N; ++r) c[r] = imin(c[r], m[r]);  // match_committed_index
+    i64 nv = f.visible;
+    const i64 nc = commit_row(m, c, f.vm, f.om, self_flushed, f.leader, f.term_start,
+                              f.commit, &nv);
+    commit[g] = nc;
+    if (nv != f.visible) last_visible[g] = nv;
+    return nc;
 }
 
 template <int N, bool kAligned>
@@ -249,20 +320,10 @@ commit_step_kernel(const i64* __restrict__ term_start,
                    i64 g_n, int r_n) {
     const i64 g = (i64)blockIdx.x * blockDim.x + threadIdx.x;
     if (g >= g_n) return;
-    const i64 base = g * r_n;
-    i64 m[N], c[N];
-    load_row<N, kAligned>(match, base, r_n, m);
-    load_row<N, kAligned>(flushed, base, r_n, c);
-    const unsigned vm = load_mask<N, kAligned>(voter, base, r_n);
-    const unsigned om = load_mask<N, kAligned>(voter_old, base, r_n);
-    const bool leader = is_leader[g] != 0;
-    const i64 ts = term_start[g], old_commit = commit[g], lv = last_visible[g];
-    const i64 self_flushed = c[0];
-#pragma unroll
-    for (int r = 0; r < N; ++r) c[r] = imin(c[r], m[r]);  // match_committed_index
-    i64 nv = lv;
-    commit[g] = commit_row(m, c, vm, om, self_flushed, leader, ts, old_commit, &nv);
-    if (nv != lv) last_visible[g] = nv;
+    i64 m[N];
+    const RowFlags f = load_flags<N, kAligned>(term_start, is_leader, commit, last_visible,
+                                               voter, voter_old, g, r_n);
+    sweep_row<N, kAligned>(f, commit, last_visible, match, flushed, g, r_n, m);
 }
 
 // ----------------------------------------------------------- heartbeats
@@ -278,13 +339,147 @@ __global__ void heartbeats_kernel(const i64* __restrict__ hb_idx,
                                   i64 r_n) {
     const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= h) return;
-    i64 g = hb_idx[i];
-    // rows are in range by contract; clamp only to keep reads in bounds
-    g = g < 0 ? 0 : (g >= g_n ? g_n - 1 : g);
+    const i64 g = gather_row(hb_idx[i], g_n);
     o_term[i] = term[g];
     o_commit[i] = commit[g];
     o_dirty[i] = match[g * r_n];  // SELF_SLOT
     o_visible[i] = last_visible[g];
+}
+
+// ---------------------------------------------------------- tick frame
+struct FrameLanes {
+    const i64* term;
+    const u8* is_leader;
+    i64* commit;
+    const i64* term_start;
+    i64* last_visible;
+    i64* match;
+    i64* flushed;
+    i64* last_seq;
+    const u8* voter;
+    const u8* voter_old;
+};
+
+struct FrameReplies {
+    const i64 *group_idx, *slot, *dirty, *flushed, *seq;
+};
+
+struct FrameBeats {
+    const i64* idx;
+    i64 *term, *commit, *dirty, *visible;
+};
+
+// max_lag == nullptr: no health
+struct FrameHealth {
+    const u8 *leader_known, *active;
+    i64* max_lag;
+    u8 *under, *leaderless;
+};
+
+// Phase order: no last_seq write before barrier 1 (fold_phase), no read
+// of match or flushed before it; no read of commit or last_visible by the
+// gather before barrier 2. What a later phase reads that no earlier phase
+// writes (the thread's first row's voter masks and [G] lanes, its first
+// heartbeat row's index and term) is loaded at the start, beside the
+// fold's loads, and waits out the barriers in registers. m == 0 skips the
+// fold and its barrier, h == 0 the gather and its barrier (uniform over
+// the grid). Rows and heartbeat rows are dealt in warp-sized chunks
+// round-robin over the blocks, so every SM sweeps about as many rows
+// whatever the grid.
+template <int N, bool kAligned>
+__global__ void __launch_bounds__(FRAME_THREADS)
+tick_frame_kernel(FrameLanes s, FrameReplies rp, FrameBeats hb, FrameHealth hh, i64 m,
+                  i64 h, i64 g_n, int r_n, int its) {
+    extern __shared__ unsigned fresh_words[];  // its * warps ballots (its > 2)
+    const i64 warps = (i64)gridDim.x * (FRAME_THREADS / 32);
+    const i64 first = ((i64)(threadIdx.x >> 5) * gridDim.x + blockIdx.x) * 32 + (threadIdx.x & 31);
+    const i64 stride = warps * 32;
+    const bool health = hh.max_lag != nullptr;
+    RowFlags f0 = {};
+    bool known0 = false, active0 = false;
+    if (first < g_n) {
+        f0 = load_flags<N, kAligned>(s.term_start, s.is_leader, s.commit, s.last_visible,
+                                     s.voter, s.voter_old, first, r_n);
+        if (health) {
+            known0 = hh.leader_known[first] != 0;
+            active0 = hh.active[first] != 0;
+        }
+    }
+    i64 g0 = 0, term0 = 0;
+    if (first < h) {
+        g0 = gather_row(hb.idx[first], g_n);
+        term0 = s.term[g0];
+    }
+    // A. the fold, barrier 1 inside
+    if (m > 0) {
+#define RP_FOLD(RUNS)                                                                  \
+    fold_phase<FRAME_THREADS, RUNS>(s.match, s.flushed, s.last_seq, rp.group_idx, rp.slot, \
+                                    rp.dirty, rp.flushed, rp.seq, m, g_n, r_n, its,       \
+                                    fresh_words)
+        if (its == 1) RP_FOLD(1);
+        else if (its == 2) RP_FOLD(2);
+        else RP_FOLD(0);
+#undef RP_FOLD
+    }
+    // B. the sweep, and each row's health from the registers it loaded
+    for (i64 g = first; g < g_n; g += stride) {
+        RowFlags f = f0;
+        bool known = known0, active = active0;
+        if (g != first) {
+            f = load_flags<N, kAligned>(s.term_start, s.is_leader, s.commit, s.last_visible,
+                                        s.voter, s.voter_old, g, r_n);
+            if (health) {
+                known = hh.leader_known[g] != 0;
+                active = hh.active[g] != 0;
+            }
+        }
+        i64 row[N];
+        const i64 c = sweep_row<N, kAligned>(f, s.commit, s.last_visible, s.match, s.flushed,
+                                             g, r_n, row);
+        if (health) {
+            const HealthRow x = row_health<N>(row, f.vm | f.om, c, f.leader, active, known);
+            hh.max_lag[g] = x.max_lag;
+            hh.under[g] = x.under;
+            hh.leaderless[g] = x.leaderless;
+        }
+    }
+    // C. the gather reads rows other threads swept
+    if (h > 0) {
+        cooperative_groups::this_grid().sync();
+        for (i64 i = first; i < h; i += stride) {
+            const i64 g = i == first ? g0 : gather_row(hb.idx[i], g_n);
+            hb.term[i] = i == first ? term0 : s.term[g];
+            // through L2: other SMs wrote these lanes before the barrier
+            hb.commit[i] = __ldcg(s.commit + g);
+            hb.dirty[i] = __ldcg(s.match + g * r_n);  // SELF_SLOT
+            hb.visible[i] = __ldcg(s.last_visible + g);
+        }
+    }
+}
+
+// the instance for R slots (padded to 8, 16 or 32) and the lanes' alignment
+static const void* frame_instance(i64 r_n, bool aligned) {
+    if (r_n <= 8)
+        return aligned ? (const void*)tick_frame_kernel<8, true>
+                       : (const void*)tick_frame_kernel<8, false>;
+    if (r_n <= 16)
+        return aligned ? (const void*)tick_frame_kernel<16, true>
+                       : (const void*)tick_frame_kernel<16, false>;
+    return aligned ? (const void*)tick_frame_kernel<32, true>
+                   : (const void*)tick_frame_kernel<32, false>;
+}
+
+// the frame's grid: the fold's runs for m replies, spread over the
+// max(G, H) rows up to co-residency
+static cudaError_t frame_grid(i64 m, i64 rows, const void* kernel, CoopGrid* out) {
+    return coop_grid(m, FRAME_THREADS, (rows + FRAME_THREADS - 1) / FRAME_THREADS,
+                     [kernel](bool) { return kernel; }, out);
+}
+
+static bool aligned_rows(i64 r_n, const i64* match, const i64* flushed, const u8* voter,
+                         const u8* voter_old) {
+    return r_n % 8 == 0 && (uintptr_t)match % 16 == 0 && (uintptr_t)flushed % 16 == 0 &&
+           (uintptr_t)voter % 8 == 0 && (uintptr_t)voter_old % 8 == 0;
 }
 
 // ------------------------------------------------------ follower rules
@@ -308,9 +503,9 @@ __global__ void local_append_kernel(i64* __restrict__ match,
                                     i64 g_n, i64 r_n) {
     const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= m) return;
-    const i64 g = group_idx[i];
-    if (g < 0 || g >= g_n) return;  // rows in range by contract
-    local_append<true>(&match[g * r_n], &flushed[g * r_n], dirty[i], flushed_in[i]);
+    const i64 k = scatter_cell(group_idx[i], 0, g_n, r_n);  // SELF_SLOT
+    if (k < 0) return;  // the scatter drops it
+    local_append<true>(&match[k], &flushed[k], dirty[i], flushed_in[i]);
 }
 
 // ------------------------------------------------------------ C entries
@@ -321,7 +516,7 @@ const char* rp_error_string(int err) {
 }
 
 int rp_fold_grid(i64 m, i64* out) {
-    FoldGrid grid;
+    CoopGrid grid;
     const cudaError_t e = fold_grid(m, &grid);
     if (e == cudaSuccess) {
         out[0] = grid.blocks;
@@ -336,7 +531,7 @@ int rp_fold_replies(i64* match, i64* flushed, i64* last_seq,
                     const i64* flushed_in, const i64* seq, i64 m, i64 g_n,
                     i64 r_n, void* stream) {
     if (m <= 0) return 0;
-    FoldGrid grid;
+    CoopGrid grid;
     cudaError_t e = fold_grid(m, &grid);
     if (e != cudaSuccess) return (int)e;
     int its = grid.its;
@@ -356,9 +551,7 @@ int rp_commit_step(const i64* term_start, const u8* is_leader, i64* commit,
     if (g_n <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
     const unsigned blocks = (unsigned)((g_n + COMMIT_THREADS - 1) / COMMIT_THREADS);
-    const bool aligned = r_n % 8 == 0 && (uintptr_t)match % 16 == 0 &&
-                         (uintptr_t)flushed % 16 == 0 && (uintptr_t)voter % 8 == 0 &&
-                         (uintptr_t)voter_old % 8 == 0;
+    const bool aligned = aligned_rows(r_n, match, flushed, voter, voter_old);
 #define RP_COMMIT_LAUNCH(NS, AL)                                               \
     commit_step_kernel<NS, AL><<<blocks, COMMIT_THREADS, 0, s>>>(              \
         term_start, is_leader, commit, last_visible, match, flushed, voter,    \
@@ -375,6 +568,49 @@ int rp_commit_step(const i64* term_start, const u8* is_leader, i64* commit,
     }
 #undef RP_COMMIT_LAUNCH
     return (int)cudaGetLastError();
+}
+
+// out: blocks, threads, runs of replies a thread
+int rp_frame_grid(i64 m, i64 g_n, i64 r_n, i64 h, i64 aligned, i64* out) {
+    CoopGrid grid;
+    const cudaError_t e =
+        frame_grid(m, g_n > h ? g_n : h, frame_instance(r_n, aligned != 0), &grid);
+    if (e == cudaSuccess) {
+        out[0] = grid.blocks;
+        out[1] = grid.threads;
+        out[2] = grid.its;
+    }
+    return (int)e;
+}
+
+// The whole tick frame in one cooperative launch: fold m replies, sweep
+// every row, gather h heartbeat rows; the health lanes (leader_known
+// through leaderless) may all be null, which skips health.
+int rp_tick_frame(const i64* term, const u8* is_leader, i64* commit, const i64* term_start,
+                  i64* last_visible, i64* match, i64* flushed, i64* last_seq,
+                  const u8* voter, const u8* voter_old, const i64* group_idx,
+                  const i64* slot, const i64* dirty, const i64* flushed_in, const i64* seq,
+                  const i64* hb_idx, i64* o_term, i64* o_commit, i64* o_dirty,
+                  i64* o_visible, const u8* leader_known, const u8* active, i64* max_lag,
+                  u8* under, u8* leaderless, i64 m, i64 h, i64 g_n, i64 r_n,
+                  void* stream) {
+    if (g_n <= 0) return 0;
+    const void* kernel =
+        frame_instance(r_n, aligned_rows(r_n, match, flushed, voter, voter_old));
+    CoopGrid grid;
+    cudaError_t e = frame_grid(m, g_n > h ? g_n : h, kernel, &grid);
+    if (e != cudaSuccess) return (int)e;
+    FrameLanes s = {term, is_leader, commit, term_start, last_visible,
+                    match, flushed, last_seq, voter, voter_old};
+    FrameReplies rp = {group_idx, slot, dirty, flushed_in, seq};
+    FrameBeats hb = {hb_idx, o_term, o_commit, o_dirty, o_visible};
+    FrameHealth hh = {leader_known, active, max_lag, under, leaderless};
+    int rn = (int)r_n, its = grid.its;
+    void* args[] = {&s, &rp, &hb, &hh, &m, &h, &g_n, &rn, &its};
+    e = cudaLaunchCooperativeKernel(kernel, dim3(grid.blocks), dim3(grid.threads), args,
+                                    grid.smem, (cudaStream_t)stream);
+    const cudaError_t last = cudaGetLastError();  // clears a refused launch
+    return (int)(e != cudaSuccess ? e : last);
 }
 
 int rp_follower_commit(i64* commit, i64* last_visible, const i64* flushed,

@@ -17,8 +17,11 @@ fleet's health rolls up in one kernel launch (csrc/health.cu):
 * `leaderless[g]`        — an active row that neither leads nor knows
   a leader.
 
-`tick_frame_health` runs this after `ops.quorum.tick_frame` on the
-post-advance lanes, on the same stream. `health_totals` is the same
+`tick_frame_health` is `ops.quorum.tick_frame` plus this reduction on
+the post-advance lanes: on the card one cooperative launch
+(`ops.quorum.launch_frame`, each row's health taken from the commit
+sweep's registers), on the CPU the plain versions in order.
+`health_totals` is the same
 reduction over lanes laid out as D chip blocks of contiguous rows, fused
 with the mesh frame's fleet totals (parallel/mesh_frame.py): per-block
 partials, then one fold over the blocks. `health_reduce_np` is the
@@ -43,13 +46,17 @@ TOTALS = ("advanced", "max_follower_lag", "under_replicated", "leaderless", "act
 _LIB = None
 
 
+def bind(lib):
+    """Declare the argument lists of csrc/health.cu's entry points."""
+    _build.bind(lib, "rp_health_reduce", 10, 2)
+    _build.bind(lib, "rp_health_totals", 13, 3)
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = _build.load("health")
-        _build.bind(lib, "rp_health_reduce", 10, 2)
-        _build.bind(lib, "rp_health_totals", 13, 3)
-        _LIB = lib
+        _LIB = bind(_build.load("health"))
     return _LIB
 
 
@@ -256,7 +263,12 @@ def tick_frame_health(
     active: torch.Tensor,        # [G] bool
 ) -> tuple[GroupState, dict, dict]:
     """`ops.quorum.tick_frame` + health reduction over the POST-advance
-    state, as one launch sequence on one stream."""
+    state: on the card one launch (`ops.quorum.launch_frame`)."""
+    if q._on_card(state):
+        return q.launch_frame(
+            state, (group_idx, replica_slot, last_dirty, last_flushed, seq), hb_idx,
+            leader_known, active,
+        )
     state, hb = q.tick_frame(
         state, group_idx, replica_slot, last_dirty, last_flushed, seq, hb_idx
     )

@@ -16,7 +16,10 @@ from redpanda_tpu_torch.raft import health_scalar as hs
 from redpanda_tpu_torch.raft import quorum_scalar as qs
 
 from test_torch_quorum import (
+    _replay_health,
+    _row_registers,
     assert_states_equal,
+    edge_fields,
     jax_state,
     random_fields,
     random_replies,
@@ -119,3 +122,21 @@ def test_health_reduce_rejects_mismatched_lanes():
     args[1] = args[1].to(torch.int32)
     with pytest.raises(ValueError):
         th.health_reduce(*args)
+
+
+@pytest.mark.parametrize("r", [8, 16, 24, 32, 5])
+def test_kernel_replay_health_rows_matches_jax(r):
+    """health_rows_kernel (csrc/health.cu), replayed: the row as the
+    commit sweep loads it (16-byte match vectors, one 8-byte word a group
+    of 8 voter bytes, padded to 8, 16 or 32 slots; slot by slot for R = 5)
+    and row_health from those registers, equal to JAX's health_reduce on
+    rows with ties, i64 min / max offsets (the lag wraps), no voters and
+    joint sets."""
+    rng = np.random.default_rng(120 + r)
+    f = edge_fields(rng, 256, r)
+    known, active = rng.random(256) < 0.5, rng.random(256) < 0.9
+    m, _, vm, om = _row_registers(f, words=r % 8 == 0)
+    got = _replay_health(m, vm | om, f["commit_index"], f["is_leader"], active, known)
+    want = jh.health_reduce(*map(jnp.asarray, lane_args(f, known, active)))
+    for k in KEYS:
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)

@@ -228,16 +228,16 @@ def test_wrapper_rejects_bad_inputs():
 # step by step in numpy: a kernel cannot run here, so its arithmetic is
 # held against the JAX program and the plain version through them.
 
-FOLD_FEW_THREADS, FOLD_THREADS = 256, 1024
+FOLD_FEW_THREADS, FOLD_THREADS, FRAME_THREADS = 256, 1024, 256
 FOLD_MAX_SMEM = 48 * 1024
 
 
-def _fold_grid(m, sms, occupancy):
-    """fold_grid: the co-resident grid (blocks, threads, its) for m
-    replies, 256-thread blocks while the batch fits one a SM, else 1,024;
-    `occupancy(threads, smem)` blocks an SM at a run count's shared
-    memory (one ballot word a warp and run)."""
-    threads = FOLD_FEW_THREADS if m <= FOLD_FEW_THREADS * sms else FOLD_THREADS
+def _coop_grid(m, threads, spread, sms, occupancy):
+    """coop_grid: a co-resident grid (blocks, threads, its) of `threads`-
+    thread blocks for m replies, each block taking `its` runs of `threads`
+    replies with as few runs as `occupancy(threads, smem)` (blocks an SM
+    at a run count's shared memory: one ballot word a warp and run)
+    allows, and at least `spread` blocks where the occupancy allows."""
     words = threads // 32 * 4
     its = 1
     for _ in range(16):
@@ -249,24 +249,55 @@ def _fold_grid(m, sms, occupancy):
             return None
         blocks = -(-m // (its * threads))
         if blocks <= co_resident:
-            return blocks, threads, its
+            return max(blocks, min(spread, co_resident), 1), threads, its
         its = -(-m // (co_resident * threads))
     return None
 
 
-def _replay_fold(fields, replies, sms=132, occupancy=lambda t, smem: 2048 // t, seed=0, barrier=True):
+def _fold_grid(m, sms, occupancy):
+    """fold_grid: 256-thread blocks while the batch fits one a SM, else
+    1,024."""
+    threads = FOLD_FEW_THREADS if m <= FOLD_FEW_THREADS * sms else FOLD_THREADS
+    return _coop_grid(m, threads, 0, sms, occupancy)
+
+
+def _frame_grid(m, g, h, sms, occupancy):
+    """frame_grid: 256-thread blocks, the fold's runs for m replies,
+    spread over max(G, H) rows up to co-residency."""
+    return _coop_grid(m, FRAME_THREADS, -(-max(g, h) // FRAME_THREADS), sms, occupancy)
+
+
+def _cell(g, r, g_n, r_n):
+    """scatter_cell: (g, r) wrapped once from the end, its flat cell, or
+    -1 where it is still out of range (dropped)."""
+    g, r = int(g), int(r)
+    g += g_n if g < 0 else 0
+    r += r_n if r < 0 else 0
+    return g * r_n + r if 0 <= g < g_n and 0 <= r < r_n else -1
+
+
+def _gather_row(g, g_n):
+    """gather_row: wrapped once from the end, then clamped to [0, G - 1]."""
+    g = int(g) + (g_n if g < 0 else 0)
+    return min(max(g, 0), g_n - 1)
+
+
+def _replay_fold(fields, replies, sms=132, occupancy=lambda t, smem: 2048 // t, seed=0, barrier=True,
+                 grid=None):
     """fold_kernel on numpy lanes: blocks in a seeded order; phase 1 reads
-    every guard against last_seq, raises match / flushed of fresh replies
-    and keeps one ballot word a warp and run (the one-run kernel keeps
-    the same bit in a register); then (barrier) phase 2 raises last_seq
-    of the fresh replies. barrier=False lets each block run both phases
-    before the next block starts."""
+    every guard against last_seq (the cell of the index rule; a reply
+    still out of range is dropped), raises match / flushed of fresh
+    replies and keeps one ballot word a warp and run (the one-run kernel
+    keeps the same bit in a register); then (barrier) phase 2 raises
+    last_seq of the fresh replies. barrier=False lets each block run both
+    phases before the next block starts. `grid` (blocks, threads, its)
+    replaces fold_grid's, as the frame kernel's fold phase does."""
     out = {k: np.array(v, copy=True) for k, v in fields.items()}
     g_n, r_n = out["match_index"].shape
     match, flushed, last_seq = (out[k].reshape(-1) for k in ("match_index", "flushed_index", "last_seq"))
     rows, slots, dirty, fl, seq = replies
     m = len(rows)
-    blocks, threads, its = _fold_grid(m, sms, occupancy)
+    blocks, threads, its = grid or _fold_grid(m, sms, occupancy)
     warps = threads // 32
     rng = np.random.default_rng(seed)
     words = np.zeros((blocks, its * warps), np.uint32)
@@ -279,10 +310,9 @@ def _replay_fold(fields, replies, sms=132, occupancy=lambda t, smem: 2048 // t, 
                     i = b * its * threads + s * threads + w * 32 + lane
                     if i >= m:
                         continue
-                    g, r = rows[i], slots[i]
-                    if not (0 <= g < g_n and 0 <= r < r_n):
+                    k = _cell(rows[i], slots[i], g_n, r_n)
+                    if k < 0:
                         continue
-                    k = g * r_n + r
                     if seq[i] > last_seq[k]:
                         match[k] = max(match[k], dirty[i])
                         flushed[k] = max(flushed[k], fl[i])
@@ -295,7 +325,7 @@ def _replay_fold(fields, replies, sms=132, occupancy=lambda t, smem: 2048 // t, 
                 for lane in rng.permutation(32):
                     if (int(words[b, s * warps + w]) >> int(lane)) & 1:
                         i = b * its * threads + s * threads + w * 32 + lane
-                        k = rows[i] * r_n + slots[i]
+                        k = _cell(rows[i], slots[i], g_n, r_n)
                         last_seq[k] = max(last_seq[k], seq[i])
 
     order = rng.permutation(blocks)
@@ -376,19 +406,24 @@ def test_kernel_replay_fold_needs_its_barrier():
     assert differs
 
 
-def test_kernel_replay_fold_skips_out_of_range_pairs():
-    """Pairs outside [0, G) x [0, R) are skipped by the replay and the
-    plain version alike: both equal the fold of the in-range replies."""
+def test_kernel_replay_fold_wraps_and_drops_out_of_range_pairs():
+    """A row in [-G, 0) or slot in [-R, 0) counts from the end, and pairs
+    still outside [0, G) x [0, R) are dropped, in the replay and the
+    plain version alike: both equal the JAX fold of the same mixed
+    batch, and the wrapped replies did land."""
     rng = np.random.default_rng(73)
     fields = random_fields(rng, 16, 5)
+    fields["match_index"][[15, 3], [0, 4]] = -1
     good = random_replies(rng, 16, 5, 120, pad=8)
     bad = [np.array(x, np.int64) for x in ([-1, 16, 3, 3, 99, -5], [0, 1, -1, 5, 2, 7],
                                           [500] * 6, [499] * 6, [9] * 6)]
     mixed = [np.concatenate([a[:60], b, a[60:]]) for a, b in zip(good, bad)]
-    want = jq.fold_replies(jax_state(fields), *map(jnp.asarray, good))
+    want = jq.fold_replies(jax_state(fields), *map(jnp.asarray, mixed))
     assert_states_equal(want, tq.fold_replies(torch_state(fields), *map(tvec, mixed)))
     got, _ = _replay_fold(fields, mixed, sms=1, occupancy=lambda t, s: 1)
     assert_states_equal(want, torch_state(got))
+    # (-1, 0) and (3, -1) land at (15, 0) and (3, 4); (16, 1), (99, 2) and (-5, 7) do not
+    assert int(got["match_index"][15, 0]) == 500 and int(got["match_index"][3, 4]) == 500
 
 
 def test_fold_grid_fits_co_residency():
@@ -469,30 +504,37 @@ def _lane_majority(v, vm, om):
     return np.where(om != 0, np.minimum(cur, _masked_quorum(v, before, om)), cur)
 
 
-def _replay_commit(fields):
-    """commit_step_kernel + commit_row on numpy lanes: rows padded to N =
-    8, 16 or 32 slots, masks from 8-byte words for R a multiple of 8 (else
-    slot by slot), lane_majority over min(flushed, match) and over match,
-    and the rule."""
+def _row_registers(fields, words=True):
+    """load_row / load_mask on numpy lanes: match and flushed padded to N
+    = 8, 16 or 32 slots with i64 min, and each voter lane as a bitmask,
+    from 8-byte words for R a multiple of 8 (`words`), else slot by slot.
+    Returns (match, flushed, vm, om)."""
     r = fields["match_index"].shape[1]
     n = 8 if r <= 8 else (16 if r <= 16 else 32)
-    g = len(fields["term"])
+    g = len(fields["match_index"])
     m = np.full((g, n), I64_MIN, np.int64)
     c = np.full((g, n), I64_MIN, np.int64)
     m[:, :r] = fields["match_index"]
     c[:, :r] = fields["flushed_index"]
-    self_flushed = c[:, 0].copy()
-    c = np.minimum(c, m)
 
     def mask_of(lane):
         raw = np.ascontiguousarray(lane, np.bool_).view(np.uint8)
-        if r % 8 == 0:
-            words = raw.reshape(g, r // 8, 8).copy().view("<u8")[:, :, 0]
-            return sum(np.array([_nonzero_bytes(w) for w in words[:, i]], np.int64) << (8 * i)
+        if words and r % 8 == 0:
+            w = raw.reshape(g, r // 8, 8).copy().view("<u8")[:, :, 0]
+            return sum(np.array([_nonzero_bytes(x) for x in w[:, i]], np.int64) << (8 * i)
                        for i in range(r // 8))
         return sum((raw[:, s] != 0).astype(np.int64) << s for s in range(r))
 
-    vm, om = mask_of(fields["is_voter"]), mask_of(fields["is_voter_old"])
+    return m, c, mask_of(fields["is_voter"]), mask_of(fields["is_voter_old"])
+
+
+def _replay_commit(fields):
+    """commit_step_kernel + commit_row on numpy lanes: the row registers
+    (_row_registers), lane_majority over min(flushed, match) and over
+    match, and the rule."""
+    m, c, vm, om = _row_registers(fields)
+    self_flushed = c[:, 0].copy()
+    c = np.minimum(c, m)
     majority = np.minimum(_lane_majority(c, vm, om), self_flushed)
     dirty = _lane_majority(m, vm, om)
     dirty = np.minimum(dirty, m[:, 0])
@@ -548,3 +590,273 @@ def test_kernel_replay_commit_voter_bytes_beyond_one():
     fields["is_voter"] = raw != 0
     want = jq.quorum_commit_step(jax_state(fields))
     assert_states_equal(want, torch_state(replay))
+
+
+# ------------------------------------------------------------------
+# JAX's index rule (a row in [-G, 0) or slot in [-R, 0) counts from the
+# end, once; scatters drop what is still out of range, gathers clamp it)
+# on batches that mix such indices with in-range ones.
+
+def mixed_index_replies(rng, g, r, m=160):
+    """random_replies (duplicate pairs, stale seqs, padding) plus replies
+    at rows -1, -G, -G-1, G and G+5 with in-range slots, at slots -1, -R,
+    -R-1 and R with in-range rows, at both at once, and the in-range twin
+    of every wrapped pair (a duplicate across the wrap), inserted at
+    seeded places; their seqs are mostly fresh."""
+    base = random_replies(rng, g, r, m, pad=8)
+    bad_rows, bad_slots = [-1, -g, -g - 1, g, g + 5], [-1, -r, -r - 1, r]
+    pairs = [(b, int(rng.integers(0, r))) for b in bad_rows]
+    pairs += [(int(rng.integers(0, g)), s) for s in bad_slots]
+    pairs += [(b, s) for b in bad_rows[:3] for s in bad_slots[:2]]
+    pairs += [(b + g if b < 0 else b, s + r if s < 0 else s) for b, s in pairs
+              if -g <= b < g and -r <= s < r]
+    n = len(pairs)
+    dirty = rng.integers(0, 3000, n).astype(np.int64)
+    extra = [np.array([p[0] for p in pairs], np.int64), np.array([p[1] for p in pairs], np.int64),
+             dirty, dirty - rng.integers(0, 30, n), rng.integers(3, 12, n).astype(np.int64)]
+    at = np.sort(rng.integers(0, len(base[0]) + 1, n))
+    return [np.insert(a, at, e) for a, e in zip(base, extra)]
+
+
+def mixed_hb_rows(rng, g, h=48):
+    """Heartbeat rows in random order with duplicates and rows -1, -G,
+    -G-1, G, G+5."""
+    rows = rng.integers(0, g, h).astype(np.int64)
+    rows[: h // 4] = rows[h // 4: h // 2]
+    bad = np.array([-1, -g, -g - 1, g, g + 5, -1, g], np.int64)
+    return rng.permutation(np.concatenate([rows, bad]))
+
+
+def _jax_vs_port(fn, fields, rng, g, r):
+    """(JAX's result, the port's) of `fn` on one mixed batch, as
+    {name: numpy array}."""
+    from redpanda_tpu.ops import health as jh
+    from redpanda_tpu_torch.ops import health as th
+
+    replies = mixed_index_replies(rng, g, r)
+    hb = mixed_hb_rows(rng, g)
+    known, active = rng.random(g) < 0.5, rng.random(g) < 0.9
+    js, ts = jax_state(fields), torch_state(fields)
+    jr, tr = list(map(jnp.asarray, replies)), list(map(tvec, replies))
+
+    def flat(state, *dicts):
+        out = dict(zip(FIELDS, (np.asarray(x) for x in state))) if state is not None else {}
+        for prefix, d in dicts:
+            out.update({f"{prefix}.{k}": np.asarray(v) for k, v in d.items()})
+        return out
+
+    if fn == "fold_replies":
+        return flat(jq.fold_replies(js, *jr)), flat(tq.fold_replies(ts, *tr))
+    if fn == "local_append_update":
+        rows, _, dirty, fl, _ = replies
+        args = (rows, dirty, fl)
+        return (flat(jq.local_append_update(js, *map(jnp.asarray, args))),
+                flat(tq.local_append_update(ts, *map(tvec, args))))
+    if fn == "build_heartbeats":
+        return (flat(None, ("hb", jq.build_heartbeats(js, jnp.asarray(hb)))),
+                flat(None, ("hb", tq.build_heartbeats(ts, tvec(hb)))))
+    if fn == "tick_frame":
+        (a, ahb), (b, bhb) = jq.tick_frame(js, *jr, jnp.asarray(hb)), tq.tick_frame(ts, *tr, tvec(hb))
+        return flat(a, ("hb", ahb)), flat(b, ("hb", bhb))
+    a, ahb, ah = jh.tick_frame_health(js, *jr, jnp.asarray(hb), jnp.asarray(known), jnp.asarray(active))
+    b, bhb, bh = th.tick_frame_health(ts, *tr, tvec(hb), torch.from_numpy(known), torch.from_numpy(active))
+    return flat(a, ("hb", ahb), ("health", ah)), flat(b, ("hb", bhb), ("health", bh))
+
+
+@pytest.mark.parametrize("fn", ["fold_replies", "local_append_update", "build_heartbeats",
+                                "tick_frame", "tick_frame_health"])
+@pytest.mark.parametrize("r", [3, 8])
+def test_index_rule_matches_jax(fn, r):
+    """The port's plain versions equal JAX exactly on one batch mixing
+    rows -1, -G, -G-1, G, G+5 and slots -1, -R, -R-1, R (and their
+    in-range twins) with in-range replies and duplicate pairs."""
+    rng = np.random.default_rng(90 + r)
+    g = 24
+    fields = random_fields(rng, g, r)
+    fields["match_index"][-1] = -1  # rows the wrapped replies raise start low
+    want, got = _jax_vs_port(fn, fields, rng, g, r)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# ------------------------------------------------------------------
+# The tick frame in one cooperative launch (csrc/quorum.cu
+# tick_frame_kernel), replayed phase by phase.
+
+def _replay_health(m, tracked, commit, leader, active, known):
+    """row_health on numpy registers: lag = self_dirty - match (wrapping)
+    over tracked slots, its max from 0; under when a tracked slot trails
+    the new commit."""
+    worst = np.zeros(len(commit), np.int64)
+    trails = np.zeros(len(commit), bool)
+    for s in range(m.shape[1]):
+        on = ((tracked >> s) & 1).astype(bool)
+        lag = (m[:, 0].view(np.uint64) - m[:, s].view(np.uint64)).view(np.int64)
+        worst = np.where(on, np.maximum(worst, lag), worst)
+        trails |= on & (m[:, s] < commit)
+    lead = leader & active
+    return {"max_lag": np.where(lead, worst, 0).astype(np.int64), "under_replicated": lead & trails,
+            "leaderless": active & ~leader & ~known}
+
+
+def _replay_frame(fields, replies, hb_idx, known=None, active=None, sms=132,
+                  occupancy=lambda t, smem: 3, seed=0, barrier2=True):
+    """tick_frame_kernel on numpy lanes at frame_grid's grid, blocks in
+    seeded orders. A: the fold phase with barrier 1 (_replay_fold at the
+    frame's grid). B: block b sweeps its rows from the post-fold lanes
+    and, given `known` / `active`, writes their health from the same
+    registers. Barrier 2, then C: block b gathers its heartbeat rows from
+    the lanes as they stand. Rows and heartbeat rows are dealt in 32-row
+    chunks round-robin over the grid's warps (chunk c to warp c mod W,
+    warp w to block w mod blocks). barrier2=False runs B then C block by
+    block. Returns (lanes, heartbeat fields, health or None, grid)."""
+    g_n, r_n = fields["match_index"].shape
+    m, h = len(replies[0]), len(hb_idx)
+    grid = _frame_grid(m, g_n, h, sms, occupancy)
+    blocks, threads, _ = grid
+    out = {k: np.array(v, copy=True) for k, v in fields.items()}
+    if m:
+        out, _ = _replay_fold(fields, replies, seed=seed, grid=grid)
+    swept = _replay_commit(out)  # each row's thread: row-local
+    health = None
+    if known is not None:
+        mrow, _, vm, om = _row_registers(out)
+        full = _replay_health(mrow, vm | om, swept["commit_index"], out["is_leader"], active, known)
+        health = {k: np.zeros_like(v) for k, v in full.items()}
+    warps = blocks * threads // 32
+    row_block = (np.arange(g_n) // 32 % warps) % blocks
+    beat_block = (np.arange(h) // 32 % warps) % blocks
+    hb = {k: np.zeros(h, np.int64) for k in ("term", "commit_index", "last_dirty", "last_visible")}
+
+    def sweep(b):
+        rows = row_block == b
+        for k in ("commit_index", "last_visible"):
+            out[k][rows] = swept[k][rows]
+        if health is not None:
+            for k in health:
+                health[k][rows] = full[k][rows]
+
+    def gather(b):
+        for i in np.flatnonzero(beat_block == b):
+            g = _gather_row(hb_idx[i], g_n)
+            hb["term"][i] = out["term"][g]
+            hb["commit_index"][i] = out["commit_index"][g]
+            hb["last_dirty"][i] = out["match_index"][g, 0]
+            hb["last_visible"][i] = out["last_visible"][g]
+
+    rng = np.random.default_rng(seed + 1)
+    if barrier2:
+        for b in rng.permutation(blocks):
+            sweep(b)
+        for b in rng.permutation(blocks):
+            gather(b)
+    else:
+        for b in rng.permutation(blocks):
+            sweep(b)
+            gather(b)
+    return out, {"group": hb_idx, **hb}, health, grid
+
+
+FRAME_GRIDS = {  # (SMs, occupancy): the rows and replies spread over blocks, or one block
+    "spread": (132, lambda t, smem: 3),
+    "one_block": (1, lambda t, smem: 1),
+}
+
+
+@pytest.mark.parametrize("grid", list(FRAME_GRIDS))
+@pytest.mark.parametrize("health", [True, False])
+@pytest.mark.parametrize("r", [3, 5, 8, 12, 32])
+def test_kernel_replay_frame_matches_jax(r, health, grid):
+    """The one-launch frame, replayed: equal to JAX's tick_frame_health
+    (health) or tick_frame and to the plain chain, exactly, with
+    heartbeat rows in random order, duplicated and out of range, replies
+    with duplicate pairs, stale seqs, padding and out-of-range indices;
+    rows spread over several blocks, or one block taking several rows and
+    runs of replies a thread."""
+    from redpanda_tpu.ops import health as jh
+    from redpanda_tpu_torch.ops import health as th
+
+    rng = np.random.default_rng(100 + r)
+    g = 600
+    fields = edge_fields(rng, g, r)
+    replies = mixed_index_replies(rng, g, r, m=700)
+    hb = mixed_hb_rows(rng, g, h=400)
+    known, active = rng.random(g) < 0.5, rng.random(g) < 0.9
+    sms, occ = FRAME_GRIDS[grid]
+    got, got_hb, got_h, (blocks, threads, its) = _replay_frame(
+        fields, replies, hb, known if health else None, active, sms, occ, seed=r)
+    assert (blocks, its) == ((3, 1) if grid == "spread" else (1, 3))
+    js, jr, jhb = jax_state(fields), list(map(jnp.asarray, replies)), jnp.asarray(hb)
+    if health:
+        want, want_hb, want_h = jh.tick_frame_health(js, *jr, jhb, jnp.asarray(known), jnp.asarray(active))
+        plain = th.tick_frame_health(torch_state(fields), *map(tvec, replies), tvec(hb),
+                                     torch.from_numpy(known), torch.from_numpy(active))
+        for k in want_h:
+            np.testing.assert_array_equal(got_h[k], np.asarray(want_h[k]), err_msg=k)
+            np.testing.assert_array_equal(plain[2][k].numpy(), np.asarray(want_h[k]), err_msg=k)
+    else:
+        want, want_hb = jq.tick_frame(js, *jr, jhb)
+        plain = tq.tick_frame(torch_state(fields), *map(tvec, replies), tvec(hb))
+    assert_states_equal(want, torch_state(got))
+    assert_states_equal(want, plain[0])
+    for k in want_hb:
+        np.testing.assert_array_equal(got_hb[k], np.asarray(want_hb[k]), err_msg=k)
+        np.testing.assert_array_equal(plain[1][k].numpy(), np.asarray(want_hb[k]), err_msg=k)
+
+
+def test_kernel_replay_frame_needs_its_second_barrier():
+    """Without barrier 2 a block can gather a row another block has not
+    swept yet: for some seed the replay then sends other commit or
+    visible fields, so the second barrier is needed."""
+    rng = np.random.default_rng(110)
+    g = 600
+    fields = random_fields(rng, g, 8)
+    replies = random_replies(rng, g, 8, 500)
+    hb = rng.permutation(g).astype(np.int64)
+    want = _replay_frame(fields, replies, hb)[1]
+    differs = False
+    for seed in range(8):
+        got = _replay_frame(fields, replies, hb, seed=seed, barrier2=False)[1]
+        differs |= any(not np.array_equal(got[k], want[k]) for k in want)
+    assert differs
+
+
+@pytest.mark.parametrize("m", [0, 1, 256, 50_000, 101_376, 101_377, 131_072, 10**6, 3 * 10**7])
+def test_frame_grid_fits_co_residency(m):
+    """The frame's grid at the tick's rows (G = H = 50,000): co-resident
+    at its run count's shared memory, as many runs a block as the fold
+    needs and no more, spread over the rows up to co-residency, and
+    refused where the ballot words outgrow the occupancy."""
+    g = h = 50_000
+    sms = 132
+    occ = lambda t, smem: (3 if smem <= t // 8 else 2) if smem <= 8192 else 0  # noqa: E731
+    got = _frame_grid(m, g, h, sms, occ)
+    if m > (8192 // (FRAME_THREADS // 8)) * 2 * sms * FRAME_THREADS:
+        assert got is None
+        return
+    blocks, threads, its = got
+    words = threads // 8
+    assert threads == FRAME_THREADS
+    assert blocks <= occ(threads, its * words) * sms
+    assert blocks * its * threads >= m
+    assert blocks >= min(-(-max(g, h) // threads), occ(threads, its * words) * sms)
+    assert (its == 1) == (m <= 3 * sms * threads)
+    if its > 1:
+        fewer = its - 1
+        assert -(-m // (fewer * threads)) > occ(threads, fewer * words) * sms
+
+
+@pytest.mark.parametrize("case", ["cpu_state", "known_without_active"])
+def test_launch_frame_refuses(case):
+    """The frame kernel's wrapper takes CUDA tensors only (no silent CPU
+    fallback: tick_frame routes CPU state to the plain chain itself) and
+    both health flags or neither."""
+    fields = random_fields(np.random.default_rng(130), 16, 8)
+    replies = list(map(tvec, random_replies(np.random.default_rng(131), 16, 8, 20)))
+    known = torch.zeros(16, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        if case == "cpu_state":
+            tq.launch_frame(torch_state(fields), replies, tvec(np.arange(4)))
+        else:
+            tq.launch_frame(torch_state(fields), replies, tvec(np.arange(4)), known, None)
