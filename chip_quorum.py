@@ -1,46 +1,51 @@
 #!/usr/bin/env python3
-"""On-card breakdown and A/B timing of the replication tick's kernels
-(one H100): the reply fold, the commit sweep, the heartbeat gather, the
-health reduction and the tick frame kernel that runs them in one launch.
+"""On-card breakdown and A/B timing of the replication tick's and the
+mesh frame's kernels (one H100): the reply fold, the commit sweep, the
+health reductions, the tick frame kernel and the mesh frame, which runs
+the fold, the sweep, each row's health and the fleet totals in one pass
+over the rows.
 
     mkdir -p .chipcheck/old
-    for f in quorum.cu quorum_rules.cuh health.cu chip_blocks.cuh cluster.cu; do
+    for f in quorum.cu quorum_rules.cuh quorum_rows.cuh health.cu chip_blocks.cuh cluster.cu; do
         git show <commit>:redpanda_tpu_torch/csrc/$f > .chipcheck/old/$f; done
     python3 chip_quorum.py breakdown .chipcheck/old [OUT_DIR]
     python3 chip_quorum.py ab .chipcheck/old [OUT_DIR]
 
-The old directory holds a tree whose tick frame is a launch sequence
-(fold, sweep, gather, and the health reduction for tick_frame_health)
-with the same C entry points and argument lists as this tree's
+The old directory holds a tree whose mesh frame is a launch sequence
+(a copy of the commit lane, the fold, the sweep, two zero fills and
+`health_totals` with its fold over the blocks) with the same C entry
+points and argument lists as this tree's for the kernels it shares
 (`rp_fold_replies`, `rp_commit_step`, `rp_build_heartbeats`,
-`rp_health_reduce`, `rp_health_totals`, the cluster kernels).
+`rp_tick_frame`, `rp_health_reduce`, `rp_health_totals`, the cluster
+kernels): the tree of ba9e811.
 
-`breakdown`, at the tick's shape (G = 50,000, R = 8, M = 131,072
-replies, H = 50,000 heartbeat rows; chip_smoke phase 2): the old tree's
-kernels alone and its three sequences; this tree's frame kernel cut to
-its phases (the sweep alone, with health, with the gather behind the
-second barrier, with the fold but no gather, whole with and without
-health), the two-launch variant (the fold kernel, then the frame kernel
-with no replies), the standalone health_reduce and build_heartbeats; and
-empty kernels at the sweep's shape and, launched cooperatively, at the
-frame's grid with 0, 1 and 2 grid barriers.
+Both modes run at chip_smoke phase 9's mesh shape (G = 1,000,000, R = 8,
+D = 8, an 8,192-reply bucket). The mesh frame has two designs: this
+tree's (B: the fold kernel, then the mesh sweep kernel, which sweeps the
+rows with their health and folds the fleet totals in its own launch) and
+one cooperative launch of the fold, the sweep with health and the totals
+(A: `MESH_COOP`, appended to this tree's quorum.cu). `breakdown`: the old
+sequence and each of its launches alone; the tick frame kernel without
+heartbeat rows cut to its phases (the sweep alone in the co-resident
+grid, with health, with the fold and its barrier); A with and without
+replies; B's fold kernel alone, its sweep kernel alone, both; empty
+kernels at the sweep kernel's shape and, cooperative, at A's grid with
+0 and 1 grid barriers.
 
-`ab` times the old tree's kernels beside this tree's and beside copies
-of this tree's quorum.cu with one frame design choice patched
-(`NEW_VARIANTS`: the block size, a register cap, the later phases'
-first loads moved back into their phases),
-and the two-launch variant, in turns (old, each new side, then the same
-in reverse): the fold, the sweep, the gather, the health reduction and
-the tick's three sequences at the tick's shape, the fold, the sweep and
-the mesh frame's sequence at its shape (1,000,000 rows, an 8,192-reply
-bucket, chip_smoke phase 9), and the ring cluster's two kernels at
-1,000,000 groups over 8 blocks. Every output of each side is held
-exactly against the old one, and this tree's against the plain
-versions, before anything is timed.
+`ab` times, in turns (old, each new side, then the same in reverse):
+at the mesh shape the fold, the sweep, `health_totals` and the mesh
+frame as the old sequence, as B (this tree's) and as A at 256-, 128-
+and 512-thread blocks (copies of this tree's quorum.cu with
+FRAME_THREADS patched, `NEW_VARIANTS`); at the tick's shape (G = 50,000, M =
+131,072, H = 50,000; chip_smoke phase 2) the fold, the sweep,
+`health_reduce`, `heartbeat_tick`, `tick_frame` and `tick_frame_health`;
+and the ring cluster's two kernels at 1,000,000 groups over 8 blocks.
+Every output of each side is held exactly against the old one, and this
+tree's against the plain versions, before anything is timed.
 
-Variants are built under .chipcheck/quorum (git-ignored) with `-Xptxas
--v` (registers and spills printed); results are printed and written to
-OUT_DIR/quorum_<mode>.json (default .chipcheck/).
+Every library is built under .chipcheck/quorum (git-ignored) with
+`-Xptxas -v` (registers and spills printed and kept); results are
+printed and written to OUT_DIR/quorum_<mode>.json (default .chipcheck/).
 """
 
 from __future__ import annotations
@@ -88,21 +93,145 @@ int rp_empty_shape(i64 blocks, i64 threads, i64 coop, i64 syncs, void* stream) {
 }  // extern "C"
 """
 
-# this tree's quorum.cu ("new") beside copies with another frame block size
+# Appended to this tree's quorum.cu: the mesh frame's other design (A),
+# one cooperative launch of the tick frame kernel's fold phase and sweep
+# loop with each row's health and the fleet totals (grid_totals), and no
+# heartbeat rows; the tree keeps the fold kernel and the mesh sweep
+# kernel (B), which won.
+MESH_COOP = r"""
+template <int N, bool kAligned>
+__global__ void __launch_bounds__(FRAME_THREADS)
+mesh_coop_kernel(FrameLanes s, FrameReplies rp, FrameHealth hh, FrameTotals tt, i64 m, i64 g_n,
+                 int r_n, int its) {
+    extern __shared__ unsigned fresh_words[];
+    const i64 warps = (i64)gridDim.x * (FRAME_THREADS / 32);
+    const i64 first = ((i64)(threadIdx.x >> 5) * gridDim.x + blockIdx.x) * 32 + (threadIdx.x & 31);
+    const i64 stride = warps * 32;
+    RowFlags f0 = {};
+    bool known0 = false, active0 = false;
+    if (first < g_n) {
+        f0 = load_flags<N, kAligned>(s.term_start, s.is_leader, s.commit, s.last_visible,
+                                     s.voter, s.voter_old, first, r_n);
+        known0 = hh.leader_known[first] != 0;
+        active0 = hh.active[first] != 0;
+    }
+    if (m > 0) {
+#define RP_FOLD(RUNS)                                                                  \
+    fold_phase<FRAME_THREADS, RUNS>(s.match, s.flushed, s.last_seq, rp.group_idx, rp.slot, \
+                                    rp.dirty, rp.flushed, rp.seq, m, g_n, r_n, its,       \
+                                    fresh_words)
+        if (its == 1) RP_FOLD(1);
+        else if (its == 2) RP_FOLD(2);
+        else RP_FOLD(0);
+#undef RP_FOLD
+    }
+    i64 t[T_N] = {0, 0, 0, 0, 0};
+    for (i64 g = first; g < g_n; g += stride) {
+        RowFlags f = f0;
+        bool known = known0, active = active0;
+        if (g != first) {
+            f = load_flags<N, kAligned>(s.term_start, s.is_leader, s.commit, s.last_visible,
+                                        s.voter, s.voter_old, g, r_n);
+            known = hh.leader_known[g] != 0;
+            active = hh.active[g] != 0;
+        }
+        i64 c;
+        const HealthRow x = frame_row<N, kAligned>(s, hh, f, known, active, true, g, r_n, &c);
+        count_row(t, x, c > f.commit, active);
+    }
+    grid_totals<T_N>(t, 1u << T_MAX_LAG, tt.acc, tt.ticket, tt.out);
+}
+
+static const void* mesh_coop_instance(i64 r_n, bool aligned) {
+    if (r_n <= 8)
+        return aligned ? (const void*)mesh_coop_kernel<8, true> : (const void*)mesh_coop_kernel<8, false>;
+    if (r_n <= 16)
+        return aligned ? (const void*)mesh_coop_kernel<16, true> : (const void*)mesh_coop_kernel<16, false>;
+    return aligned ? (const void*)mesh_coop_kernel<32, true> : (const void*)mesh_coop_kernel<32, false>;
+}
+
+extern "C" {
+
+int rp_mesh_coop_grid(i64 m, i64 g_n, i64 r_n, i64 aligned, i64* out) {
+    CoopGrid grid;
+    const cudaError_t e = frame_grid(m, g_n, mesh_coop_instance(r_n, aligned != 0), &grid);
+    if (e == cudaSuccess) {
+        out[0] = grid.blocks;
+        out[1] = grid.threads;
+        out[2] = grid.its;
+    }
+    return (int)e;
+}
+
+int rp_mesh_coop(const i64* term, const u8* is_leader, i64* commit, const i64* term_start,
+                 i64* last_visible, i64* match, i64* flushed, i64* last_seq, const u8* voter,
+                 const u8* voter_old, const i64* group_idx, const i64* slot, const i64* dirty,
+                 const i64* flushed_in, const i64* seq, const u8* leader_known, const u8* active,
+                 i64* max_lag, u8* under, u8* leaderless, i64* scratch, i64* totals, i64 m,
+                 i64 g_n, i64 r_n, void* stream) {
+    if (g_n <= 0) return 0;
+    const void* kernel = mesh_coop_instance(r_n, aligned_rows(r_n, match, flushed, voter, voter_old));
+    CoopGrid grid;
+    cudaError_t e = frame_grid(m, g_n, kernel, &grid);
+    if (e != cudaSuccess) return (int)e;
+    FrameLanes s = {term, is_leader, commit, term_start, last_visible,
+                    match, flushed, last_seq, voter, voter_old};
+    FrameReplies rp = {group_idx, slot, dirty, flushed_in, seq};
+    FrameHealth hh = {leader_known, active, max_lag, under, leaderless};
+    FrameTotals tt = {scratch, (unsigned long long*)(scratch + TOTALS_SCRATCH - 1), totals};
+    int rn = (int)r_n, its = grid.its;
+    void* args[] = {&s, &rp, &hh, &tt, &m, &g_n, &rn, &its};
+    e = cudaLaunchCooperativeKernel(kernel, dim3(grid.blocks), dim3(grid.threads), args,
+                                    grid.smem, (cudaStream_t)stream);
+    const cudaError_t last = cudaGetLastError();
+    return (int)(e != cudaSuccess ? e : last);
+}
+
+}  // extern "C"
+"""
+
+# this tree's quorum.cu with design A appended ("new"), and copies with
+# another frame block size (design A at 128 and 512 threads)
 NEW_VARIANTS = {
     "new": [],
-    "frame_t128": [("#define FRAME_THREADS 256", "#define FRAME_THREADS 128")],
-    "frame_t512": [("#define FRAME_THREADS 256", "#define FRAME_THREADS 512")],
-    "frame_t1024": [("#define FRAME_THREADS 256", "#define FRAME_THREADS 1024")],
-    # the sweep's flags and the gather's index and term loaded in their phases, not at the start
-    "frame_late_loads": [("        if (g != first) {", "        if (true) {"),
-                         ("const i64 g = i == first ? g0 : gather_row(hb.idx[i], g_n);",
-                          "const i64 g = gather_row(hb.idx[i], g_n);"),
-                         ("hb.term[i] = i == first ? term0 : s.term[g];", "hb.term[i] = s.term[g];")],
-    # 256-thread blocks capped at 64 registers: four blocks an SM, one reply a thread
-    "frame_min4": [("__launch_bounds__(FRAME_THREADS)\ntick_frame_kernel",
-                    "__launch_bounds__(FRAME_THREADS, 4)\ntick_frame_kernel")],
+    "coop_t128": [("#define FRAME_THREADS 256", "#define FRAME_THREADS 128")],
+    "coop_t512": [("#define FRAME_THREADS 256", "#define FRAME_THREADS 512")],
 }
+
+
+def bind_coop(lib):
+    """Bind design A's entry points on a library built with MESH_COOP."""
+    _build.bind(lib, "rp_mesh_coop", 22, 3)
+    lib.rp_mesh_coop_grid.argtypes = [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+    lib.rp_mesh_coop_grid.restype = ctypes.c_int
+    return lib
+
+
+def coop_grid(m: int, g: int, r: int) -> tuple:
+    """Design A's cooperative grid on the bound library: (blocks, threads, runs)."""
+    lib = quorum_ops._lib()
+    out = (ctypes.c_int64 * 3)()
+    _build.check(lib, lib.rp_mesh_coop_grid(m, g, r, int(r % 8 == 0), ctypes.addressof(out)), "coop grid")
+    return tuple(int(x) for x in out)
+
+
+def mesh_coop(state, replies, known, active):
+    """Design A through the bound library, as launch_mesh_frame returns."""
+    import torch
+
+    g, r = state.match_index.shape
+    dev = state.match_index.device
+    health = quorum_ops._health_lanes(g, dev)
+    totals = torch.empty(quorum_ops.N_TOTALS, dtype=torch.int64, device=dev)
+    stream = _build.stream_of(state.match_index)
+    lib = quorum_ops._lib()
+    rc = lib.rp_mesh_coop(*(getattr(state, k).data_ptr() for k in quorum_ops.LANE_ORDER),
+                          *(t.data_ptr() for t in replies), known.data_ptr(), active.data_ptr(),
+                          *(health[k].data_ptr() for k in quorum_ops.HEALTH_KEYS),
+                          quorum_ops._totals_scratch(dev, stream).data_ptr(), totals.data_ptr(),
+                          replies[0].shape[0], g, r, stream)
+    _build.check(lib, rc, "mesh frame, design A")
+    return state, health, totals
 
 
 def nvcc(name: str, src: str, include: str) -> tuple:
@@ -119,8 +248,9 @@ def nvcc(name: str, src: str, include: str) -> tuple:
     return name, so, info
 
 
-def build(sources: dict) -> dict:
-    """{name: (source, include dir)} -> {name: CDLL}, one nvcc each, in parallel."""
+def build(sources: dict, ptxas: dict) -> dict:
+    """{name: (source, include dir)} -> {name: CDLL}, one nvcc each, in
+    parallel; each library's -Xptxas -v lines go into `ptxas`."""
     os.makedirs(WORK, exist_ok=True)
     with ThreadPoolExecutor(len(sources)) as ex:
         built = list(ex.map(lambda kv: nvcc(kv[0], *kv[1]), sources.items()))
@@ -128,6 +258,7 @@ def build(sources: dict) -> dict:
     for name, so, info in built:
         for ln in info:
             print(f"[ptxas] {name}: {ln}", flush=True)
+        ptxas[name] = info
         libs[name] = ctypes.CDLL(so)
         libs[name].rp_error_string.restype = ctypes.c_char_p
         libs[name].rp_error_string.argtypes = [ctypes.c_int]
@@ -142,23 +273,27 @@ def patched(src: str, patches: list, name: str) -> str:
     return src
 
 
-def old_libs(old_dir: str, extra: dict) -> dict:
+def old_libs(old_dir: str, extra: dict, ptxas: dict) -> dict:
     """The old tree's quorum, health and cluster libraries plus `extra`
-    sources, built together, the old ones bound with this tree's
-    argument lists for their shared entry points."""
+    sources (this tree's quorum.cu and its variants, bound with this
+    tree's argument lists), built together; the old ones bound with this
+    tree's argument lists for their shared entry points."""
     from redpanda_tpu_torch.parallel import cluster_step as cluster_ops
 
     sources = {f"old_{n}": (open(os.path.join(old_dir, f"{n}.cu")).read(), old_dir)
                for n in ("quorum", "health", "cluster")}
-    libs = build({**sources, **extra})
-    _build.bind(libs["old_quorum"], "rp_fold_replies", 8, 3)
-    _build.bind(libs["old_quorum"], "rp_commit_step", 8, 2)
-    _build.bind(libs["old_quorum"], "rp_build_heartbeats", 9, 3)
-    libs["old_quorum"].rp_fold_grid.argtypes = [ctypes.c_int64, ctypes.c_void_p]
+    libs = build({**sources, **extra}, ptxas)
+    old = libs["old_quorum"]
+    for fn, ptrs, sizes in (("rp_fold_replies", 8, 3), ("rp_commit_step", 8, 2),
+                            ("rp_build_heartbeats", 9, 3), ("rp_tick_frame", 25, 4)):
+        _build.bind(old, fn, ptrs, sizes)
+    old.rp_fold_grid.argtypes = [ctypes.c_int64, ctypes.c_void_p]
     health_ops.bind(libs["old_health"])
     for lib in (libs["old_cluster"], cluster_ops._lib()):
         _build.bind(lib, "rp_cluster_tick", 18, 3)
         _build.bind(lib, "rp_election_round", 9, 4)
+    for name in extra:
+        bind_coop(quorum_ops.bind(libs[name]))
     _build.build_all(("quorum", "health", "cluster"))
     quorum_ops._lib()
     health_ops._lib()
@@ -234,6 +369,27 @@ class Shape:
         return lambda: quorum_ops.launch_frame(self.work, replies, hb,
                                                *((self.known, self.active) if health else ()))
 
+    def mesh(self, replies, coop=False):
+        """The mesh frame: this tree's (the fold kernel and the mesh sweep
+        kernel, launch_mesh_frame) or design A (one cooperative launch)."""
+        return lambda: (mesh_coop if coop else quorum_ops.launch_mesh_frame)(
+            self.work, replies, self.known, self.active)
+
+    def mesh_plain(self, replies):
+        return lambda: cs.mesh_frame_plain(self.work, replies, self.known, self.active)
+
+    def mesh_old(self):
+        """The old tree's mesh frame: the copy of the commit lane, the fold,
+        the sweep and health_totals (its two zero fills and fold_blocks)."""
+        w = self.work
+
+        def run():
+            before = w.commit_index.clone()
+            quorum_ops.quorum_commit_step(quorum_ops.fold_replies(w, *self.replies))
+            return health_ops.health_totals(w.match_index, w.commit_index, w.is_voter, w.is_voter_old,
+                                            w.is_leader, self.known, self.active, cs.MESH_D, before=before)
+        return run
+
 
 def shapes(torch) -> dict:
     rng = np.random.default_rng(cs.SEED)
@@ -265,6 +421,16 @@ def same(a: list, b: list, what: str) -> None:
         raise AssertionError(f"{what} differs")
 
 
+def mesh_outputs(x) -> list:
+    """A mesh frame's health lanes and totals, whichever side returned
+    them (the state is compared from the work lanes)."""
+    if isinstance(x, list):  # mesh_frame_plain: [state, health, {"totals"}]
+        return tensors(x[1]) + tensors(x[2]["totals"])
+    if len(x) == 3:  # launch_mesh_frame: (state, health, totals)
+        return tensors(x[1]) + tensors(x[2])
+    return tensors(x[0]) + tensors(x[1])  # health_totals: (health, totals)
+
+
 class Sides:
     """Runs a function with the wrappers bound to one side's libraries."""
 
@@ -286,18 +452,8 @@ class Sides:
 
 
 def tick_items(shp) -> dict:
-    """name -> (this tree's call, the old tree's call or None for the
-    same, the plain chain or None). The old tree's frames are its launch
-    sequences."""
+    """name -> (the call, the plain chain), at the tick's shape."""
     w, rep, hb = shp.work, shp.replies, shp.hb
-
-    def old_frame(health):
-        def run():
-            quorum_ops.fold_replies(w, *rep)
-            quorum_ops.quorum_commit_step(w)
-            beats = quorum_ops.build_heartbeats(w, hb)
-            return (beats, shp.health()) if health else beats
-        return run
 
     def plain_frame(health):
         def run():
@@ -306,47 +462,65 @@ def tick_items(shp) -> dict:
             return (beats, shp.health_plain()) if health else beats
         return run
 
-    def new_frame(health):
+    def frame(health):
         def run():
             _, beats, lanes = shp.frame(rep, hb, health)()
             return (beats, lanes) if health else beats
         return run
 
     return {
-        "fold_replies": (lambda: quorum_ops.fold_replies(w, *rep), None,
-                         lambda: quorum_ops.fold_replies_plain(w, *rep)),
-        "quorum_commit_step": (lambda: quorum_ops.quorum_commit_step(w), None,
+        "fold_replies": (lambda: quorum_ops.fold_replies(w, *rep), lambda: quorum_ops.fold_replies_plain(w, *rep)),
+        "quorum_commit_step": (lambda: quorum_ops.quorum_commit_step(w),
                                lambda: quorum_ops.quorum_commit_step_plain(w)),
-        "build_heartbeats": (lambda: quorum_ops.build_heartbeats(w, hb), None,
-                             lambda: quorum_ops.build_heartbeats_plain(w, hb)),
-        "health_reduce": (shp.health, None, shp.health_plain),
-        "heartbeat_tick": (lambda: quorum_ops.heartbeat_tick(w, *rep), None, None),
-        "tick_frame": (new_frame(False), old_frame(False), plain_frame(False)),
-        "tick_frame_health": (new_frame(True), old_frame(True), plain_frame(True)),
+        "health_reduce": (shp.health, shp.health_plain),
+        "heartbeat_tick": (lambda: quorum_ops.heartbeat_tick(w, *rep), None),
+        "tick_frame": (frame(False), plain_frame(False)),
+        "tick_frame_health": (frame(True), plain_frame(True)),
     }
 
 
-def two_launch(shp):
-    """The two-launch variant of tick_frame_health: the fold kernel, then
-    the frame kernel with no replies (sweep, health, barrier, gather)."""
-    def run():
-        quorum_ops.fold_replies(shp.work, *shp.replies)
-        _, beats, lanes = shp.frame(shp.none, shp.hb)()
-        return beats, lanes
-    return run
+def mesh_items(shp) -> dict:
+    """name -> ({side: call}, the plain chain), at the mesh shape. The
+    mesh frame's sides: the old sequence, this tree's (the fold kernel,
+    then the sweep kernel) and design A at each block size."""
+    w, rep = shp.work, shp.replies
+    hargs = (w.match_index, w.commit_index, w.is_voter, w.is_voter_old, w.is_leader, shp.known, shp.active,
+             cs.MESH_D)
+    before = shp.base.commit_index
+
+    def shared(fn):
+        return {"old": fn, "new": fn}
+
+    return {
+        "fold_replies": (shared(lambda: quorum_ops.fold_replies(w, *rep)),
+                         lambda: quorum_ops.fold_replies_plain(w, *rep)),
+        "quorum_commit_step": (shared(lambda: quorum_ops.quorum_commit_step(w)),
+                               lambda: quorum_ops.quorum_commit_step_plain(w)),
+        "health_totals": (shared(lambda: health_ops.health_totals(*hargs, before=before)),
+                          lambda: health_ops.health_totals_plain(*hargs, before=before)),
+        "mesh_tick_frame": ({"old": shp.mesh_old(), "new": shp.mesh(rep),
+                             **{COOP_SIDES[n]: shp.mesh(rep, coop=True) for n in NEW_VARIANTS}},
+                            shp.mesh_plain(rep)),
+    }
 
 
-def held(sides, shp, name, fns: dict, plain=None) -> None:
+# design A's side of each library
+COOP_SIDES = {"new": "coop", "coop_t128": "coop_t128", "coop_t512": "coop_t512"}
+
+
+def held(sides, shp, name, fns: dict, plain=None, outputs=tensors) -> None:
     """Every side's outputs and lanes equal to the old side's, and the
     new side's to the plain chain's."""
     outs = {}
+    first = next(iter(fns))
     for side, fn in fns.items():
         shp.reset()
-        outs[side] = tensors(sides.run(side, fn)) + tensors(shp.work)
-        same(outs[side], outs["old"], f"{shp.label} {name}: {side} vs old")
+        outs[side] = outputs(sides.run(side, fn)) + tensors(shp.work)
+        same(outs[side], outs[first], f"{shp.label} {name}: {side} vs {first}")
     if plain is not None:
         shp.reset()
-        same(outs["new"], tensors(plain()) + tensors(shp.work), f"{shp.label} {name}: new vs plain")
+        new = "new" if "new" in outs else first
+        same(outs[new], outputs(plain()) + tensors(shp.work), f"{shp.label} {name}: {new} vs plain")
 
 
 def in_turns(sides, shp, fns: dict, t: dict, prefix: str = "") -> None:
@@ -356,15 +530,15 @@ def in_turns(sides, shp, fns: dict, t: dict, prefix: str = "") -> None:
 
 
 def empties(lib, shp, frame: tuple) -> dict:
-    """Empty kernels at the sweep's shape and, cooperative, at the
-    frame's grid with 0, 1 and 2 grid barriers."""
+    """Empty kernels at the sweep kernel's shape and, cooperative, at the
+    frame's grid with 0 and 1 grid barriers."""
     _build.bind(lib, "rp_empty_shape", 0, 4)
     blocks, threads, _ = frame
+    sweep_blocks = -(-shp.g // (128 * 4))
     shapes_ = [
-        (f"256 x {-(-shp.g // 256)} (a plain launch at the old sweep's rows)", -(-shp.g // 256), 256, 0, 0),
+        (f"128 x {sweep_blocks} (a plain launch at the mesh sweep kernel's shape)", sweep_blocks, 128, 0, 0),
         (f"cooperative {threads} x {blocks} (the frame's grid), no barrier", blocks, threads, 1, 0),
         (f"cooperative {threads} x {blocks}, one grid barrier", blocks, threads, 1, 1),
-        (f"cooperative {threads} x {blocks}, two grid barriers", blocks, threads, 1, 2),
     ]
     out = {}
     for label, b, th, coop, syncs in shapes_:
@@ -374,103 +548,112 @@ def empties(lib, shp, frame: tuple) -> dict:
 
 def breakdown(torch, old_dir: str) -> dict:
     new_src = open(os.path.join(_build.CSRC_DIR, "quorum.cu")).read()
-    libs = old_libs(old_dir, {"new": (new_src + EXTRAS, _build.CSRC_DIR)})
-    quorum_ops.bind(libs["new"])
+    ptxas = {}
+    libs = old_libs(old_dir, {"new": (new_src + EXTRAS + MESH_COOP, _build.CSRC_DIR)}, ptxas)
     sides = Sides({"old": libs["old_quorum"], "new": libs["new"]},
                   {"old": libs["old_health"], "new": health_ops._lib()},
                   {"old": libs["old_cluster"], "new": libs["old_cluster"]})
-    res = {"card": cs.nvidia_smi(), "clocks": clocks()}
-    shp = shapes(torch)["tick"]
-    items = tick_items(shp)
-    frame = sides.run("new", lambda: quorum_ops.frame_grid(shp.m, shp.g, shp.r, len(shp.hb)))
-    for name, (new, old, plain) in items.items():
-        held(sides, shp, name, {"old": old or new, "new": new}, plain)
-    # the frame's phases and the two-launch variant, each against its plain chain
-    none_hb = shp.hb[:0]
-    w = shp.work
+    res = {"card": cs.nvidia_smi(), "clocks": clocks(), "ptxas": ptxas}
+    shp = shapes(torch)["mesh"]
+    w, rep, none, no_hb = shp.work, shp.replies, shp.none, shp.hb[:0]
+    frame = sides.run("new", lambda: coop_grid(shp.m, shp.g, shp.r))
+    items = mesh_items(shp)
+    for name, (fns, plain) in items.items():
+        held(sides, shp, name, {"old": fns["old"], "new": fns["new"]}, plain,
+             mesh_outputs if name in ("health_totals", "mesh_tick_frame") else tensors)
 
-    def cut(replies, hb, health=True):
-        def run():
-            _, beats, lanes = shp.frame(replies, hb, health)()
-            return [x for x in (beats if len(hb) else None, lanes) if x is not None]
-        return run
-
-    def chain(fold, hb, health=True):
+    def chain(fold, health=True):
         def run():
             if fold:
-                quorum_ops.fold_replies_plain(w, *shp.replies)
+                quorum_ops.fold_replies_plain(w, *rep)
             quorum_ops.quorum_commit_step_plain(w)
-            beats = quorum_ops.build_heartbeats_plain(w, hb) if len(hb) else None
-            return [x for x in (beats, shp.health_plain() if health else None) if x is not None]
+            return [shp.health_plain()] if health else []
+        return run
+
+    def cut(replies, health=True):
+        def run():
+            _, _, lanes = shp.frame(replies, no_hb, health)()
+            return [lanes] if health else []
+        return run
+
+    def totals_cut(replies, coop):
+        def run():
+            _, lanes, totals = shp.mesh(replies, coop)()
+            return [lanes, totals]
+        return run
+
+    def totals_chain(fold):
+        def run():
+            before = w.commit_index.clone()
+            if fold:
+                quorum_ops.fold_replies_plain(w, *rep)
+            quorum_ops.quorum_commit_step_plain(w)
+            return list(health_ops.health_totals_plain(w.match_index, w.commit_index, w.is_voter, w.is_voter_old,
+                                                       w.is_leader, shp.known, shp.active, 1, before=before))
         return run
 
     cuts = {
-        "frame: sweep alone (m = 0, H = 0)": (cut(shp.none, none_hb, False), chain(False, none_hb, False)),
-        "frame: sweep + health (m = 0, H = 0)": (cut(shp.none, none_hb), chain(False, none_hb)),
-        "frame: sweep + health, barrier, gather (m = 0)": (cut(shp.none, shp.hb), chain(False, shp.hb)),
-        "frame: fold, barrier, sweep + health (H = 0)": (cut(shp.replies, none_hb), chain(True, none_hb)),
-        "frame: whole, no health (tick_frame)": (cut(shp.replies, shp.hb, False), chain(True, shp.hb, False)),
-        "frame: whole, health (tick_frame_health)": (cut(shp.replies, shp.hb), chain(True, shp.hb)),
-        "two launches: fold, then the frame with m = 0": (two_launch(shp), chain(True, shp.hb)),
+        "tick frame kernel (H = 0): sweep alone (m = 0, no health)": (cut(none, False), chain(False, False)),
+        "tick frame kernel (H = 0): sweep + health (m = 0)": (cut(none), chain(False)),
+        "tick frame kernel (H = 0): fold, barrier, sweep + health": (cut(rep), chain(True)),
+        "A: sweep + health + totals (m = 0)": (totals_cut(none, True), totals_chain(False)),
+        "A: whole (fold, barrier, sweep + health + totals)": (totals_cut(rep, True), totals_chain(True)),
+        "B: the fold kernel alone": (lambda: quorum_ops.fold_replies(w, *rep),
+                                    lambda: quorum_ops.fold_replies_plain(w, *rep)),
+        "B: the mesh sweep kernel alone (health + totals, m = 0)": (totals_cut(none, False), totals_chain(False)),
+        "B: whole (the fold kernel, then the mesh sweep kernel)": (totals_cut(rep, False), totals_chain(True)),
     }
     for name, (fn, plain) in cuts.items():
         shp.reset()
         got = tensors(sides.run("new", fn)) + tensors(w)
         shp.reset()
         same(got, tensors(plain()) + tensors(w), f"{name} vs plain")
-    fns = {f"old: {name}": (lambda fn=(old or new): sides.run("old", fn))
-           for name, (new, old, _) in items.items()}
-    fns.update({f"new: {name}": (lambda fn=new: sides.run("new", fn))
-                for name, (new, _, _) in items.items() if name in ("health_reduce", "build_heartbeats")})
+    old_parts = {
+        "old: the copy of the commit lane": lambda: w.commit_index.clone(),
+        "old: two [D, 5] / [5] zero fills": lambda: (torch.zeros((cs.MESH_D, 5), dtype=torch.int64, device="cuda"),
+                                                    torch.zeros(5, dtype=torch.int64, device="cuda")),
+        **{f"old: {name}": items[name][0]["old"] for name in items},
+    }
+    fns = {name: (lambda fn=fn: sides.run("old", fn)) for name, fn in old_parts.items()}
     fns.update({name: (lambda fn=fn: sides.run("new", fn)) for name, (fn, _) in cuts.items()})
     t = {}
     for turn in range(2):
         for name in (list(fns) if turn == 0 else list(fns)[::-1]):
             t.setdefault(name, []).append(time_us(fns[name], shp.reset))
-    res["tick"] = {"G": shp.g, "R": shp.r, "M": shp.m, "H": len(shp.hb), "frame grid": frame,
+    res["mesh"] = {"G": shp.g, "R": shp.r, "D": cs.MESH_D, "M": shp.m, "frame grid": frame,
                    "us": {k: float(np.mean(v)) for k, v in t.items()}, "us turns": t,
                    "empty us": empties(libs["new"], shp, frame)}
-    print("tick", json.dumps(res["tick"]), flush=True)
+    print("mesh", json.dumps(res["mesh"]), flush=True)
     return res
 
 
 def ab(torch, old_dir: str) -> dict:
     from redpanda_tpu_torch.parallel import cluster_step as cluster_ops
-    from redpanda_tpu_torch.parallel import mesh_frame
 
     new_src = open(os.path.join(_build.CSRC_DIR, "quorum.cu")).read()
-    libs = old_libs(old_dir, {name: (patched(new_src, p, name), _build.CSRC_DIR)
-                              for name, p in NEW_VARIANTS.items()})
-    for name in NEW_VARIANTS:
-        quorum_ops.bind(libs[name])
-    news = list(NEW_VARIANTS)
-    new_sides = news + ["two_launch"]  # two_launch: this tree's kernels, fold and frame apart
-    sides = Sides({"old": libs["old_quorum"], "two_launch": libs["new"], **{n: libs[n] for n in news}},
-                  {"old": libs["old_health"], **{n: health_ops._lib() for n in new_sides}},
-                  {"old": libs["old_cluster"], **{n: cluster_ops._lib() for n in new_sides}})
-    res = {"card": cs.nvidia_smi(), "clocks": clocks()}
+    ptxas = {}
+    libs = old_libs(old_dir, {name: (patched(new_src + MESH_COOP, p, name), _build.CSRC_DIR)
+                              for name, p in NEW_VARIANTS.items()}, ptxas)
+    quorum_libs = {"new": libs["new"], **{COOP_SIDES[n]: libs[n] for n in NEW_VARIANTS}}
+    sides = Sides({"old": libs["old_quorum"], **quorum_libs},
+                  {"old": libs["old_health"], **{n: health_ops._lib() for n in quorum_libs}},
+                  {"old": libs["old_cluster"], **{n: cluster_ops._lib() for n in quorum_libs}})
+    res = {"card": cs.nvidia_smi(), "clocks": clocks(), "ptxas": ptxas}
     for label, shp in shapes(torch).items():
-        w, rep = shp.work, shp.replies
-        r = {"G": shp.g, "R": shp.r, "M": shp.m, "H": len(shp.hb),
-             "fold grid (blocks, threads, runs)": quorum_ops.fold_grid(shp.m),
-             "frame grid (blocks, threads, runs)": {
-                 n: sides.run(n, lambda: quorum_ops.frame_grid(shp.m, shp.g, shp.r, len(shp.hb))) for n in news}}
+        r = {"G": shp.g, "R": shp.r, "M": shp.m, "H": len(shp.hb) if label == "tick" else 0,
+             "fold grid (blocks, threads, runs)": quorum_ops.fold_grid(shp.m)}
         if label == "tick":
-            items = tick_items(shp)
+            r["frame grid (blocks, threads, runs)"] = quorum_ops.frame_grid(shp.m, shp.g, shp.r, len(shp.hb))
+            items = {name: ({"old": fn, "new": fn}, plain) for name, (fn, plain) in tick_items(shp).items()}
         else:
-            def mesh(w=w, rep=rep, shp=shp):
-                return mesh_frame.mesh_tick_frame(w, *rep, shp.known, shp.active, cs.MESH_D)
-
-            items = {k: v for k, v in tick_items(shp).items() if k in ("fold_replies", "quorum_commit_step")}
-            items["mesh_tick_frame"] = (mesh, None, None)
+            r["D"] = cs.MESH_D
+            r["design A grid (blocks, threads, runs)"] = {
+                n: sides.run(n, lambda: coop_grid(shp.m, shp.g, shp.r)) for n in COOP_SIDES.values()}
+            items = mesh_items(shp)
         t = {}
-        for name, (new, old, plain) in items.items():
-            # the block-size variants change only the frame kernel
-            frame = name in ("tick_frame", "tick_frame_health")
-            fns = {"old": old or new, **{n: new for n in (news if frame else ["new"])}}
-            if name == "tick_frame_health":
-                fns["two_launch"] = two_launch(shp)
-            held(sides, shp, name, fns, plain)
+        for name, (fns, plain) in items.items():
+            held(sides, shp, name, fns, plain,
+                 mesh_outputs if name in ("health_totals", "mesh_tick_frame") else tensors)
             in_turns(sides, shp, fns, t, f"{name} ")
         r["us"] = {k: float(np.mean(v)) for k, v in t.items()}
         r["us turns"] = t

@@ -82,10 +82,14 @@ Phases, each raising on any mismatch:
      (duplicates, stale seqs) through a TickFrame and one
      health_refresh, against the numpy host leg built from the same
      seed (lanes, advanced rows, health lanes, fleet totals), then at
-     D=3 on 100,003 rows (padding rows); health_totals, fold_replies and
+     D=3 on 100,003 rows (padding rows); each full frame is the fold
+     kernel and one pass of the mesh sweep kernel over the rows
+     (mesh_tick_frame), the refresh one health_totals; health_totals,
+     the mesh frame, fold_replies and
      quorum_commit_step against their plain versions at 1M rows (each
-     timed alone beside its bound) and the fold and the sweep also on the
-     D=3 run's lanes; the frame's launch sequence on the device clock;
+     timed alone beside its bound; the mesh frame also at EXTRA_SLOTS
+     and on the mixed-index batch in phase 2) and the fold and the sweep
+     also on the D=3 run's lanes;
   10. the RF=3 ring cluster at 1,000,000 groups over D=8 blocks, resident
      on the card: __graft_entry__.dryrun_multichip's scenario with its
      assertions, then 20 seeded ticks (elections every fifth tick,
@@ -152,7 +156,8 @@ KERNELS = {
     "snappy_emit": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/snappy.py:52", snappy_ops.LAUNCHES),
     "zstd_encode": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:190", zstd_ops.LAUNCHES),
     "zstd_decode": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:274", zstd_ops.LAUNCHES),
-    "health_totals": ("redpanda_tpu_torch/csrc/health.cu", "redpanda_tpu/parallel/mesh_frame.py:63", health_ops.LAUNCHES),
+    "health_totals": ("redpanda_tpu_torch/csrc/health.cu", "redpanda_tpu/parallel/mesh_frame.py:103", health_ops.LAUNCHES),
+    "mesh_tick_frame": ("redpanda_tpu_torch/csrc/quorum.cu", "redpanda_tpu/parallel/mesh_frame.py:63", quorum_ops.LAUNCHES),
     "cluster_tick": ("redpanda_tpu_torch/csrc/cluster.cu", "redpanda_tpu/parallel/cluster_step.py:105", cluster_ops.LAUNCHES),
     "election_round": ("redpanda_tpu_torch/csrc/cluster.cu", "redpanda_tpu/parallel/cluster_step.py:232", cluster_ops.LAUNCHES),
     "follower_commit_step": ("redpanda_tpu_torch/csrc/quorum.cu", "redpanda_tpu/ops/quorum.py:154", quorum_ops.LAUNCHES),
@@ -802,6 +807,8 @@ def mixed_indices(torch, rng, fields, known, active) -> None:
          lambda s: [quorum_ops.build_heartbeats_plain(s, hb)]),
         ("tick_frame", lambda s: frame(s, False), lambda s: frame_plain(s, False)),
         ("tick_frame_health", lambda s: frame(s, True), lambda s: frame_plain(s, True)),
+        ("mesh_tick_frame", lambda s: mesh_frame_card(s, replies, known, active),
+         lambda s: mesh_frame_plain(s, replies, known, active)),
     ):
         got = kern(state())
         torch.cuda.synchronize()
@@ -809,13 +816,43 @@ def mixed_indices(torch, rng, fields, known, active) -> None:
             max_abs_err(a, b)
     log(f"[kernels] rows {{-1, -G, -G-1, G, G+5}} x slots {{-1, -R, -R-1, R}} among {M_REPLIES} replies and "
         f"{H_ROWS} heartbeat rows: fold_replies, local_append_update, build_heartbeats, tick_frame, "
-        f"tick_frame_health equal to plain, tolerance exact")
+        f"tick_frame_health, mesh_tick_frame equal to plain, tolerance exact")
+
+
+def mesh_frame_plain(state, replies, known, active) -> list:
+    """The mesh frame's plain chain (the CPU path of
+    parallel/mesh_frame.mesh_tick_frame): the plain fold and sweep, then
+    health_totals_plain against the commit lane from before the frame
+    (over one block: the totals do not depend on how rows are grouped).
+    Returns [state lanes, health lanes, {"totals": [5]}]."""
+    before = state.commit_index.clone()
+    st = quorum_ops.quorum_commit_step_plain(quorum_ops.fold_replies_plain(state, *replies))
+    health, totals = health_ops.health_totals_plain(st.match_index, st.commit_index, st.is_voter,
+                                                    st.is_voter_old, st.is_leader, known, active, 1,
+                                                    before=before)
+    return [st._asdict(), health, {"totals": totals}]
+
+
+def mesh_frame_card(state, replies, known, active) -> list:
+    """The card's mesh frame (ops.quorum.launch_mesh_frame), as
+    mesh_frame_plain returns it."""
+    st, health, totals = quorum_ops.launch_mesh_frame(state, replies, known, active)
+    return [st._asdict(), health, {"totals": totals}]
+
+
+def mesh_frame_err(torch, state_of, replies, known, active) -> float:
+    """The card's mesh frame against its plain chain, each from a fresh
+    state_of(), exact on every lane, health lane and total; returns the
+    max_abs_err (0.0, or raises)."""
+    got = [{k: v.clone() for k, v in d.items()} for d in mesh_frame_card(state_of(), replies, known, active)]
+    torch.cuda.synchronize()
+    return max(max_abs_err(a, b) for a, b in zip(got, mesh_frame_plain(state_of(), replies, known, active)))
 
 
 def padded_slot_counts(torch, rng) -> None:
-    """fold_replies, quorum_commit_step and the tick frame kernel (with
-    health) against their plain versions at G groups for each R in
-    EXTRA_SLOTS, exact."""
+    """fold_replies, quorum_commit_step, the tick frame kernel (with
+    health) and the mesh frame against their plain versions at G groups
+    for each R in EXTRA_SLOTS, exact."""
     from redpanda_tpu_torch.models.consensus_state import group_state_from_numpy
 
     for r in EXTRA_SLOTS:
@@ -841,8 +878,10 @@ def padded_slot_counts(torch, rng) -> None:
         max_abs_err(beats, quorum_ops.build_heartbeats_plain(want, hb))
         max_abs_err(lanes, health_ops.health_reduce_plain(want.match_index, want.commit_index, want.is_voter,
                                                           want.is_voter_old, want.is_leader, known, active))
-        log(f"[kernels] fold_replies, quorum_commit_step, tick_frame (health) at G={G} R={r}: equal to plain, "
-            f"tolerance exact; frame grid {quorum_ops.frame_grid(len(replies[0]), G, r, H_ROWS, r % 8 == 0)}")
+        mesh_frame_err(torch, lambda: group_state_from_numpy(fields, "cuda"), replies, known, active)
+        log(f"[kernels] fold_replies, quorum_commit_step, tick_frame (health), mesh_tick_frame at G={G} R={r}: "
+            f"equal to plain, tolerance exact; frame grid "
+            f"{quorum_ops.frame_grid(len(replies[0]), G, r, H_ROWS, r % 8 == 0)}")
 
 
 def phase_record_batches(torch) -> dict:
@@ -2149,15 +2188,20 @@ def run_mesh_slice(g: int, devices: int, device: str, window: int = MESH_WINDOW,
             "frames": len(sizes) + 1, "totals": mesh.mesh_totals(), "arrays": mesh, "rows": rows}
 
 
+# what phase 9's main path launches: each full frame the fold kernel and
+# the mesh sweep kernel (mesh_tick_frame), the health refresh health_totals
+MESH_PATH = ("fold_replies", "mesh_tick_frame", "health_totals")
+
+
 def phase_mesh(torch, mem_rate: float) -> dict:
     """Phase 9: the mesh backend at 1M rows over D = 8 chip blocks, then
     at D = 3 on a row count the blocks do not divide (padding rows);
-    then the frame's launch sequence and health_totals on the device
-    clock against their bounds, health_totals against its plain version."""
+    then the mesh frame and health_totals on the device clock against
+    their bounds, each against its plain version."""
     reset_launches()
     out = run_mesh_slice(MESH_G, MESH_D, "cuda")
     pad = run_mesh_slice(MESH_PAD_G, MESH_PAD_D, "cuda", windows=2, big_windows=1)
-    launches = {k: KERNELS[k][2][k] for k in ("fold_replies", "quorum_commit_step", "health_totals")}
+    launches = {k: KERNELS[k][2][k] for k in MESH_PATH}
     mesh_pad_kernels(torch, pad, MESH_PAD_D)
     st = out["stage_ms"]
     log(f"[mesh] G={MESH_G} D={MESH_D}: {out['frames'] - 1} frames ({MESH_WINDOWS} x {MESH_WINDOW}, "
@@ -2174,9 +2218,10 @@ def phase_mesh(torch, mem_rate: float) -> dict:
 
 
 def mesh_kernels(torch, arrays, rows, k: int, mem_rate: float, device: str = "cuda") -> dict:
-    """health_totals and the mesh frame sequence at the path's shape (the
-    mesh leg's lanes placed as D blocks, a next window k of the big
-    size padded as _mesh_full_frame pads it), on the device clock."""
+    """health_totals and the mesh frame at the path's shape (the mesh
+    leg's lanes placed as D blocks, a next window k of the big size
+    padded as _mesh_full_frame pads it), each exact against its plain
+    version from the same state, on the device clock."""
     from redpanda_tpu_torch.parallel import mesh_frame
 
     frame = mesh_frame.MeshFrame(MESH_D, device)
@@ -2214,15 +2259,15 @@ def mesh_kernels(torch, arrays, rows, k: int, mem_rate: float, device: str = "cu
     seq_bytes = (24 * len(rows) + 16 * nf + 8 * uniq + gp * r * (8 + 8 + 1 + 1) + gp * (1 + 8 + 8 + 8 + 2)
                  + 24 * uniq_fresh + 16 * gp + 10 * gp)
 
-    def plain_frame():
-        s = quorum_ops.quorum_commit_step_plain(quorum_ops.fold_replies_plain(work, *replies))
-        health_ops.health_totals_plain(s.match_index, s.commit_index, s.is_voter, s.is_voter_old,
-                                       s.is_leader, known, active, MESH_D, before=before)
+    def state():
+        reset()
+        return work
 
     out["mesh_tick_frame"] = {
-        "shape": f"G={gp} R={r} D={MESH_D} M={len(rows)}", "max_abs_err": 0.0,
+        "shape": f"G={gp} R={r} D={MESH_D} M={len(rows)}",
+        "max_abs_err": mesh_frame_err(torch, state, replies, known, active),
         "ms": time_kernel(lambda: mesh_frame.mesh_tick_frame(work, *replies, known, active, MESH_D), reset),
-        "plain_ms": time_plain(plain_frame, reset),
+        "plain_ms": time_plain(lambda: mesh_frame_plain(work, replies, known, active), reset),
         # replies, last_seq per addressed pair, the [G, R] lanes and five
         # [G] lanes read once; fresh pairs' three lanes, commit, visible
         # and the health lanes written
@@ -2235,8 +2280,7 @@ def mesh_kernels(torch, arrays, rows, k: int, mem_rate: float, device: str = "cu
         f"reply(ies) a thread, at M={len(replies[0])}")
     for name, e in out.items():
         log(f"[mesh] {name:<24} {e['shape']}: kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, "
-            f"plain {e['plain_ms']:.3f} ms" + (" (equal to plain, tolerance exact)"
-                                               if name != "mesh_tick_frame" else ""))
+            f"plain {e['plain_ms']:.3f} ms (equal to plain, tolerance exact)")
     return out
 
 

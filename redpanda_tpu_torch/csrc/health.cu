@@ -3,9 +3,10 @@
 //
 // Replaces redpanda_tpu/ops/health.py:39 health_reduce, and, as
 // health_totals, the health stage and the fleet totals of
-// redpanda_tpu/parallel/mesh_frame.py:63 mesh_tick_frame and :103
-// mesh_health. (The health stage of tick_frame_health, health.py:90, runs
-// inside the tick frame's launch in quorum.cu, from the sweep's registers.)
+// redpanda_tpu/parallel/mesh_frame.py:103 mesh_health. (The health stages
+// of tick_frame_health, health.py:90, and of the mesh frame,
+// mesh_frame.py:63, run inside their sweeps in quorum.cu, from the
+// sweep's registers.)
 // Per row: tracked = voter | old voter; lag = max(self_dirty - match, 0)
 // over tracked slots; max_lag on active leaders; under_replicated when
 // a tracked slot's match trails commit_index; leaderless when an active
@@ -107,9 +108,6 @@ health_rows_kernel(const i64* __restrict__ match, const i64* __restrict__ commit
     leaderless[g] = x.leaderless;
 }
 
-// Counters, in the order of the totals the frame returns.
-enum { T_ADVANCED, T_MAX_LAG, T_UNDER, T_LEADERLESS, T_ACTIVE, T_N };
-
 // Rows [d * block_rows, (d + 1) * block_rows) form chip block d =
 // blockIdx.y. `before` (the commit lane before the frame's commit launch)
 // may be null: the advanced counter then stays 0.
@@ -131,11 +129,7 @@ health_totals_kernel(const i64* __restrict__ match,
         const HealthRow h = health_row(match, commit, voter, voter_old,
                                        is_leader, leader_known, active, max_lag,
                                        under, leaderless, g, r_n);
-        v[T_ADVANCED] = before != nullptr && commit[g] > before[g];
-        v[T_MAX_LAG] = h.max_lag;
-        v[T_UNDER] = h.under;
-        v[T_LEADERLESS] = h.leaderless;
-        v[T_ACTIVE] = active[g] != 0;
+        count_row(v, h, before != nullptr && commit[g] > before[g], active[g] != 0);
     }
     block_partials<T_N>(v, 1u << T_MAX_LAG, partials);
 }

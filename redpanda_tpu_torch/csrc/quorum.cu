@@ -1,6 +1,7 @@
 // Batched quorum kernels for the replication tick: the reply fold, the
 // commit sweep, the heartbeat gather and the whole tick frame in one
-// launch; and the two follower-side rules.
+// launch; the mesh frame's sweep with its health and fleet totals; and
+// the two follower-side rules.
 //
 // Replaces (redpanda_tpu/ops/quorum.py, and ops/health.py for the frame):
 //   fold_replies          :172  scatter-max of M replies into [G, R] lanes
@@ -10,6 +11,8 @@
 //                               tick_frame_health: and the row health)
 //   follower_commit_step  :154  commit = min(leader_commit, flushed[0])
 //   local_append_update   :211  scatter-max of M appends into slot 0
+// and redpanda_tpu/parallel/mesh_frame.py:63 mesh_tick_frame (fold, sweep,
+// row health, fleet totals) as the fold kernel and mesh_sweep_kernel.
 //
 // What bounds them on an H100: bytes. At G = 50,000, R = 8 the commit
 // sweep reads four [G, R] lanes (two i64, two bool) plus five [G] lanes
@@ -60,6 +63,24 @@
 //     round-robin, so the SMs share them evenly. The grid is sized for
 //     the fold (`its` runs a block, as the fold's) and spread over the
 //     rows up to co-residency (frame_grid).
+//   * the mesh frame is the fold kernel, then mesh_sweep_kernel, which
+//     reads every row once: the sweep, the row's health against the new
+//     commit from the same registers, and the row counted into the five
+//     fleet totals (`advanced` from the commit it loaded and the one it
+//     wrote, so no copy of the lane is taken). A block takes MESH_ROWS x
+//     128 consecutive rows, reduces its counters in the warp and then the
+//     block, and adds them into one of TOTALS_SETS accumulator sets, a
+//     128-byte line each (one line for every block's atomics cost ~6 us
+//     at 1M rows); the last block to draw the ticket folds the sets
+//     (chip_blocks.cuh grid_totals), so no zero fill and no fold launch
+//     runs. Four rows a thread: ~1,954 blocks at 1M rows, each block's
+//     reduction and ticket paid a quarter as often as at one row a
+//     thread (-2.6 us; two, three, six and eight rows were slower). The
+//     one-launch design (the tick frame kernel's fold and sweep with the
+//     totals, measured from chip_quorum.py) lost by ~1.8 us: its
+//     co-resident grid (two 256-thread blocks an SM at ~105 registers)
+//     sweeps rows ~5 us slower than an ordinary launch, more than the
+//     fold launch it saves.
 //   * build_heartbeats alone is a one-row-a-thread gather.
 //   * follower_commit_step is one thread per group (four [G] lanes read,
 //     two written: bytes); local_append_update one thread per append,
@@ -73,6 +94,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chip_blocks.cuh"
 #include "quorum_rows.cuh"
 
 #define THREADS 256
@@ -84,6 +106,8 @@
 // the ballot words of a block's runs live in at most 48 KB
 #define FOLD_MAX_SMEM (48 * 1024)
 #define COMMIT_THREADS 128
+// rows a thread of the mesh frame's sweep kernel
+#define MESH_ROWS 4
 // the frame's block: the sweep holds a row in registers (72 at R <= 8,
 // 140 at R <= 16, 255 at R <= 32), so a block of 256 threads keeps
 // every instance within the register file
@@ -376,6 +400,33 @@ struct FrameHealth {
     u8 *under, *leaderless;
 };
 
+// The fleet totals: the accumulators and the ticket (grid_totals), and
+// the [5] output.
+struct FrameTotals {
+    i64* acc;
+    unsigned long long* ticket;
+    i64* out;
+};
+
+// Row g of the sweep, then, with health, the row's health from the same
+// registers, written to the health lanes. Returns the health (zero without)
+// and the new commit in *c.
+template <int N, bool kAligned>
+__device__ __forceinline__ HealthRow frame_row(const FrameLanes& s, const FrameHealth& hh,
+                                               const RowFlags& f, bool known, bool active,
+                                               bool health, i64 g, int r_n, i64* c) {
+    i64 row[N];
+    *c = sweep_row<N, kAligned>(f, s.commit, s.last_visible, s.match, s.flushed, g, r_n, row);
+    HealthRow x = {0, false, false};
+    if (health) {
+        x = row_health<N>(row, f.vm | f.om, *c, f.leader, active, known);
+        hh.max_lag[g] = x.max_lag;
+        hh.under[g] = x.under;
+        hh.leaderless[g] = x.leaderless;
+    }
+    return x;
+}
+
 // Phase order: no last_seq write before barrier 1 (fold_phase), no read
 // of match or flushed before it; no read of commit or last_visible by the
 // gather before barrier 2. What a later phase reads that no earlier phase
@@ -433,15 +484,8 @@ tick_frame_kernel(FrameLanes s, FrameReplies rp, FrameBeats hb, FrameHealth hh, 
                 active = hh.active[g] != 0;
             }
         }
-        i64 row[N];
-        const i64 c = sweep_row<N, kAligned>(f, s.commit, s.last_visible, s.match, s.flushed,
-                                             g, r_n, row);
-        if (health) {
-            const HealthRow x = row_health<N>(row, f.vm | f.om, c, f.leader, active, known);
-            hh.max_lag[g] = x.max_lag;
-            hh.under[g] = x.under;
-            hh.leaderless[g] = x.leaderless;
-        }
+        i64 c;
+        frame_row<N, kAligned>(s, hh, f, known, active, health, g, r_n, &c);
     }
     // C. the gather reads rows other threads swept
     if (h > 0) {
@@ -455,6 +499,32 @@ tick_frame_kernel(FrameLanes s, FrameReplies rp, FrameBeats hb, FrameHealth hh, 
             hb.visible[i] = __ldcg(s.last_visible + g);
         }
     }
+}
+
+// The mesh frame's sweep, an ordinary launch after the fold kernel: the
+// block takes MESH_ROWS * COMMIT_THREADS consecutive rows, a thread every
+// COMMIT_THREADS-th, each swept with its health and counted into the
+// fleet totals, which the blocks fold at the end (grid_totals).
+template <int N, bool kAligned>
+__global__ void __launch_bounds__(COMMIT_THREADS)
+mesh_sweep_kernel(FrameLanes s, FrameHealth hh, FrameTotals tt, i64 g_n, int r_n) {
+    const i64 first = (i64)blockIdx.x * COMMIT_THREADS * MESH_ROWS + threadIdx.x;
+    i64 t[T_N] = {0, 0, 0, 0, 0};
+#pragma unroll 1
+    for (int j = 0; j < MESH_ROWS; ++j) {
+        const i64 g = first + (i64)j * COMMIT_THREADS;
+        if (g < g_n) {
+            const RowFlags f = load_flags<N, kAligned>(s.term_start, s.is_leader, s.commit,
+                                                       s.last_visible, s.voter, s.voter_old, g,
+                                                       r_n);
+            const bool active = hh.active[g] != 0;
+            i64 c;
+            const HealthRow x = frame_row<N, kAligned>(s, hh, f, hh.leader_known[g] != 0, active,
+                                                       true, g, r_n, &c);
+            count_row(t, x, c > f.commit, active);
+        }
+    }
+    grid_totals<T_N>(t, 1u << T_MAX_LAG, tt.acc, tt.ticket, tt.out);
 }
 
 // the instance for R slots (padded to 8, 16 or 32) and the lanes' alignment
@@ -611,6 +681,41 @@ int rp_tick_frame(const i64* term, const u8* is_leader, i64* commit, const i64* 
                                     grid.smem, (cudaStream_t)stream);
     const cudaError_t last = cudaGetLastError();  // clears a refused launch
     return (int)(e != cudaSuccess ? e : last);
+}
+
+// The mesh frame's sweep, after rp_fold_replies on the same stream: every
+// row with its health and the fleet totals into totals[5]. scratch:
+// TOTALS_SCRATCH i64 that only this stream's launches use, zero before the
+// first (each launch leaves them zero).
+int rp_mesh_sweep(const i64* term, const u8* is_leader, i64* commit, const i64* term_start,
+                  i64* last_visible, i64* match, i64* flushed, i64* last_seq,
+                  const u8* voter, const u8* voter_old, const u8* leader_known,
+                  const u8* active, i64* max_lag, u8* under, u8* leaderless, i64* scratch,
+                  i64* totals, i64 g_n, i64 r_n, void* stream) {
+    if (g_n <= 0) return 0;
+    FrameLanes s = {term, is_leader, commit, term_start, last_visible,
+                    match, flushed, last_seq, voter, voter_old};
+    FrameHealth hh = {leader_known, active, max_lag, under, leaderless};
+    FrameTotals tt = {scratch, (unsigned long long*)(scratch + TOTALS_SCRATCH - 1), totals};
+    const i64 span = (i64)COMMIT_THREADS * MESH_ROWS;
+    const unsigned blocks = (unsigned)((g_n + span - 1) / span);
+    const bool aligned = aligned_rows(r_n, match, flushed, voter, voter_old);
+    cudaStream_t st = (cudaStream_t)stream;
+    const int rn = (int)r_n;
+#define RP_MESH_SWEEP(NS, AL) \
+    mesh_sweep_kernel<NS, AL><<<blocks, COMMIT_THREADS, 0, st>>>(s, hh, tt, g_n, rn)
+    if (r_n <= 8) {
+        if (aligned) RP_MESH_SWEEP(8, true);
+        else RP_MESH_SWEEP(8, false);
+    } else if (r_n <= 16) {
+        if (aligned) RP_MESH_SWEEP(16, true);
+        else RP_MESH_SWEEP(16, false);
+    } else {
+        if (aligned) RP_MESH_SWEEP(32, true);
+        else RP_MESH_SWEEP(32, false);
+    }
+#undef RP_MESH_SWEEP
+    return (int)cudaGetLastError();
 }
 
 int rp_follower_commit(i64* commit, i64* last_visible, const i64* flushed,

@@ -6,6 +6,8 @@
 //                         (R a multiple of 8 at aligned addresses) with the
 //                         streaming hint, else slot by slot
 //   row_health            ops/health.py:39 for one row held in registers
+//   count_row             a row's part of the mesh frame's fleet totals
+//                         (redpanda_tpu/parallel/mesh_frame.py:63)
 
 #pragma once
 
@@ -90,4 +92,19 @@ __device__ __forceinline__ HealthRow row_health(const i64 (&m)[N], unsigned trac
     }
     const bool lead = leader && active;
     return HealthRow{lead ? worst : 0, lead && trails, active && !leader && !known};
+}
+
+// The fleet totals' counters, in the order of ops/health.py TOTALS.
+enum { T_ADVANCED, T_MAX_LAG, T_UNDER, T_LEADERLESS, T_ACTIVE, T_N };
+
+// Add one row to a thread's totals: `advanced` when its commit moved in
+// the frame; max_lag by max (never negative, so 0 is the initial value),
+// the rest by sum.
+__device__ __forceinline__ void count_row(i64 (&t)[T_N], const HealthRow& x, bool advanced,
+                                          bool active) {
+    t[T_ADVANCED] += advanced;
+    t[T_MAX_LAG] = imax(t[T_MAX_LAG], x.max_lag);
+    t[T_UNDER] += x.under;
+    t[T_LEADERLESS] += x.leaderless;
+    t[T_ACTIVE] += active;
 }

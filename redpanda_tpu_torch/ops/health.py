@@ -23,8 +23,10 @@ the post-advance lanes: on the card one cooperative launch
 sweep's registers), on the CPU the plain versions in order.
 `health_totals` is the same
 reduction over lanes laid out as D chip blocks of contiguous rows, fused
-with the mesh frame's fleet totals (parallel/mesh_frame.py): per-block
-partials, then one fold over the blocks. `health_reduce_np` is the
+with the fleet totals (parallel/mesh_frame.py `mesh_health`, and the
+CPU form of `mesh_tick_frame`): per-block partials, then one fold over
+the blocks. On the card the mesh frame takes its health and totals
+inside its sweep (`ops.quorum.launch_mesh_frame`). `health_reduce_np` is the
 numpy mirror the host backend uses; the scalar oracle for
 differential testing is `raft.health_scalar`.
 """
@@ -115,11 +117,7 @@ def health_reduce(
         return health_reduce_plain(
             match, commit, is_voter, is_voter_old, is_leader, leader_known, active
         )
-    out = {
-        "max_lag": torch.empty(g, dtype=torch.int64, device=dev),
-        "under_replicated": torch.empty(g, dtype=torch.bool, device=dev),
-        "leaderless": torch.empty(g, dtype=torch.bool, device=dev),
-    }
+    out = q._health_lanes(g, dev)
     if g:
         lib = _lib()
         rc = lib.rp_health_reduce(
@@ -193,11 +191,7 @@ def health_totals(
             match, commit, is_voter, is_voter_old, is_leader, leader_known, active,
             n_blocks, before,
         )
-    out = {
-        "max_lag": torch.empty(g, dtype=torch.int64, device=dev),
-        "under_replicated": torch.empty(g, dtype=torch.bool, device=dev),
-        "leaderless": torch.empty(g, dtype=torch.bool, device=dev),
-    }
+    out = q._health_lanes(g, dev)
     partials = torch.zeros((n_blocks, len(TOTALS)), dtype=torch.int64, device=dev)
     totals = torch.zeros(len(TOTALS), dtype=torch.int64, device=dev)
     if g:

@@ -26,6 +26,9 @@ loops:
 * `heartbeat_tick` — the fused tick as a launch sequence: fold, then
   commit. `tick_frame` — fold, commit and gather in ONE cooperative
   launch (`launch_frame`, which also takes ops.health's row health).
+  `launch_mesh_frame` — the mesh frame (parallel/mesh_frame.py): the
+  fold, then one sweep that also takes each row's health and the fleet
+  totals.
 
 * `follower_commit_step` — the follower-side rule
   (consensus.cc:2760-2777): commit = min(leader_commit, flushed),
@@ -64,6 +67,7 @@ LAUNCHES = {
     "quorum_commit_step": 0,
     "build_heartbeats": 0,
     "tick_frame": 0,
+    "mesh_tick_frame": 0,
     "follower_commit_step": 0,
     "local_append_update": 0,
 }
@@ -79,6 +83,7 @@ def bind(lib):
     _build.bind(lib, "rp_commit_step", 8, 2)
     _build.bind(lib, "rp_build_heartbeats", 9, 3)
     _build.bind(lib, "rp_tick_frame", 25, 4)
+    _build.bind(lib, "rp_mesh_sweep", 17, 2)
     lib.rp_frame_grid.argtypes = [ctypes.c_int64] * 5 + [ctypes.c_void_p]
     lib.rp_frame_grid.restype = ctypes.c_int
     _build.bind(lib, "rp_follower_commit", 4, 2)
@@ -483,6 +488,18 @@ def frame_grid(m: int, g: int, r: int, h: int, aligned: bool = True) -> tuple[in
     return int(out[0]), int(out[1]), int(out[2])
 
 
+# the frame kernels' argument orders: the state's lanes, the health lanes
+LANE_ORDER = ("term", "is_leader", "commit_index", "term_start", "last_visible",
+              "match_index", "flushed_index", "last_seq", "is_voter", "is_voter_old")
+HEALTH_KEYS = ("max_lag", "under_replicated", "leaderless")
+
+
+def _health_lanes(g: int, dev) -> dict:
+    """Uninitialised health lanes for g rows (ops.health.health_reduce's)."""
+    return {k: torch.empty(g, dtype=torch.int64 if k == "max_lag" else torch.bool, device=dev)
+            for k in HEALTH_KEYS}
+
+
 def launch_frame(
     state: GroupState,
     replies: tuple,  # (group_idx, replica_slot, last_dirty, last_flushed, seq)
@@ -519,22 +536,16 @@ def launch_frame(
     if leader_known is not None:
         for name, t in (("leader_known", leader_known), ("active", active)):
             check_tensor(t, torch.bool, (g,), dev, name)
-        health = {
-            "max_lag": torch.empty(g, dtype=torch.int64, device=dev),
-            "under_replicated": torch.empty(g, dtype=torch.bool, device=dev),
-            "leaderless": torch.empty(g, dtype=torch.bool, device=dev),
-        }
+        health = _health_lanes(g, dev)
     if g:
         health_ptrs = [None] * 5
         if health is not None:
             health_ptrs = [leader_known.data_ptr(), active.data_ptr()] + [
-                health[k].data_ptr() for k in ("max_lag", "under_replicated", "leaderless")
+                health[k].data_ptr() for k in HEALTH_KEYS
             ]
         lib = _lib()
         rc = lib.rp_tick_frame(
-            *(getattr(state, k).data_ptr() for k in (
-                "term", "is_leader", "commit_index", "term_start", "last_visible",
-                "match_index", "flushed_index", "last_seq", "is_voter", "is_voter_old")),
+            *(getattr(state, k).data_ptr() for k in LANE_ORDER),
             *(t.data_ptr() for t in replies),
             hb_idx.data_ptr(),
             *(hb[k].data_ptr() for k in ("term", "commit_index", "last_dirty", "last_visible")),
@@ -545,3 +556,66 @@ def launch_frame(
         _build.check(lib, rc, "tick_frame")
         LAUNCHES["tick_frame"] += 1
     return state, {"group": hb_idx, **hb}, health
+
+
+# ----------------------------------------------------- the mesh frame
+N_TOTALS = 5  # ops.health.TOTALS
+# csrc/chip_blocks.cuh TOTALS_SCRATCH: 32 sets of accumulators, one
+# 128-byte line each, then the last-block ticket
+TOTALS_SCRATCH = 32 * 16 + 1
+
+_TOTALS_SCRATCH: dict = {}
+
+
+def _totals_scratch(dev, stream: int) -> torch.Tensor:
+    """The fleet totals' accumulators and last-block ticket for launches
+    on one stream: zeroed once, and every launch leaves them zero."""
+    key = (dev.index, stream)
+    t = _TOTALS_SCRATCH.get(key)
+    if t is None:
+        t = _TOTALS_SCRATCH[key] = torch.zeros(TOTALS_SCRATCH, dtype=torch.int64, device=dev)
+    return t
+
+
+def launch_mesh_frame(
+    state: GroupState,
+    replies: tuple,              # (group_idx, replica_slot, last_dirty, last_flushed, seq)
+    leader_known: torch.Tensor,  # [G] bool
+    active: torch.Tensor,        # [G] bool
+) -> tuple[GroupState, dict, torch.Tensor]:
+    """The mesh frame on the card, reading each row once: the fold
+    kernel (one cooperative launch; every guard against the pre-batch
+    last_seq), then the mesh sweep kernel, which sweeps every row, takes
+    its health against the new commit from the same registers
+    (ops.health.health_reduce's outputs) and counts it into the five fleet
+    totals in ops.health.TOTALS order (`advanced`: new commit > old
+    commit), folded over the blocks in the same launch. Updates the state
+    in place; returns it, the health lanes and the [5] i64 totals."""
+    check_state(state)
+    dev = state.match_index.device
+    g, r = state.match_index.shape
+    if not 1 <= r <= MAX_REPLICA_SLOTS:
+        raise ValueError(f"replica_slots={r} outside [1, {MAX_REPLICA_SLOTS}]")
+    if not _on_card(state):
+        raise ValueError("launch_mesh_frame runs on CUDA tensors")
+    for name, t in (("leader_known", leader_known), ("active", active)):
+        check_tensor(t, torch.bool, (g,), dev, name)
+    fold_replies(state, *replies)  # checks the reply columns
+    health = _health_lanes(g, dev)
+    if g == 0:
+        return state, health, torch.zeros(N_TOTALS, dtype=torch.int64, device=dev)
+    totals = torch.empty(N_TOTALS, dtype=torch.int64, device=dev)
+    stream = _build.stream_of(state.match_index)
+    lib = _lib()
+    rc = lib.rp_mesh_sweep(
+        *(getattr(state, k).data_ptr() for k in LANE_ORDER),
+        leader_known.data_ptr(),
+        active.data_ptr(),
+        *(health[k].data_ptr() for k in HEALTH_KEYS),
+        _totals_scratch(dev, stream).data_ptr(),
+        totals.data_ptr(),
+        g, r, stream,
+    )
+    _build.check(lib, rc, "mesh_tick_frame")
+    LAUNCHES["mesh_tick_frame"] += 1
+    return state, health, totals

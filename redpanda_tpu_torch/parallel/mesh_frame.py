@@ -13,12 +13,25 @@ over `make_mesh()` and runs one compiled program per frame:
     — the one cross-chip fold per frame.
 
 Here the D chip blocks are contiguous row ranges on one card
-(parallel/mesh.py), and the frame is a launch sequence on one stream:
-the two fold launches and the commit sweep of ops/quorum.py, which are
-row-wise and so chip-local by construction, then `health_totals`
-(ops/health.py, csrc/health.cu), which reduces each chip block's
-partials and folds them over the blocks. The heartbeat gather is not
-in the frame: on the mesh backend it is served from the host mirrors.
+(parallel/mesh.py), and the frame reads each row once
+(ops/quorum.launch_mesh_frame, csrc/quorum.cu): the fold kernel (one
+cooperative launch, every seq guard against the pre-batch last_seq),
+then the mesh sweep kernel, which sweeps every row, takes the row's
+health against its new commit from the same registers and counts the
+row into the five fleet totals (`advanced` compares the commit it loaded
+with the one it wrote, so no copy of the commit lane is taken). The
+totals are sums and a max over all rows, which do not depend on how rows
+are grouped, so the kernel does not attribute rows to chip blocks: each
+CUDA block reduces its own rows and adds them into one of 32 accumulator
+sets, and the last block to finish folds the sets into the [5] totals
+(a ticket, csrc/chip_blocks.cuh grid_totals) — the frame's one
+cross-chip fold, still counted once a frame (devplane.count_fold). The
+accumulators and the ticket are per stream (ops/quorum._totals_scratch),
+so frames on two streams do not share them. On the CPU the frame is the
+plain chain: heartbeat_tick, then health_totals against a copy of the
+commit lane. The heartbeat gather is not in the frame: on the mesh
+backend it is served from the host mirrors. `mesh_health` (the read
+path's refresh) is `health_totals`, per chip block then folded.
 
 `RP_MESH_DEVICES=n` sets D (default: every visible CUDA card); since
 the blocks share one card, n may exceed the card count. Capacity
@@ -67,7 +80,16 @@ def mesh_tick_frame(
     """One mesh frame over `n_devices` chip blocks: fold + commit
     advance + health, all chip-local, plus the fleet totals (0-d i64
     tensors) folded once across the blocks. Updates the state's lanes in
-    place and returns it."""
+    place and returns it. On the card one pass over the rows
+    (ops.quorum.launch_mesh_frame); on the CPU the plain chain."""
+    g = state.match_index.shape[0]
+    if n_devices < 1 or g % n_devices:
+        raise ValueError(f"{g} rows do not split into {n_devices} equal chip blocks")
+    if q._on_card(state):
+        state, health, totals = q.launch_mesh_frame(
+            state, (group_idx, replica_slot, last_dirty, last_flushed, seq), leader_known, active
+        )
+        return state, health, _totals(totals, health_ops.TOTALS)
     before = state.commit_index.clone()
     state = q.heartbeat_tick(state, group_idx, replica_slot, last_dirty, last_flushed, seq)
     health, totals = health_ops.health_totals(

@@ -6,10 +6,15 @@ same lanes out as D chip blocks on device="cpu" and runs the plain
 versions of its kernels (the fold, the commit sweep and health_totals).
 The same seeded schedule goes through both ShardGroupArrays with
 RP_MESH_FULL=1 at D in {1, 2, 3, 8}: the advanced-row sets, every lane
-and the fleet totals must be equal. Every output is an integer or a
-bool, so the tolerance is exact equality.
+and the fleet totals must be equal. The card's one-pass mesh frame
+(ops.quorum.launch_mesh_frame: the fold kernel, then the mesh sweep
+kernel) and its one-launch alternative (chip_quorum.py MESH_COOP) are
+replayed in numpy (tests/test_torch_quorum.py) and held against the JAX
+mesh_tick_frame on lanes sharded over D virtual devices. Every output
+is an integer or a bool, so the tolerance is exact equality.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,12 +22,15 @@ import torch
 
 import chip_smoke
 from redpanda_tpu.models import consensus_state as jcs
+from redpanda_tpu.parallel import mesh as jmesh
 from redpanda_tpu.parallel import mesh_frame as jmf
 from redpanda_tpu.raft.shard_state import ShardGroupArrays as JaxArrays
 from redpanda_tpu_torch.models import consensus_state as tcs
+from redpanda_tpu_torch.ops import health as th
 from redpanda_tpu_torch.parallel import mesh as tmesh
 from redpanda_tpu_torch.parallel import mesh_frame as tmf
 from redpanda_tpu_torch.raft.shard_state import ShardGroupArrays as TorchArrays
+from test_torch_quorum import FRAME_GRIDS, _replay_frame, _replay_mesh_sweep, edge_fields, mixed_index_replies
 
 G, ROUNDS, PER_ROUND = 1024, 5, 512
 LANES = chip_smoke.LANES + chip_smoke.HEALTH_LANES
@@ -195,3 +203,73 @@ def test_chip_smoke_mesh_phase_on_cpu(devices, g, monkeypatch):
     at 1M rows on the card) here on the CPU at a small size."""
     out = chip_smoke.run_mesh_slice(g, devices, "cpu", window=64, big_window=512, windows=3, big_windows=1)
     assert out["frames"] == 5 and out["advanced_rows"] > 0
+
+
+# (D, rows before padding): one block of 1,000 rows; 21- and 13-row chip
+# blocks (fewer than 32 rows); 334- and 125-row blocks (not a multiple of
+# 32, several CUDA blocks)
+MESH_SHAPES = ((1, 1000), (3, 61), (3, 1000), (8, 100), (8, 1000))
+
+
+def _pad_rows(a, d):
+    """Pad the row axis to a multiple of d with neutral (zero) rows, as
+    both MeshFrames place their lanes."""
+    pad = (-len(a)) % d
+    return np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)]) if pad else a
+
+
+@pytest.mark.parametrize("case", ("mixed", "no_replies", "no_advance"))
+@pytest.mark.parametrize("r", (3, 8, 12, 32))
+@pytest.mark.parametrize("devices,g0", MESH_SHAPES)
+def test_mesh_frame_kernels_match_jax(devices, g0, r, case, monkeypatch):
+    """The mesh frame's plain chain and both launch designs, replayed
+    (the fold kernel, then the mesh sweep kernel; one cooperative launch
+    with the fleet totals at a spread and a one-block grid), equal to
+    the JAX mesh_tick_frame on lanes sharded over D devices,
+    exactly: every lane, the health lanes and the five totals. Cases:
+    replies with duplicate pairs, stale seqs, padding and out-of-range
+    rows and slots; no replies (M = 0: no fold, no barrier); and a frame
+    in which no row leads, so none advances and max_follower_lag keeps
+    its initial 0."""
+    rng = np.random.default_rng(1000 * devices + g0 + r)
+    fields = edge_fields(rng, g0, r)
+    if case == "no_advance":
+        fields["is_leader"][:] = False
+    known, active = rng.random(g0) < 0.5, rng.random(g0) < 0.9
+    fields = {k: _pad_rows(v, devices) for k, v in fields.items()}
+    known, active = _pad_rows(known, devices), _pad_rows(active, devices)
+    g = len(known)
+    replies = mixed_index_replies(rng, g, r, m=min(3 * g // 2, 700))
+    if case == "no_replies":
+        replies = [a[:0] for a in replies]
+
+    mesh = jmesh.make_mesh(devices)
+    jstate = jmesh.shard_group_state(jcs.GroupState(**{k: jnp.asarray(v) for k, v in fields.items()}), mesh)
+    js, jhealth, jtot = jax.jit(jmf.mesh_tick_frame)(
+        jstate, *map(jnp.asarray, replies), *(jmesh.place_rows(jnp.asarray(a), mesh) for a in (known, active)))
+    want = {k: np.asarray(getattr(js, k)) for k in tcs.FIELD_DTYPES}
+    want_h = {k: np.asarray(v) for k, v in jhealth.items()}
+    want_t = [int(jtot[k]) for k in th.TOTALS]
+    if case == "no_advance":
+        assert want_t[:2] == [0, 0]
+    elif case == "mixed":
+        assert want_t[0] > 0
+
+    ts, thealth, ttot = tmf.mesh_tick_frame(
+        tcs.group_state_from_numpy(fields, "cpu"), *map(torch.from_numpy, replies),
+        torch.from_numpy(known), torch.from_numpy(active), devices)
+    got = [("plain", tcs.group_state_to_numpy(ts), {k: v.numpy() for k, v in thealth.items()},
+            [int(ttot[k]) for k in th.TOTALS])]
+    hb = np.zeros(0, np.int64)
+    for name, (sms, occ) in FRAME_GRIDS.items():
+        lanes, _, health, totals, _ = _replay_frame(fields, replies, hb, known, active, sms, occ, seed=r,
+                                                    totals=True)
+        got.append((f"one launch, {name}", lanes, health, list(totals)))
+    lanes, health, totals = _replay_mesh_sweep(fields, replies, known, active, seed=r)
+    got.append(("fold, then sweep", lanes, health, list(totals)))
+    for label, lanes, health, totals in got:
+        for k in tcs.FIELD_DTYPES:
+            np.testing.assert_array_equal(lanes[k], want[k], err_msg=f"{label}: {k}")
+        for k in want_h:
+            np.testing.assert_array_equal(health[k], want_h[k], err_msg=f"{label}: {k}")
+        assert totals == want_t, label

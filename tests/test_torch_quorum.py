@@ -700,8 +700,48 @@ def _replay_health(m, tracked, commit, leader, active, known):
             "leaderless": active & ~leader & ~known}
 
 
+TOTALS_MAX = 1  # the one counter of ops.health.TOTALS folded by max (max_follower_lag)
+
+
+def _row_counts(old_commit, new_commit, health, active):
+    """count_row for every row: [G, 5] in ops.health.TOTALS order."""
+    return np.stack([new_commit > old_commit, health["max_lag"], health["under_replicated"],
+                     health["leaderless"], active], axis=1).astype(np.int64)
+
+
+def _block_partials(counts, row_block, blocks):
+    """block_partials: each CUDA block's counters over its rows."""
+    return np.stack([_fold(counts[row_block == b]) for b in range(blocks)])
+
+
+TOTALS_SETS = 32  # csrc/chip_blocks.cuh: grid_totals' accumulator sets
+
+
+def _fold(rows):
+    """Sum each counter over the rows of `rows`, max for max_follower_lag
+    (initial 0)."""
+    out = rows.sum(axis=0)
+    out[TOTALS_MAX] = rows[:, TOTALS_MAX].max(initial=0)
+    return out
+
+
+def _grid_totals(partials, seed):
+    """grid_totals: block b's atomics into accumulator set b mod 32 (all
+    zero at the launch) and its ticket, in a seeded finishing order; the
+    block that draws the last ticket folds the 32 sets, one a lane, and
+    leaves them and the ticket zero for the next launch."""
+    acc, ticket, out = np.zeros((TOTALS_SETS, partials.shape[1]), np.int64), 0, None
+    for b in np.random.default_rng(seed).permutation(len(partials)):
+        acc[b % TOTALS_SETS] = _fold(np.stack([acc[b % TOTALS_SETS], partials[b]]))
+        ticket += 1
+        if ticket == len(partials):
+            out, acc, ticket = _fold(acc), np.zeros_like(acc), 0
+    assert out is not None and not acc.any() and ticket == 0
+    return out
+
+
 def _replay_frame(fields, replies, hb_idx, known=None, active=None, sms=132,
-                  occupancy=lambda t, smem: 3, seed=0, barrier2=True):
+                  occupancy=lambda t, smem: 3, seed=0, barrier2=True, totals=False):
     """tick_frame_kernel on numpy lanes at frame_grid's grid, blocks in
     seeded orders. A: the fold phase with barrier 1 (_replay_fold at the
     frame's grid). B: block b sweeps its rows from the post-fold lanes
@@ -710,7 +750,11 @@ def _replay_frame(fields, replies, hb_idx, known=None, active=None, sms=132,
     the lanes as they stand. Rows and heartbeat rows are dealt in 32-row
     chunks round-robin over the grid's warps (chunk c to warp c mod W,
     warp w to block w mod blocks). barrier2=False runs B then C block by
-    block. Returns (lanes, heartbeat fields, health or None, grid)."""
+    block. `totals` (with health): the mesh frame's one-launch design (A,
+    chip_quorum.py MESH_COOP, which runs this kernel's fold and sweep with
+    no heartbeat rows), each block's rows counted and folded by
+    grid_totals. Returns (lanes, heartbeat fields, health or None, totals
+    or None, grid)."""
     g_n, r_n = fields["match_index"].shape
     m, h = len(replies[0]), len(hb_idx)
     grid = _frame_grid(m, g_n, h, sms, occupancy)
@@ -755,13 +799,70 @@ def _replay_frame(fields, replies, hb_idx, known=None, active=None, sms=132,
         for b in rng.permutation(blocks):
             sweep(b)
             gather(b)
-    return out, {"group": hb_idx, **hb}, health, grid
+    fleet = None
+    if totals:
+        counts = _row_counts(fields["commit_index"], out["commit_index"], health, active)
+        fleet = _grid_totals(_block_partials(counts, row_block, blocks), seed + 2)
+    return out, {"group": hb_idx, **hb}, health, fleet, grid
+
+
+MESH_BLOCK_ROWS = 128 * 4  # mesh_sweep_kernel: COMMIT_THREADS threads, MESH_ROWS rows a thread
+
+
+def _replay_mesh_sweep(fields, replies, known, active, seed=0):
+    """The mesh frame as the fold kernel (_replay_fold at fold_grid's
+    grid) and then mesh_sweep_kernel: 512 consecutive rows a block, each
+    row swept and its health taken from the same registers, the blocks'
+    counters folded by grid_totals. Returns (lanes, health, totals)."""
+    out = {k: np.array(v, copy=True) for k, v in fields.items()}
+    if len(replies[0]):
+        out, _ = _replay_fold(fields, replies, seed=seed)
+    swept = _replay_commit(out)
+    mrow, _, vm, om = _row_registers(out)
+    health = _replay_health(mrow, vm | om, swept["commit_index"], out["is_leader"], active, known)
+    g_n = len(out["commit_index"])
+    counts = _row_counts(out["commit_index"], swept["commit_index"], health, active)
+    blocks = max(1, -(-g_n // MESH_BLOCK_ROWS))
+    fleet = _grid_totals(_block_partials(counts, np.arange(g_n) // MESH_BLOCK_ROWS, blocks), seed + 2)
+    return {**out, "commit_index": swept["commit_index"], "last_visible": swept["last_visible"]}, health, fleet
 
 
 FRAME_GRIDS = {  # (SMs, occupancy): the rows and replies spread over blocks, or one block
     "spread": (132, lambda t, smem: 3),
     "one_block": (1, lambda t, smem: 1),
 }
+
+
+@pytest.mark.parametrize("design", ["fold_then_sweep", "one_launch"])
+def test_kernel_replay_mesh_frame_many_blocks(design):
+    """Both mesh frame designs, replayed at 40,000 rows (79 sweep blocks
+    of 512 rows, the last one partial, or 157 co-resident blocks: more
+    blocks than accumulator sets), equal to the plain chain exactly:
+    every lane, the health lanes and the five totals."""
+    from redpanda_tpu_torch.ops import health as th
+
+    rng = np.random.default_rng(140)
+    g, r = 40_000, 8
+    fields = random_fields(rng, g, r)
+    replies = random_replies(rng, g, r, 600, pad=24)
+    known, active = rng.random(g) < 0.5, rng.random(g) < 0.9
+    if design == "fold_then_sweep":
+        lanes, health, totals = _replay_mesh_sweep(fields, replies, known, active, seed=3)
+    else:
+        lanes, _, health, totals, (blocks, _, _) = _replay_frame(
+            fields, replies, np.zeros(0, np.int64), known, active, totals=True, seed=3)
+        assert blocks > TOTALS_SETS
+    state = torch_state(fields)
+    before = state.commit_index.clone()
+    state = tq.quorum_commit_step(tq.fold_replies(state, *map(tvec, replies)))
+    want_h, want_t = th.health_totals(state.match_index, state.commit_index, state.is_voter,
+                                      state.is_voter_old, state.is_leader, torch.from_numpy(known),
+                                      torch.from_numpy(active), 1, before=before)
+    assert_states_equal(state, torch_state(lanes))
+    for k in want_h:
+        np.testing.assert_array_equal(health[k], want_h[k].numpy(), err_msg=k)
+    np.testing.assert_array_equal(totals, want_t.numpy())
+    assert totals[0] > 0 and totals[1] > 0
 
 
 @pytest.mark.parametrize("grid", list(FRAME_GRIDS))
@@ -784,7 +885,7 @@ def test_kernel_replay_frame_matches_jax(r, health, grid):
     hb = mixed_hb_rows(rng, g, h=400)
     known, active = rng.random(g) < 0.5, rng.random(g) < 0.9
     sms, occ = FRAME_GRIDS[grid]
-    got, got_hb, got_h, (blocks, threads, its) = _replay_frame(
+    got, got_hb, got_h, _, (blocks, threads, its) = _replay_frame(
         fields, replies, hb, known if health else None, active, sms, occ, seed=r)
     assert (blocks, its) == ((3, 1) if grid == "spread" else (1, 3))
     js, jr, jhb = jax_state(fields), list(map(jnp.asarray, replies)), jnp.asarray(hb)
@@ -847,16 +948,18 @@ def test_frame_grid_fits_co_residency(m):
         assert -(-m // (fewer * threads)) > occ(threads, fewer * words) * sms
 
 
-@pytest.mark.parametrize("case", ["cpu_state", "known_without_active"])
+@pytest.mark.parametrize("case", ["cpu_state", "known_without_active", "mesh_cpu_state"])
 def test_launch_frame_refuses(case):
-    """The frame kernel's wrapper takes CUDA tensors only (no silent CPU
-    fallback: tick_frame routes CPU state to the plain chain itself) and
-    both health flags or neither."""
+    """The frame kernels' wrappers take CUDA tensors only (no silent CPU
+    fallback: tick_frame and mesh_tick_frame route CPU state to the plain
+    chain themselves) and both health flags or neither."""
     fields = random_fields(np.random.default_rng(130), 16, 8)
     replies = list(map(tvec, random_replies(np.random.default_rng(131), 16, 8, 20)))
     known = torch.zeros(16, dtype=torch.bool)
     with pytest.raises(ValueError):
         if case == "cpu_state":
             tq.launch_frame(torch_state(fields), replies, tvec(np.arange(4)))
+        elif case == "mesh_cpu_state":
+            tq.launch_mesh_frame(torch_state(fields), replies, known, known)
         else:
             tq.launch_frame(torch_state(fields), replies, tvec(np.arange(4)), known, None)
