@@ -43,18 +43,25 @@ Phases, each raising on any mismatch:
      where the size pass loads cells one by one (rows of 17 cells; parse
      vectors off a 16-byte boundary): equal parse vectors, equal lengths
      and equal bytes on [0, out_len);
-     and the fused CRC + codec launch sequences' CRCs against the plain
-     CRC;
+     and at the fused shape `_fused` (the path 256 rows take: the cluster
+     kernel rp_fused_lz4, csrc/fused.cu) exact against the plain chain
+     (CRC, lengths, block bytes), and `_fused_snappy`'s CRCs (its launch
+     sequence) against the plain CRC;
   5b. the kernels at the shapes one call gives them, each exact against
      its plain version and timed: CRC, parse and LZ4 emission on phase
-     6's one fused row (one 16 x 1 KiB batch), the zstd encode on phase
+     6's one fused row (one 16 x 1 KiB batch), and `_fused` there (one
+     cluster launch) beside the empty cluster launch at its shape and the
+     three-launch sequence it replaced, and on the parse's skew edges at
+     one row (one byte, distinct 4-grams, random bytes at v in {0, 1, 3,
+     4, 5} and full, n = 512 and 65,536; the host CRC), the zstd encode on phase
      8b's one row and the decode of that block's four streams, and the
      parse and both emissions on two full-width 64 KiB skew edges (one
      repeated byte; all 4-grams distinct); beside them the per-launch
      floor, one empty kernel launch timed the same way;
   6. the codec path end to end: 1,024 batches (16 x 1 KiB records, half
      JSON-like text, half random bytes) through RecordBatch.recompressed
-     (lz4) under RP_CODEC_BACKEND=device, each CRC checked on the card
+     (lz4) under RP_CODEC_BACKEND=device (one launch of the fused
+     cluster kernel a batch), each CRC checked on the card
      against the host CRC and each frame decoded back here (pure-Python
      LZ4 and snappy decoders: the image need not carry liblz4 or
      libsnappy), a flipped wire CRC refused, and 16 x 64 KiB buffers
@@ -123,6 +130,7 @@ import numpy as np
 
 from redpanda_tpu_torch.ops import cellparse as parse_ops
 from redpanda_tpu_torch.ops import crc32c as crc_ops
+from redpanda_tpu_torch.ops import fused as fused_ops
 from redpanda_tpu_torch.ops import health as health_ops
 from redpanda_tpu_torch.ops import lz4 as lz4_ops
 from redpanda_tpu_torch.ops import quorum as quorum_ops
@@ -154,6 +162,7 @@ KERNELS = {
     "cell_parse": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/cellparse.py:30", parse_ops.LAUNCHES),
     "lz4_emit": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/lz4.py:59", lz4_ops.LAUNCHES),
     "snappy_emit": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/snappy.py:52", snappy_ops.LAUNCHES),
+    "fused_lz4": ("redpanda_tpu_torch/csrc/fused.cu", "redpanda_tpu/ops/fused.py:42", fused_ops.LAUNCHES),
     "zstd_encode": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:190", zstd_ops.LAUNCHES),
     "zstd_decode": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:274", zstd_ops.LAUNCHES),
     "health_totals": ("redpanda_tpu_torch/csrc/health.cu", "redpanda_tpu/parallel/mesh_frame.py:103", health_ops.LAUNCHES),
@@ -1130,30 +1139,125 @@ def phase_codec_kernels(torch, mem_rate: float) -> dict:
         if label == "fused":
             crc_lens = valid.to(torch.int64) + fused.PREFIX
             want_crc = crc_ops.crc32c_device_plain(data, crc_lens)
+            want_parse = parse_ops.cell_parse_plain(data, valid, n, offset)
+            path = fused_path(data, n)
             for key, seq, emit_plain in (
                 ("fused_lz4", fused._fused, lz4_ops.lz4_emit_plain),
                 ("fused_snappy", fused._fused_snappy, snappy_ops.snappy_emit_plain),
             ):
-                crc, _, f_len = seq(data, valid, n)
+                crc, f_out, f_len = seq(data, valid, n)
                 torch.cuda.synchronize()
                 crc_err = float((crc - want_crc).abs().max())
                 if crc_err != 0.0:
                     raise AssertionError(f"{key}: fused CRC differs from the plain CRC")
+                if key == "fused_lz4":  # its block too: the path B rows take (plan)
+                    crc_err = fused_err(torch, (crc, f_out, f_len),
+                                        (want_crc, *emit_plain(data, valid, want_parse, n, offset)), f"{key}@{label}")
 
                 def plain(emit_plain=emit_plain):
                     crc_ops.crc32c_device_plain(data, crc_lens)
                     emit_plain(data, valid, parse_ops.cell_parse_plain(data, valid, n, offset), n, offset)
 
                 out[key] = {
-                    "shape": shape, "max_abs_err": crc_err,
+                    "shape": f"{shape} " + (path if key == "fused_lz4" else "sequence"), "max_abs_err": crc_err,
                     "ms": time_kernel(lambda: seq(data, valid, n), reps=10),
                     "plain_ms": time_plain(plain, reps=1),
-                    # prefix and body of every row and lens read once; the
-                    # CRC (int64) and the block bytes and lengths written
-                    "bound_ms": bound(v_sum + fused.PREFIX * b + 8 * b + 8 * b + int(f_len.sum()) + 4 * b),
+                    "bound_ms": fused_bound_ms(valid, f_len, mem_rate),
                 }
     log_rows("codec", out)
     return out
+
+def fused_path(data, n: int) -> str:
+    """The cluster size `fused._fused` launches these rows at (ops/fused.py plan)."""
+    return f"cluster C={fused_ops.plan_for(data, n)}"
+
+
+def fused_bound_ms(valid, f_len, mem_rate: float) -> float:
+    """The fused CRC + LZ4's bytes bound: each row's prefix and body and
+    its int32 length read once; the CRC (int64), the block bytes and the
+    int32 length written once."""
+    b = valid.shape[0]
+    return (int(valid.sum()) + fused_ops.PREFIX * b + 4 * b + 8 * b + int(f_len.sum()) + 4 * b) / mem_rate * 1e3
+
+
+def fused_err(torch, got, want, what: str) -> float:
+    """`_fused`'s outputs against the plain chain's, exact: the CRCs, the
+    lengths and the block bytes on [0, out_len). Returns max_abs_err."""
+    crc, out, out_len = got
+    w_crc, w_out, w_len = want
+    torch.cuda.synchronize()
+    if not (torch.equal(crc.cpu(), w_crc.cpu()) and torch.equal(out_len.cpu(), w_len.cpu())):
+        raise AssertionError(f"{what}: the CRC or out_len differs from the plain chain")
+    cols = torch.arange(out.shape[1], device=out.device)[None, :] < out_len[:, None].long()
+    diff = (torch.where(cols, out, 0).int() - torch.where(cols, w_out.to(out.device), 0).int()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if err != 0.0:
+        raise AssertionError(f"{what}: block bytes on [0, out_len) differ from the plain chain")
+    return err
+
+
+def fused_plain(torch, data, valid, n: int, host_crc: bool = False):
+    """The plain chain of `_fused` on the same rows: the CRC over prefix ||
+    body (the plain CRC, or the host's utils/crc), the plain parse and the
+    plain LZ4 emission."""
+    from redpanda_tpu_torch.utils import crc as host
+
+    off = fused_ops.PREFIX
+    if host_crc:
+        rows, lens = data.cpu().numpy(), valid.cpu().numpy()
+        crc = torch.tensor([host.crc32c(rows[i, : off + int(lens[i])].tobytes()) for i in range(rows.shape[0])],
+                           dtype=torch.int64)
+    else:
+        crc = crc_ops.crc32c_device_plain(data, valid.to(torch.int64) + off)
+    parse = parse_ops.cell_parse_plain(data, valid, n, off)
+    return (crc, *lz4_ops.lz4_emit_plain(data, valid, parse, n, off))
+
+
+def fused_row(torch, data, valid, n: int, mem_rate: float) -> dict:
+    """`_fused` on phase 6's one row: exact against the plain chain, timed
+    beside its bound, its plain chain, the empty cluster launch at its
+    shape (the floor) and the three-launch sequence it replaced."""
+    c = fused_ops.plan_for(data, n)
+    got = fused_ops._fused(data, valid, n)
+    err = fused_err(torch, got, fused_plain(torch, data, valid, n), "fused_lz4@row")
+    smem, clusters = fused_ops.shape_info(n, c)
+    return {
+        "shape": f"row: B=1 n={n} bytes={int(valid.sum())} {fused_path(data, n)} smem={smem} clusters={clusters}",
+        "max_abs_err": err,
+        "ms": time_kernel(lambda: fused_ops._fused(data, valid, n), reps=30),
+        "plain_ms": time_plain(lambda: fused_plain(torch, data, valid, n), reps=2),
+        "bound_ms": fused_bound_ms(valid, got[2], mem_rate),
+        "floor_ms": time_kernel(lambda: fused_ops.launch_empty(data, n, c), reps=30),
+        "sequence_ms": time_kernel(lambda: fused_ops._fused_sequence(data, valid, n), reps=30),
+    }
+
+
+def fused_edges(torch, mem_rate: float) -> dict:
+    """`_fused` at one row on the parse's skew edges: one repeated byte,
+    all 4-grams distinct, random bytes, each at v in {0, 1, 3, 4, 5} and
+    full, at n = 512 and 65,536, exact against the plain chain (the host
+    CRC); the full 65,536-byte rows timed."""
+    rows = {}
+    for n in (512, CODEC_BODY):
+        full = {"one_byte": b"a" * n, "distinct": distinct_grams_row(n),
+                "random": np.random.default_rng(SEED + 33).integers(0, 256, n, dtype=np.uint8).tobytes()}
+        for kind, raw in full.items():
+            for v in (0, 1, 3, 4, 5, n):
+                mat, blen, nn = fused_ops.stage_fused([bytes(range(40))], [raw[:v]])
+                data, valid = torch.from_numpy(mat).cuda(), torch.from_numpy(blen).cuda()
+                got = fused_ops._fused(data, valid, nn)
+                fused_err(torch, got, fused_plain(torch, data, valid, nn, host_crc=True), f"fused_lz4@{kind} v={v}")
+                if n == CODEC_BODY and v == n:
+                    rows[f"fused_lz4@{kind}"] = {
+                        "shape": f"{kind}: B=1 n={nn} bytes={v} {fused_path(data, nn)}",
+                        "ms": time_kernel(lambda: fused_ops._fused(data, valid, nn), reps=30),
+                        "bound_ms": fused_bound_ms(valid, got[2], mem_rate),
+                    }
+    log("[per-call] fused_lz4 at one row on the skew edges (one byte, distinct, random; v in {0,1,3,4,5,n}; "
+        "n = 512, 65536): equal to the plain chain (host CRC), tolerance exact; " +
+        ", ".join(f"{k} {e['shape']} {e['ms']:.4f} ms (bound {e['bound_ms']:.6f})" for k, e in rows.items()))
+    return rows
+
 
 def distinct_grams_row(n: int) -> bytes:
     """n bytes whose n - 3 4-grams are all distinct: the first seeded
@@ -1219,6 +1323,10 @@ def phase_per_call(torch, mem_rate: float) -> dict:
     }}
     rows, _, _ = codec_kernel_rows(torch, data, valid, n, offset, "row", mem_rate, reps=30)
     out.update(rows)
+    out["fused_lz4@row"] = fused_row(torch, data, valid, n, mem_rate)
+    log(f"[per-call] fused_lz4@row: the three-launch sequence it replaced {out['fused_lz4@row']['sequence_ms']:.4f} ms; "
+        f"the empty cluster launch {out['fused_lz4@row']['floor_ms']:.4f} ms")
+    fused_edges(torch, mem_rate)
     out.update(zstd_encode_rows(torch, *inp["row"]["zstd"], "row", mem_rate))
     out.update(zstd_decode_row(torch, inp["items"], "batch", mem_rate))
     for label, staged in inp["edges"].items():
@@ -1416,7 +1524,7 @@ def phase_recompress(torch) -> dict:
         t2 = time.perf_counter()
         snappy_streams = tpu_backend.compress_many_snappy(buffers)
         t3 = time.perf_counter()
-        launches = {k: KERNELS[k][2][k] for k in ("crc32c_device", "cell_parse", "lz4_emit", "snappy_emit")}
+        launches = {k: KERNELS[k][2][k] for k in ("crc32c_device", "cell_parse", "lz4_emit", "snappy_emit", "fused_lz4")}
     raw_in = comp_out = 0
     for b, o in zip(batches, outs):
         if o.header.compression != CompressionType.lz4 or lz4_frame_decode(o.body) != b.body:
@@ -1438,7 +1546,7 @@ def phase_recompress(torch) -> dict:
     )
     with codec_backend("device"):
         stages = recompress_stages(torch, batches[:64])
-    log("[recompress] one call, p50 over 64 batches (host clock; device = the fused launch sequence "
+    log("[recompress] one call, p50 over 64 batches (host clock; device = the fused kernel "
         "on the device clock): " + ", ".join(f"{k} {v:.1f} us" for k, v in stages.items()))
     return {"launches": launches, "ms": secs * 1e3, "stages_us": stages}
 
@@ -1447,7 +1555,7 @@ def recompress_stages(torch, batches) -> dict:
     """Where one recompressed(lz4) call's time goes, p50 over `batches`:
     the whole call, then the fused entry's stages one by one on the
     host clock (each ending in a synchronize, so they add up to more
-    than the call), and the fused launch sequence on the device clock
+    than the call), and `_fused` (one cluster launch) on the device clock
     alone (a spin kernel queued ahead hides the host's enqueue)."""
     from redpanda_tpu_torch.compression import CompressionType, lz4_codec
     from redpanda_tpu_torch.ops import fused
@@ -2695,6 +2803,7 @@ def main() -> int:
     codec = phase_codec_kernels(torch, MEM_BYTES_PER_S)
     for name in ("cell_parse", "lz4_emit", "snappy_emit"):
         results[name] = codec[f"{name}@fused"]
+    results["fused_lz4"] = codec["fused_lz4"]
     per_call = phase_per_call(torch, MEM_BYTES_PER_S)
 
     reset_launches()

@@ -66,11 +66,12 @@
 
 #include <mutex>
 
+#include "crc_ops.cuh"
+
 typedef long long i64;
 
 #define SLICE_WORDS (4 * 256)         // slice-by-4 tables T0..T3
 #define LANE_WORDS (16 * SLICE_WORDS)  // the same, 16 copies in lane banks (64 KiB)
-#define OP_WORDS (8 * 16)              // one operator: eight nibble tables
 #define MAX_DEVICES 64
 
 // The two shapes (ops/crc32c.py builds their operators): a team of ONE_TEAM
@@ -144,15 +145,6 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
-
-// Z^n(v): nibble c of v indexes table c (16 words, so one lookup of a
-// warp touches 16 distinct banks at most: no conflicts)
-__device__ __forceinline__ uint32_t apply_op(const uint32_t* op, uint32_t v) {
-    uint32_t o = 0;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) o ^= op[16 * c + ((v >> (4 * c)) & 15u)];
-    return o;
-}
 
 // Where a lane finds the slice-by-4 tables. With COPIES (built on the
 // host, ops/crc32c.py lane_copies), the tables of the bytes 2q and 2q + 1

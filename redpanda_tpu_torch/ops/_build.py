@@ -26,7 +26,7 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("quorum", "health", "crc32c", "codec", "zstd", "cluster")
+SOURCES = ("quorum", "health", "crc32c", "codec", "fused", "zstd", "cluster")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
