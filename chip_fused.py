@@ -1,41 +1,47 @@
 #!/usr/bin/env python3
-"""On-card breakdown and A/B timing of the fused CRC + LZ4 program (one
-H100): the three-launch sequence of an older tree (CRC, cell parse, LZ4
-emission) against this tree's one cluster launch (`rp_fused_lz4`,
-csrc/fused.cu).
+"""On-card breakdown and A/B timing of the fused CRC + LZ4 and CRC +
+snappy programs (one H100): the three-launch sequences of an older tree
+(CRC, cell parse, LZ4 or snappy emission) against this tree's one
+cluster launch (`rp_fused_lz4`, `rp_fused_snappy`: csrc/fused.cu), and
+the older tree's own `rp_fused_lz4` beside this tree's.
 
     mkdir -p .chipcheck/old
-    for f in codec.cu crc32c.cu; do
+    for f in codec.cu crc32c.cu fused.cu lz77.cuh crc_ops.cuh; do
         git show <commit>:redpanda_tpu_torch/csrc/$f > .chipcheck/old/$f; done
     python3 chip_fused.py breakdown .chipcheck/old [OUT_DIR]
     python3 chip_fused.py ab .chipcheck/old [OUT_DIR]
 
-The old directory holds a tree whose `_fused` is the launch sequence, with
-the C entry points `rp_crc32c`, `rp_cell_parse`, `rp_lz4_emit` and
-`rp_snappy_emit` taking this tree's argument lists: the tree of be95b06.
+The old directory holds a tree whose `_fused_snappy` is the launch
+sequence, with the C entry points `rp_crc32c`, `rp_cell_parse`,
+`rp_lz4_emit`, `rp_snappy_emit` and `rp_fused_lz4` taking this tree's
+argument lists: the tree of 5a3ba4a (for the LZ4 sequence alone, without
+its fused.cu, the tree of be95b06).
 
-Both modes first hold the new kernel exactly (CRC, out_len, the block's
-bytes on [0, out_len)) against the old sequence at every cluster size on
-the skew edges (one repeated byte, all 4-grams distinct, random bytes, a
-zero row, each cut to v in {0, 1, 3, 4, 5} and full, at n = 512 and
-65,536).
+Both modes first hold the new kernels exactly (CRC, out_len, the block's
+bytes on [0, out_len)) against the old sequences at every cluster size
+`plan` can choose on the skew edges (one repeated byte, all 4-grams
+distinct, random bytes, a zero row, each cut to v in {0, 1, 3, 4, 5} and
+full, at n = 512 and 65,536).
 
 `breakdown` (chip_smoke phase 6's one row: one 16 x 1 KiB batch, n =
-32,768): the old sequence and each of its launches alone; the old parse
+32,768): the old sequences and each of their launches alone; the old parse
 cut to its phases (returns after the staging, each sort pass, the
 candidate scatter, the verification, the scans: a copy of its codec.cu
 with a run-time cut); the new kernel cut the same way at each cluster
 size (after the staging, sort pass 0 with the CRC, pass 1, the candidate
 scatter, the verification (plus one cluster barrier so no CTA leaves
-while a peer reads it), exchange 1, exchange 2, heads and literals);
-empty kernels: one plain block, and the cluster launch at each size.
+while a peer reads it), exchange 1, exchange 2, heads and literals),
+with each codec, and its `%globaltimer` marks; empty kernels: one plain
+block, and the cluster launch at each size with each codec's shared
+memory.
 
-`ab`: old and new in turns (old, new at each valid cluster size, then
-the same in reverse) at B in {1, 4, 16, 64, 256} record batches (half
-JSON-like, half random, n = 32,768), at chip_smoke phase 5's fused shape
-(256 rows of 32 KiB bodies), and the standalone kernels the sequence
-keeps (`crc32c_device`, `cell_parse`, `lz4_emit`, `snappy_emit`) at the
-one row, old against this tree's.
+`ab`: old and new in turns (for each codec the old sequence and the new
+kernel at each valid cluster size, for LZ4 also the old tree's kernel,
+then the same in reverse) at B in {1, 4, 16, 64, 256} record batches
+(half JSON-like, half random, n = 32,768), at chip_smoke phase 5's fused
+shape (256 rows of 32 KiB bodies), and the standalone kernels the
+sequences keep (`crc32c_device`, `cell_parse`, `lz4_emit`,
+`snappy_emit`) at the one row, old against this tree's.
 
 Every library is built under .chipcheck/fused (git-ignored) with
 `-Xptxas -v` (registers and spills printed and kept); results are
@@ -220,12 +226,13 @@ def build(sources: dict, ptxas: dict) -> dict:
 
 
 def libraries(old_dir: str, ptxas: dict) -> dict:
-    """The old tree's CRC and codec libraries (the codec also with its
-    parse's cuts), this tree's fused kernel with its cuts, all bound with
-    this tree's argument lists; and this tree's own libraries."""
+    """The old tree's CRC, codec and fused libraries (the codec also with
+    its parse's cuts), this tree's fused kernel with its cuts, all bound
+    with this tree's argument lists; and this tree's own libraries."""
     codec_old = open(os.path.join(old_dir, "codec.cu")).read()
     new_src = open(os.path.join(_build.CSRC_DIR, "fused.cu")).read()
     libs = build({
+        "old_fused": (open(os.path.join(old_dir, "fused.cu")).read(), old_dir),
         "old_crc32c": (open(os.path.join(old_dir, "crc32c.cu")).read(), old_dir),
         "old_codec": (codec_old, old_dir),
         "old_codec_cut": (patched(codec_old, OLD_PARSE_CUTS, "old", SET_CUT), old_dir),
@@ -235,6 +242,7 @@ def libraries(old_dir: str, ptxas: dict) -> dict:
         "new_twice": (patched(patched(new_src, MARKS, "marks", ""), TWICE, "twice", GET_MARKS), _build.CSRC_DIR),
     }, ptxas)
     _build.bind(libs["old_crc32c"], "rp_crc32c", 4, 4)
+    _build.bind(libs["old_fused"], "rp_fused_lz4", 6, 8)
     for fn, ptrs, sizes in (("rp_cell_parse", 10, 4), ("rp_lz4_emit", 11, 5), ("rp_snappy_emit", 11, 5)):
         for name in ("old_codec", "old_codec_cut"):
             _build.bind(libs[name], fn, ptrs, sizes)
@@ -289,19 +297,28 @@ def outputs(torch, res) -> list:
     return [crc.clone(), out_len.clone(), torch.where(cols, out, 0)]
 
 
-def held(torch, libs, data, valid, n, sizes, what: str) -> None:
-    """Each cluster size's outputs equal to the old sequence's."""
+SEQUENCE = {"lz4": fused._fused_sequence, "snappy": fused._fused_snappy_sequence}
+CODECS = tuple(SEQUENCE)
+
+
+def held(torch, libs, data, valid, n, sizes, what: str, codec: str = "lz4") -> None:
+    """Each cluster size's outputs equal to the old sequence's (for LZ4
+    also the old tree's kernel's at each size)."""
     with using(libs["old_crc32c"], libs["old_codec"]):
-        want = outputs(torch, fused._fused_sequence(data, valid, n))
-    for c in sizes:
-        got = outputs(torch, fused.launch_fused(data, valid, n, c))
+        want = outputs(torch, SEQUENCE[codec](data, valid, n))
+    runs = [(f"C={c}", new_cluster(libs["this_fused"], c, codec)) for c in sizes]
+    if codec == "lz4":
+        runs += [(f"old kernel C={c}", new_cluster(libs["old_fused"], c, codec)) for c in sizes]
+    for side, run in runs:
+        got = outputs(torch, run(data, valid, n))
         for g, w, name in zip(got, want, ("crc", "out_len", "block")):
             if not torch.equal(g, w):
-                raise AssertionError(f"{what}, C={c}: {name} differs from the old sequence")
+                raise AssertionError(f"{what}, {codec} {side}: {name} differs from the old sequence")
 
 
-def sizes_for(n: int) -> list:
-    return [c for c in fused.CLUSTERS if c >= fused.min_cluster(n)]
+def sizes_for(n: int, codec: str = "lz4") -> list:
+    """The cluster sizes `plan` can choose for bucket n on this card."""
+    return fused.sizes(n, fused.resident("cuda", n, codec))
 
 
 def held_edges(torch, libs) -> str:
@@ -314,23 +331,25 @@ def held_edges(torch, libs) -> str:
             rng = np.random.default_rng(cs.SEED + 32)
             prefixes = [rng.integers(0, 256, fused.PREFIX, dtype=np.uint8).tobytes() for _ in bodies]
             data, valid, nn = stage(torch, prefixes, bodies)
-            held(torch, libs, data, valid, nn, sizes_for(nn), f"{kind}@{n}")
-    msg = "skew edges (one byte, distinct, random, zeros; v in {0,1,3,4,5,n}; n = 512, 65536): exact at every C"
+            for codec in CODECS:
+                held(torch, libs, data, valid, nn, sizes_for(nn, codec), f"{kind}@{n}", codec)
+    msg = ("skew edges (one byte, distinct, random, zeros; v in {0,1,3,4,5,n}; n = 512, 65536): LZ4 and snappy "
+           "exact at every C")
     print(msg, flush=True)
     return msg
 
 
-def old_sequence(libs):
+def old_sequence(libs, codec: str = "lz4"):
     def run(data, valid, n):
         with using(libs["old_crc32c"], libs["old_codec"]):
-            return fused._fused_sequence(data, valid, n)
+            return SEQUENCE[codec](data, valid, n)
     return run
 
 
-def new_cluster(lib, c):
+def new_cluster(lib, c, codec: str = "lz4"):
     def run(data, valid, n):
         with using(fused_lib=lib):
-            return fused.launch_fused(data, valid, n, c)
+            return fused.launch_fused(data, valid, n, c, codec)
     return run
 
 
@@ -343,10 +362,12 @@ def breakdown(torch, old_dir: str) -> dict:
     us = {}
     with using(libs["old_crc32c"], libs["old_codec"]):
         us["old sequence"] = time_us(lambda: fused._fused_sequence(data, valid, n))
+        us["old snappy sequence"] = time_us(lambda: fused._fused_snappy_sequence(data, valid, n))
         us["old crc32c_rows"] = time_us(lambda: crc_ops.crc32c_rows(data, valid, fused.PREFIX))
         parse = parse_ops.launch_parse(data, valid, n, fused.PREFIX)
         us["old cell_parse"] = time_us(lambda: parse_ops.launch_parse(data, valid, n, fused.PREFIX))
         us["old lz4_emit"] = time_us(lambda: lz4_ops.lz4_emit(data, valid, parse, n, fused.PREFIX))
+        us["old snappy_emit"] = time_us(lambda: snappy_ops.snappy_emit(data, valid, parse, n, fused.PREFIX))
     old = libs["old_codec_cut"]
     with using(libs["old_crc32c"], old):
         for cut, phase in list(enumerate(OLD_PHASES[:-1], start=1)) + [(0, "writes")]:
@@ -355,20 +376,26 @@ def breakdown(torch, old_dir: str) -> dict:
                 lambda: parse_ops.launch_parse(data, valid, n, fused.PREFIX))
         set_cut(old, 0)
     new = libs["new_cut"]
-    held(torch, libs, data, valid, n, sizes_for(n), "row (cut build, cut 0)")
-    for c in sizes_for(n):
-        with using(fused_lib=new):
-            for cut, phase in list(enumerate(NEW_PHASES[:-1], start=1)) + [(0, "the whole kernel")]:
-                set_cut(new, cut)
-                label = phase if cut == 0 else f"to the end of {phase}"
-                us[f"new C={c} {label}"] = time_us(lambda: fused.launch_fused(data, valid, n, c))
-            set_cut(new, 0)
-            us[f"empty cluster launch C={c}"] = time_us(lambda: fused.launch_empty(data, n, c))
-        with using(fused_lib=libs["this_fused"]):
-            us[f"new C={c} (this tree's build)"] = time_us(lambda: fused.launch_fused(data, valid, n, c))
-            smem, clusters = fused.shape_info(n, c)
-            res[f"C={c} shared memory, resident clusters"] = [smem, clusters]
-    res["marks"] = marks(torch, libs["new_marks"], data, valid, n, MARK_NAMES)
+    for codec in CODECS:
+        held(torch, {**libs, "this_fused": new}, data, valid, n, sizes_for(n, codec), "row (cut build, cut 0)",
+             codec)
+        tag = "" if codec == "lz4" else " snappy"
+        for c in sizes_for(n, codec):
+            with using(fused_lib=new):
+                for cut, phase in list(enumerate(NEW_PHASES[:-1], start=1)) + [(0, "the whole kernel")]:
+                    set_cut(new, cut)
+                    label = phase if cut == 0 else f"to the end of {phase}"
+                    us[f"new{tag} C={c} {label}"] = time_us(lambda: fused.launch_fused(data, valid, n, c, codec))
+                set_cut(new, 0)
+                us[f"empty cluster launch{tag} C={c}"] = time_us(lambda: fused.launch_empty(data, n, c, codec))
+            with using(fused_lib=libs["this_fused"]):
+                us[f"new{tag} C={c} (this tree's build)"] = time_us(
+                    lambda: fused.launch_fused(data, valid, n, c, codec))
+                smem, clusters = fused.shape_info(n, c, codec)
+                res[f"{codec} C={c} shared memory, resident clusters"] = [smem, clusters]
+    for codec in CODECS:
+        tag = "" if codec == "lz4" else f" ({codec})"
+        res[f"marks{tag}"] = marks(torch, libs["new_marks"], data, valid, n, MARK_NAMES, codec=codec)
     res["marks, no CRC"] = marks(torch, libs["new_nocrc"], data, valid, n, MARK_NAMES)
     res["marks, the body twice"] = marks(torch, libs["new_twice"], data, valid, n, TWICE_NAMES)
     lib = libs["this_codec"]
@@ -380,16 +407,16 @@ def breakdown(torch, old_dir: str) -> dict:
     return res
 
 
-def marks(torch, lib, data, valid, n: int, names: dict, reps: int = 20) -> dict:
+def marks(torch, lib, data, valid, n: int, names: dict, reps: int = 20, codec: str = "lz4") -> dict:
     """Per cluster size, each mark's time from the cluster's first start
     (µs, medians over reps): the earliest and the latest CTA."""
     out = {}
-    for c in sizes_for(n):
+    for c in sizes_for(n, codec):
         runs = []
         with using(fused_lib=lib):
             for _ in range(reps + 3):
                 torch.cuda._sleep(1_000_000)
-                fused.launch_fused(data, valid, n, c)
+                fused.launch_fused(data, valid, n, c, codec)
                 torch.cuda.synchronize()
                 buf = (ctypes.c_ulonglong * (c * 64))()
                 _build.check(lib, lib.rp_get_marks(ctypes.addressof(buf), c * 64), "marks")
@@ -447,22 +474,32 @@ def ab(torch, old_dir: str) -> dict:
     ptxas = {}
     libs = libraries(old_dir, ptxas)
     res = {"card": cs.nvidia_smi(), "clocks": clocks(), "ptxas": ptxas, "edges": held_edges(torch, libs),
-           "resident": fused.resident(torch.device("cuda"), 32768)}
+           "resident": {codec: fused.resident(torch.device("cuda"), 32768, codec) for codec in CODECS}}
     shapes = {f"B={b}": batch_rows(torch, b) for b in BATCHES}
     data, valid, n, _ = cs.codec_shapes(torch)["fused"]
     shapes["fused 256 x 32 KiB"] = (data, valid, n)
-    sides_of = {"old": old_sequence(libs)}
-    for c in fused.CLUSTERS:
-        sides_of[f"C={c}"] = new_cluster(libs["this_fused"], c)
+    sides_of = {}
+    for codec in CODECS:
+        tag = "" if codec == "lz4" else f"{codec} "
+        sides_of[f"{tag}old"] = old_sequence(libs, codec)
+        for c in fused.CLUSTERS:
+            sides_of[f"{tag}C={c}"] = new_cluster(libs["this_fused"], c, codec)
+            if codec == "lz4":
+                sides_of[f"old kernel C={c}"] = new_cluster(libs["old_fused"], c, codec)
     for label, (data, valid, n) in shapes.items():
         b = data.shape[0]
-        sizes = sizes_for(n)
-        held(torch, libs, data, valid, n, sizes, label)
-        order = ["old"] + [f"C={c}" for c in sizes]
         t = {}
-        for side in order + order[::-1]:
-            t.setdefault(side, []).append(time_us(lambda: sides_of[side](data, valid, n), reps=20))
-        r = {"B": b, "n": n, "bytes": int(valid.sum()), "plan": fused.plan_for(data, n),
+        for codec in CODECS:
+            sizes = sizes_for(n, codec)
+            held(torch, libs, data, valid, n, sizes, label, codec)
+            tag = "" if codec == "lz4" else f"{codec} "
+            order = [f"{tag}old"] + [f"{tag}C={c}" for c in sizes]
+            if codec == "lz4":
+                order += [f"old kernel C={c}" for c in sizes]
+            for side in order + order[::-1]:
+                t.setdefault(side, []).append(time_us(lambda: sides_of[side](data, valid, n), reps=20))
+        r = {"B": b, "n": n, "bytes": int(valid.sum()),
+             "plan": {codec: fused.plan_for(data, n, codec) for codec in CODECS},
              "us": {k: float(np.mean(v)) for k, v in t.items()}, "us turns": t}
         res[label] = r
         print(label, json.dumps(r), flush=True)

@@ -10,6 +10,7 @@ over the rows.
         git show <commit>:redpanda_tpu_torch/csrc/$f > .chipcheck/old/$f; done
     python3 chip_quorum.py breakdown .chipcheck/old [OUT_DIR]
     python3 chip_quorum.py ab .chipcheck/old [OUT_DIR]
+    python3 chip_quorum.py append .chipcheck/old [OUT_DIR]
 
 The old directory holds a tree whose mesh frame is a launch sequence
 (a copy of the commit lane, the fold, the sweep, two zero fills and
@@ -42,6 +43,28 @@ FRAME_THREADS patched, `NEW_VARIANTS`); at the tick's shape (G = 50,000, M =
 and the ring cluster's two kernels at 1,000,000 groups over 8 blocks.
 Every output of each side is held exactly against the old one, and this
 tree's against the plain versions, before anything is timed.
+
+`append` breaks down and times the local append (`local_append_update`,
+the scatter-max of M appends into slot 0 of match and flushed) at
+chip_smoke phase 10's cluster shape (G = 1,000,000, R = 8, M =
+1,000,000 appends to random rows), on the phase's appends (about 4 in 11
+raise nothing) and on appends that each exceed their slot: the old
+tree's kernel (both lanes' atomics a thread); pieces of it at its grid
+(`APPEND_EXTRAS`: an empty kernel, the three input loads alone, the
+loads and both slots' reads, one lane's atomics, plain stores in place
+of the atomics: wrong under duplicates, a floor only); the library's
+two `scatter_reduce_(amax)` calls on the same cells; this tree's entry
+(one append a thread for small batches, else 2 * parts passes, a lane
+and a part of the rows each) and its launch at one pass and 1 to 8 row
+parts, at 128 to 512 threads. Every exact side is held against the
+plain version, and on a batch with rows -1, -G, -G - 1, G and G + 5,
+first. Then the old kernel, this tree's entry and its launch at one
+pass and 1, 2, 4, 5, 6 and 8 parts, at M from G / 64 to 2 G; old and
+this tree's entry in turns, beside `follower_commit_step` and the ring
+cluster's kernels, old and new. The designs that lost to the passes (several
+appends a thread, slot reads that skip atomics, `red.global`, a binned
+two-launch design) are described in PERF.md.
+Its old directory holds the files of 5a3ba4a (as for `ab`).
 
 Every library is built under .chipcheck/quorum (git-ignored) with
 `-Xptxas -v` (registers and spills printed and kept); results are
@@ -192,6 +215,74 @@ int rp_mesh_coop(const i64* term, const u8* is_leader, i64* commit, const i64* t
 
 # this tree's quorum.cu with design A appended ("new"), and copies with
 # another frame block size (design A at 128 and 512 threads)
+# Appended to this tree's quorum.cu for `append`: pieces of the old local
+# append at its grid (one append a thread), and this tree's launch at any
+# count of row parts and block size.
+APPEND_EXTRAS = r"""
+// KIND: 0 nothing; 1 the three input loads (a store no input can reach
+// keeps them); 2 match's atomics alone; 4 plain stores of both lanes;
+// 6 the loads and both slots' reads, no write
+template <int KIND>
+__global__ void la_part_kernel(i64* __restrict__ match, i64* __restrict__ flushed, const i64* __restrict__ gi,
+                               const i64* __restrict__ dv, const i64* __restrict__ fv, i64 m, i64 g_n, i64 r_n) {
+    if (KIND == 0) return;
+    const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= m) return;
+    const i64 k = scatter_cell(gi[i], 0, g_n, r_n);
+    const i64 d = dv[i], f = fv[i];
+    if (KIND == 1) {
+        if (k == -7 && d == f) match[0] = d;
+        return;
+    }
+    if (k < 0) return;
+    if (KIND == 2) atomicMax(match + k, d);
+    if (KIND == 4) {
+        match[k] = d;
+        flushed[k] = f;
+    }
+    if (KIND == 6) {
+        const i64 a = __ldcg(match + k), b = __ldcg(flushed + k);
+        if (a == -7 && b == d) match[0] = f;
+    }
+}
+
+extern "C" int rp_la_piece(i64* match, i64* flushed, const i64* gi, const i64* dv, const i64* fv, i64 m,
+                           i64 g_n, i64 r_n, i64 kind, void* stream) {
+    if (m <= 0) return 0;
+    const unsigned blocks = (unsigned)((m + THREADS - 1) / THREADS);
+    const cudaStream_t st = (cudaStream_t)stream;
+#define LA_PART(K) la_part_kernel<K><<<blocks, THREADS, 0, st>>>(match, flushed, gi, dv, fv, m, g_n, r_n)
+    switch (kind) {
+        case 0: LA_PART(0); break;
+        case 1: LA_PART(1); break;
+        case 2: LA_PART(2); break;
+        case 4: LA_PART(4); break;
+        case 6: LA_PART(6); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+// this tree's launch at another count of row parts (0: one append a
+// thread) and block size
+extern "C" int rp_la_parts(i64* match, i64* flushed, const i64* gi, const i64* dv, const i64* fv, i64 m, i64 g_n,
+                           i64 r_n, i64 parts, i64 threads, void* stream) {
+    if (m <= 0) return 0;
+    return (int)launch_local_append(match, flushed, gi, dv, fv, m, g_n, r_n, parts, (unsigned)threads,
+                                    (cudaStream_t)stream);
+}
+"""
+# rp_la_piece's pieces of the old kernel
+APPEND_PIECES = {0: "empty kernel at the old grid", 1: "the three input loads alone",
+                6: "the loads and both slots' reads (__ldcg), no write", 2: "match's atomics alone",
+                4: "plain stores in place of the atomics (wrong under duplicates)"}
+# this tree's launch at these row parts (2 * parts passes; 0: one append a
+# thread) and block sizes, and the batch sizes, as fractions of G, of the
+# sweep by M
+APPEND_ROW_PARTS = (0, 1, 2, 3, 4, 5, 6, 8)
+APPEND_PART_THREADS = (128, 256, 512)
+APPEND_SWEEP = (1 / 64, 1 / 16, 1 / 8, 1 / 4, 1 / 2, 1, 2)
+
 NEW_VARIANTS = {
     "new": [],
     "coop_t128": [("#define FRAME_THREADS 256", "#define FRAME_THREADS 128")],
@@ -711,6 +802,179 @@ def cluster_ab(torch, sides) -> dict:
     return r
 
 
+def append_batch(torch, rng, base, m: int) -> tuple:
+    """m appends as chip_smoke phase 10 draws them: rows at random, dirty
+    from -3 to +7 around the row's slot 0, flushed up to 2 below."""
+    g = base.match_index.shape[0]
+    rows = torch.from_numpy(rng.integers(0, g, m)).cuda()
+    app = base.match_index[:, 0][rows] + torch.from_numpy(rng.integers(-3, 8, m)).cuda()
+    return rows, app, app - torch.from_numpy(rng.integers(0, 3, m)).cuda()
+
+
+def append_inputs(torch) -> dict:
+    """The leader lanes of the cluster state at G = 1M (R = 8) and the
+    append batches: chip_smoke phase 10's (M = G), one whose appends each
+    exceed their slot's value, a short batch that mixes rows -1, -G,
+    -G - 1, G and G + 5 with duplicates, and phase 10's draw at the sweep's
+    sizes."""
+    from redpanda_tpu_torch.models.consensus_state import GroupState
+
+    rng = np.random.default_rng(cs.SEED + 12)
+    g = cs.CLUSTER_G
+    base = cs.cluster_state(cs.cluster_fields(rng, g), "cuda").leader
+    lead = GroupState(*(t.clone() for t in base))
+    phase10 = append_batch(torch, rng, base, g)
+    rows = phase10[0]
+    raise_all = (base.match_index[:, 0][rows] + torch.from_numpy(rng.integers(1, 9, g)).cuda(),
+                 base.flushed_index[:, 0][rows] + torch.from_numpy(rng.integers(1, 9, g)).cuda())
+    odd = np.array([-1, -g, -g - 1, g, g + 5, 7, 7, -1, 3], np.int64)
+    mixed = torch.from_numpy(np.concatenate([odd, rng.integers(0, g, 5000)])).cuda()
+    mixed_d = torch.from_numpy(rng.integers(-5, 60, mixed.numel())).cuda()
+    return {
+        "g": g, "r": base.match_index.shape[1], "base": base, "lead": lead,
+        "distinct": int(torch.unique(rows).numel()),
+        "batches": {"phase 10": phase10, "each raises": (rows, *raise_all), "mixed rows": (mixed, mixed_d, mixed_d - 1)},
+        "sweep": {x: append_batch(torch, rng, base, int(g * x)) for x in APPEND_SWEEP},
+    }
+
+
+def append(torch, old_dir: str) -> dict:
+    """The local append's breakdown and this tree's launch by row parts,
+    each exact side held first, then old and this tree's entry in turns
+    (module doc)."""
+    from redpanda_tpu_torch.parallel import cluster_step as cluster_ops
+
+    ptxas = {}
+    new_src = open(os.path.join(_build.CSRC_DIR, "quorum.cu")).read()
+    libs = build({"old_quorum": (open(os.path.join(old_dir, "quorum.cu")).read(), old_dir),
+                  "old_cluster": (open(os.path.join(old_dir, "cluster.cu")).read(), old_dir),
+                  "new": (new_src + APPEND_EXTRAS, _build.CSRC_DIR)}, ptxas)
+    _build.bind(libs["old_quorum"], "rp_local_append", 5, 3)
+    _build.bind(libs["old_quorum"], "rp_follower_commit", 4, 2)
+    quorum_ops.bind(libs["new"])
+    _build.bind(libs["new"], "rp_la_piece", 5, 4)
+    _build.bind(libs["new"], "rp_la_parts", 5, 5)
+    _build.build_all(("quorum", "health", "cluster"))
+    for lib in (libs["old_cluster"], cluster_ops._lib()):
+        _build.bind(lib, "rp_cluster_tick", 18, 3)
+        _build.bind(lib, "rp_election_round", 9, 4)
+    sides = Sides({"old": libs["old_quorum"], "new": quorum_ops._lib()},
+                  {"old": health_ops._lib(), "new": health_ops._lib()},
+                  {"old": libs["old_cluster"], "new": cluster_ops._lib()})
+    inp = append_inputs(torch)
+    g, r, base, lead = inp["g"], inp["r"], inp["base"], inp["lead"]
+    var = libs["new"]
+    stream = _build.stream_of(base.match_index)
+
+    def reset():
+        for a, b in zip(lead, base):
+            a.copy_(b)
+
+    def lanes():
+        return [lead.match_index.clone(), lead.flushed_index.clone()]
+
+    def piece(kind, batch):
+        rows, d, f = batch
+
+        def run():
+            rc = var.rp_la_piece(lead.match_index.data_ptr(), lead.flushed_index.data_ptr(), rows.data_ptr(),
+                                 d.data_ptr(), f.data_ptr(), rows.numel(), g, r, kind, stream)
+            _build.check(var, rc, f"local append piece {kind}")
+        return run
+
+    def parts(n, threads, batch):
+        rows, d, f = batch
+
+        def run():
+            rc = var.rp_la_parts(lead.match_index.data_ptr(), lead.flushed_index.data_ptr(), rows.data_ptr(),
+                                 d.data_ptr(), f.data_ptr(), rows.numel(), g, r, n, threads, stream)
+            _build.check(var, rc, f"local append at {n} row parts")
+        return run
+
+    def entry(side, batch):
+        """This tree's wrapper, or the old tree's entry with its own
+        argument list (no scratch)."""
+        if side == "new":
+            return lambda: quorum_ops.local_append_update(lead, *batch)
+        rows, d, f = batch
+        old = libs["old_quorum"]
+        return lambda: _build.check(old, old.rp_local_append(
+            lead.match_index.data_ptr(), lead.flushed_index.data_ptr(), rows.data_ptr(), d.data_ptr(),
+            f.data_ptr(), rows.numel(), g, r, stream), "old local append")
+
+    def library(batch):  # rows drawn in range: the cells need no wrap
+        rows, d, f = batch
+        cells = rows * r + quorum_ops.SELF_SLOT
+        return lambda: (lead.match_index.view(-1).scatter_reduce_(0, cells, d, "amax"),
+                        lead.flushed_index.view(-1).scatter_reduce_(0, cells, f, "amax"))
+
+    def held(label, batch, checks):
+        reset()
+        quorum_ops.local_append_update_plain(lead, *batch)
+        want = lanes()
+        for name, fn in checks.items():
+            reset()
+            fn()
+            torch.cuda.synchronize()
+            same(lanes(), want, f"local append {name} on {label} vs plain")
+
+    res = {"card": cs.nvidia_smi(), "clocks": clocks(), "ptxas": ptxas, "G": g, "R": r, "M": g,
+           "distinct rows": inp["distinct"]}
+    sides_of = {}
+    for label, batch in inp["batches"].items():
+        checks = {"old": entry("old", batch), "new": entry("new", batch)}
+        for n in APPEND_ROW_PARTS:
+            for th in APPEND_PART_THREADS:
+                checks[f"row parts {n} t={th}"] = parts(n, th, batch)
+        if label != "mixed rows":
+            checks["library"] = library(batch)
+        held(label, batch, checks)
+        sides_of[label] = checks
+    print("append: every exact side equal to the plain version on each batch", flush=True)
+    for label in ("phase 10", "each raises"):
+        batch = inp["batches"][label]
+        fns = {f"old part: {name}": piece(kind, batch) for kind, name in APPEND_PIECES.items()}
+        fns.update(sides_of[label])
+        t = {}
+        for name in list(fns) + list(fns)[::-1]:
+            t.setdefault(name, []).append(time_us(fns[name], reset))
+        res[label] = {"us": {k: float(np.mean(v)) for k, v in t.items()}, "us turns": t}
+        print(f"append {label}", json.dumps(res[label]["us"]), flush=True)
+    # the old kernel and this tree's by batch size
+    sweep = {}
+    for x, batch in inp["sweep"].items():
+        fns = {"old": entry("old", batch), "new": entry("new", batch),
+               **{f"row parts {n}": parts(n, 256, batch) for n in (0, 1, 2, 4, 5, 6, 8)}}
+        held(f"sweep M={batch[0].numel()}", batch, fns)
+        t = {}
+        for name in list(fns) + list(fns)[::-1]:
+            t.setdefault(name, []).append(time_us(fns[name], reset))
+        sweep[str(batch[0].numel())] = {k: float(np.mean(v)) for k, v in t.items()}
+    res["sweep"] = sweep
+    print("append sweep", json.dumps(sweep), flush=True)
+    # old and new in turns, with the follower rule beside them
+    batch = inp["batches"]["phase 10"]
+    lc = base.commit_index + torch.from_numpy(np.random.default_rng(cs.SEED + 14).integers(-2, 6, g)).cuda()
+    items = {"follower_commit_step": lambda: quorum_ops.follower_commit_step(lead, lc)}
+    reset()
+    quorum_ops.follower_commit_step_plain(lead, lc)
+    want = tensors(lead)
+    for side in ("old", "new"):
+        reset()
+        sides.run(side, items["follower_commit_step"])
+        same(tensors(lead), want, f"follower_commit_step {side} vs plain")
+    t = {}
+    for side in ("old", "new", "new", "old"):
+        t.setdefault(f"local_append_update {side}", []).append(time_us(entry(side, batch), reset))
+    for name, fn in items.items():
+        for side in ("old", "new", "new", "old"):
+            t.setdefault(f"{name} {side}", []).append(time_us(lambda: sides.run(side, fn), reset))
+    res["ab"] = {"us": {k: float(np.mean(v)) for k, v in t.items()}, "us turns": t}
+    print("append ab", json.dumps(res["ab"]), flush=True)
+    res["cluster"] = cluster_ab(torch, sides)
+    return res
+
+
 def clocks() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -725,7 +989,7 @@ def main() -> int:
     mode, old_dir = sys.argv[1], sys.argv[2]
     out = sys.argv[3] if len(sys.argv) > 3 else OUT
     print(cs.nvidia_smi(), flush=True)
-    res = {"breakdown": breakdown, "ab": ab}[mode](torch, old_dir)
+    res = {"breakdown": breakdown, "ab": ab, "append": append}[mode](torch, old_dir)
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, f"quorum_{mode}.json"), "w") as fh:
         json.dump(res, fh, indent=1)

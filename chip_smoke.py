@@ -43,17 +43,19 @@ Phases, each raising on any mismatch:
      where the size pass loads cells one by one (rows of 17 cells; parse
      vectors off a 16-byte boundary): equal parse vectors, equal lengths
      and equal bytes on [0, out_len);
-     and at the fused shape `_fused` (the path 256 rows take: the cluster
-     kernel rp_fused_lz4, csrc/fused.cu) exact against the plain chain
-     (CRC, lengths, block bytes), and `_fused_snappy`'s CRCs (its launch
-     sequence) against the plain CRC;
+     and at the fused shape `_fused` and `_fused_snappy` (the path 256
+     rows take: one launch of the cluster kernel, rp_fused_lz4 /
+     rp_fused_snappy, csrc/fused.cu) exact against the plain chain (CRC,
+     lengths, block bytes);
   5b. the kernels at the shapes one call gives them, each exact against
      its plain version and timed: CRC, parse and LZ4 emission on phase
-     6's one fused row (one 16 x 1 KiB batch), and `_fused` there (one
-     cluster launch) beside the empty cluster launch at its shape and the
-     three-launch sequence it replaced, and on the parse's skew edges at
-     one row (one byte, distinct 4-grams, random bytes at v in {0, 1, 3,
-     4, 5} and full, n = 512 and 65,536; the host CRC), the zstd encode on phase
+     6's one fused row (one 16 x 1 KiB batch), and `_fused` and
+     `_fused_snappy` there (one cluster launch each) beside the empty
+     cluster launch at its shape and the three-launch sequence it
+     replaced, and both on the parse's skew edges at one row (one byte,
+     distinct 4-grams, random bytes, zeros at v in {0, 1, 3, 4, 5} and
+     full, n = 512 and 65,536; the host CRC) at every cluster size
+     `plan` can choose, the zstd encode on phase
      8b's one row and the decode of that block's four streams, and the
      parse and both emissions on two full-width 64 KiB skew edges (one
      repeated byte; all 4-grams distinct); beside them the per-launch
@@ -103,11 +105,13 @@ Phases, each raising on any mismatch:
      retention stranding mirrors) with every lane, elected, the terms
      and both totals equal to the plain versions after every call; the
      cluster kernels and the two follower-side quorum rules (no main-path
-     caller, held against their plain versions) on the device clock.
+     caller, held against their plain versions) on the device clock,
+     local_append_update also beside the library's two
+     scatter_reduce_(amax) calls on the same appends.
 The launch counters are zeroed just before each main-path phase (3, 4,
 6, 8, 8b, 9 and 10) and read just after; every kernel must have
 launched there, except those in OFF_PATH (follower_commit_step,
-local_append_update, build_heartbeats).
+local_append_update, build_heartbeats, fused_snappy).
 
 Output: progress lines, the card line, one JSON line of per-kernel
 numbers, and last `{"ok": true, "device": {...}}`. Without a CUDA card
@@ -163,6 +167,7 @@ KERNELS = {
     "lz4_emit": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/lz4.py:59", lz4_ops.LAUNCHES),
     "snappy_emit": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/snappy.py:52", snappy_ops.LAUNCHES),
     "fused_lz4": ("redpanda_tpu_torch/csrc/fused.cu", "redpanda_tpu/ops/fused.py:42", fused_ops.LAUNCHES),
+    "fused_snappy": ("redpanda_tpu_torch/csrc/fused.cu", "redpanda_tpu/ops/fused.py:69", fused_ops.LAUNCHES),
     "zstd_encode": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:190", zstd_ops.LAUNCHES),
     "zstd_decode": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:274", zstd_ops.LAUNCHES),
     "health_totals": ("redpanda_tpu_torch/csrc/health.cu", "redpanda_tpu/parallel/mesh_frame.py:103", health_ops.LAUNCHES),
@@ -196,11 +201,12 @@ CLUSTER_G, CLUSTER_TICKS = 1_000_000, 20
 # the frame kernel also replaces the health stage of tick_frame_health
 ALSO_REPLACES = {"tick_frame": "redpanda_tpu/ops/health.py:90"}
 # kernels with no caller on a main path, as in the reference: the follower
-# rules (held against their plain versions at the cluster shape) and the
+# rules (held against their plain versions at the cluster shape), the
 # standalone heartbeat gather, whose one caller, the tick frame, runs it
 # inside the frame kernel (the reference's build_heartbeats_jit has no
-# caller outside tick_frame either)
-OFF_PATH = ("follower_commit_step", "local_append_update", "build_heartbeats")
+# caller outside tick_frame either), and the fused CRC + snappy (the
+# registry's snappy leg compresses without a CRC; held at phases 5 and 5b)
+OFF_PATH = ("follower_commit_step", "local_append_update", "build_heartbeats", "fused_snappy")
 
 
 def log(msg: str) -> None:
@@ -1140,26 +1146,22 @@ def phase_codec_kernels(torch, mem_rate: float) -> dict:
             crc_lens = valid.to(torch.int64) + fused.PREFIX
             want_crc = crc_ops.crc32c_device_plain(data, crc_lens)
             want_parse = parse_ops.cell_parse_plain(data, valid, n, offset)
-            path = fused_path(data, n)
-            for key, seq, emit_plain in (
-                ("fused_lz4", fused._fused, lz4_ops.lz4_emit_plain),
-                ("fused_snappy", fused._fused_snappy, snappy_ops.snappy_emit_plain),
+            for codec, seq, emit_plain in (
+                ("lz4", fused._fused, lz4_ops.lz4_emit_plain),
+                ("snappy", fused._fused_snappy, snappy_ops.snappy_emit_plain),
             ):
+                key = f"fused_{codec}"
                 crc, f_out, f_len = seq(data, valid, n)
-                torch.cuda.synchronize()
-                crc_err = float((crc - want_crc).abs().max())
-                if crc_err != 0.0:
-                    raise AssertionError(f"{key}: fused CRC differs from the plain CRC")
-                if key == "fused_lz4":  # its block too: the path B rows take (plan)
-                    crc_err = fused_err(torch, (crc, f_out, f_len),
-                                        (want_crc, *emit_plain(data, valid, want_parse, n, offset)), f"{key}@{label}")
+                # the CRC, out_len and the block: the path B rows take (plan)
+                err = fused_err(torch, (crc, f_out, f_len),
+                                (want_crc, *emit_plain(data, valid, want_parse, n, offset)), f"{key}@{label}")
 
                 def plain(emit_plain=emit_plain):
                     crc_ops.crc32c_device_plain(data, crc_lens)
                     emit_plain(data, valid, parse_ops.cell_parse_plain(data, valid, n, offset), n, offset)
 
                 out[key] = {
-                    "shape": f"{shape} " + (path if key == "fused_lz4" else "sequence"), "max_abs_err": crc_err,
+                    "shape": f"{shape} {fused_path(data, n, codec)}", "max_abs_err": err,
                     "ms": time_kernel(lambda: seq(data, valid, n), reps=10),
                     "plain_ms": time_plain(plain, reps=1),
                     "bound_ms": fused_bound_ms(valid, f_len, mem_rate),
@@ -1167,13 +1169,24 @@ def phase_codec_kernels(torch, mem_rate: float) -> dict:
     log_rows("codec", out)
     return out
 
-def fused_path(data, n: int) -> str:
-    """The cluster size `fused._fused` launches these rows at (ops/fused.py plan)."""
-    return f"cluster C={fused_ops.plan_for(data, n)}"
+def fused_path(data, n: int, codec: str = "lz4") -> str:
+    """The cluster size the codec's fused entry launches these rows at
+    (ops/fused.py plan)."""
+    return f"cluster C={fused_ops.plan_for(data, n, codec)}"
+
+
+def fused_sizes(data, n: int, codec: str) -> list:
+    """Every cluster size `plan` can choose for bucket n on this card:
+    those that sort the bucket's keys and are resident."""
+    return fused_ops.sizes(n, fused_ops.resident(data.device, n, codec))
+
+
+FUSED_ENTRY = {"lz4": (fused_ops._fused, fused_ops._fused_sequence),
+               "snappy": (fused_ops._fused_snappy, fused_ops._fused_snappy_sequence)}
 
 
 def fused_bound_ms(valid, f_len, mem_rate: float) -> float:
-    """The fused CRC + LZ4's bytes bound: each row's prefix and body and
+    """The fused CRC + codec's bytes bound: each row's prefix and body and
     its int32 length read once; the CRC (int64), the block bytes and the
     int32 length written once."""
     b = valid.shape[0]
@@ -1196,10 +1209,10 @@ def fused_err(torch, got, want, what: str) -> float:
     return err
 
 
-def fused_plain(torch, data, valid, n: int, host_crc: bool = False):
-    """The plain chain of `_fused` on the same rows: the CRC over prefix ||
-    body (the plain CRC, or the host's utils/crc), the plain parse and the
-    plain LZ4 emission."""
+def fused_plain(torch, data, valid, n: int, host_crc: bool = False, codec: str = "lz4"):
+    """The plain chain of `_fused` (`_fused_snappy`) on the same rows: the
+    CRC over prefix || body (the plain CRC, or the host's utils/crc), the
+    plain parse and the plain LZ4 (snappy) emission."""
     from redpanda_tpu_torch.utils import crc as host
 
     off = fused_ops.PREFIX
@@ -1210,51 +1223,64 @@ def fused_plain(torch, data, valid, n: int, host_crc: bool = False):
     else:
         crc = crc_ops.crc32c_device_plain(data, valid.to(torch.int64) + off)
     parse = parse_ops.cell_parse_plain(data, valid, n, off)
-    return (crc, *lz4_ops.lz4_emit_plain(data, valid, parse, n, off))
+    emit = lz4_ops.lz4_emit_plain if codec == "lz4" else snappy_ops.snappy_emit_plain
+    return (crc, *emit(data, valid, parse, n, off))
 
 
-def fused_row(torch, data, valid, n: int, mem_rate: float) -> dict:
-    """`_fused` on phase 6's one row: exact against the plain chain, timed
-    beside its bound, its plain chain, the empty cluster launch at its
-    shape (the floor) and the three-launch sequence it replaced."""
-    c = fused_ops.plan_for(data, n)
-    got = fused_ops._fused(data, valid, n)
-    err = fused_err(torch, got, fused_plain(torch, data, valid, n), "fused_lz4@row")
-    smem, clusters = fused_ops.shape_info(n, c)
+def fused_row(torch, data, valid, n: int, mem_rate: float, codec: str = "lz4") -> dict:
+    """The codec's fused entry on phase 6's one row: exact against the
+    plain chain, timed beside its bound, its plain chain, the empty
+    cluster launch at its shape (the floor) and the three-launch sequence
+    it replaced."""
+    entry, sequence = FUSED_ENTRY[codec]
+    c = fused_ops.plan_for(data, n, codec)
+    got = entry(data, valid, n)
+    err = fused_err(torch, got, fused_plain(torch, data, valid, n, codec=codec), f"fused_{codec}@row")
+    smem, clusters = fused_ops.shape_info(n, c, codec)
     return {
-        "shape": f"row: B=1 n={n} bytes={int(valid.sum())} {fused_path(data, n)} smem={smem} clusters={clusters}",
+        "shape": (f"row: B=1 n={n} bytes={int(valid.sum())} {fused_path(data, n, codec)} smem={smem} "
+                  f"clusters={clusters}"),
         "max_abs_err": err,
-        "ms": time_kernel(lambda: fused_ops._fused(data, valid, n), reps=30),
-        "plain_ms": time_plain(lambda: fused_plain(torch, data, valid, n), reps=2),
+        "ms": time_kernel(lambda: entry(data, valid, n), reps=30),
+        "plain_ms": time_plain(lambda: fused_plain(torch, data, valid, n, codec=codec), reps=2),
         "bound_ms": fused_bound_ms(valid, got[2], mem_rate),
-        "floor_ms": time_kernel(lambda: fused_ops.launch_empty(data, n, c), reps=30),
-        "sequence_ms": time_kernel(lambda: fused_ops._fused_sequence(data, valid, n), reps=30),
+        "floor_ms": time_kernel(lambda: fused_ops.launch_empty(data, n, c, codec), reps=30),
+        "sequence_ms": time_kernel(lambda: sequence(data, valid, n), reps=30),
     }
 
 
-def fused_edges(torch, mem_rate: float) -> dict:
-    """`_fused` at one row on the parse's skew edges: one repeated byte,
-    all 4-grams distinct, random bytes, each at v in {0, 1, 3, 4, 5} and
-    full, at n = 512 and 65,536, exact against the plain chain (the host
-    CRC); the full 65,536-byte rows timed."""
-    rows = {}
+def fused_edges(torch, mem_rate: float, codec: str = "lz4") -> dict:
+    """The codec's fused kernel at one row on the parse's skew edges: one
+    repeated byte, all 4-grams distinct, random bytes and zeros, each at v
+    in {0, 1, 3, 4, 5} and full, at n = 512 and 65,536, exact against the
+    plain chain (the host CRC) at every cluster size `plan` can choose
+    (and the entry at plan's); the full 65,536-byte rows timed."""
+    entry = FUSED_ENTRY[codec][0]
+    rows, launches = {}, 0
     for n in (512, CODEC_BODY):
         full = {"one_byte": b"a" * n, "distinct": distinct_grams_row(n),
-                "random": np.random.default_rng(SEED + 33).integers(0, 256, n, dtype=np.uint8).tobytes()}
+                "random": np.random.default_rng(SEED + 33).integers(0, 256, n, dtype=np.uint8).tobytes(),
+                "zeros": bytes(n)}
         for kind, raw in full.items():
             for v in (0, 1, 3, 4, 5, n):
                 mat, blen, nn = fused_ops.stage_fused([bytes(range(40))], [raw[:v]])
                 data, valid = torch.from_numpy(mat).cuda(), torch.from_numpy(blen).cuda()
-                got = fused_ops._fused(data, valid, nn)
-                fused_err(torch, got, fused_plain(torch, data, valid, nn, host_crc=True), f"fused_lz4@{kind} v={v}")
-                if n == CODEC_BODY and v == n:
-                    rows[f"fused_lz4@{kind}"] = {
-                        "shape": f"{kind}: B=1 n={nn} bytes={v} {fused_path(data, nn)}",
-                        "ms": time_kernel(lambda: fused_ops._fused(data, valid, nn), reps=30),
+                want = fused_plain(torch, data, valid, nn, host_crc=True, codec=codec)
+                got = entry(data, valid, nn)
+                fused_err(torch, got, want, f"fused_{codec}@{kind} v={v}")
+                for c in fused_sizes(data, nn, codec):
+                    fused_err(torch, fused_ops.launch_fused(data, valid, nn, c, codec), want,
+                              f"fused_{codec}@{kind} v={v} C={c}")
+                    launches += 1
+                if n == CODEC_BODY and v == n and kind != "zeros":
+                    rows[f"fused_{codec}@{kind}"] = {
+                        "shape": f"{kind}: B=1 n={nn} bytes={v} {fused_path(data, nn, codec)}",
+                        "ms": time_kernel(lambda: entry(data, valid, nn), reps=30),
                         "bound_ms": fused_bound_ms(valid, got[2], mem_rate),
                     }
-    log("[per-call] fused_lz4 at one row on the skew edges (one byte, distinct, random; v in {0,1,3,4,5,n}; "
-        "n = 512, 65536): equal to the plain chain (host CRC), tolerance exact; " +
+    log(f"[per-call] fused_{codec} at one row on the skew edges (one byte, distinct, random, zeros; "
+        f"v in {{0,1,3,4,5,n}}; n = 512, 65536), at plan's cluster size and at every size plan can choose "
+        f"({launches} launches): equal to the plain chain (host CRC), tolerance exact; " +
         ", ".join(f"{k} {e['shape']} {e['ms']:.4f} ms (bound {e['bound_ms']:.6f})" for k, e in rows.items()))
     return rows
 
@@ -1323,10 +1349,12 @@ def phase_per_call(torch, mem_rate: float) -> dict:
     }}
     rows, _, _ = codec_kernel_rows(torch, data, valid, n, offset, "row", mem_rate, reps=30)
     out.update(rows)
-    out["fused_lz4@row"] = fused_row(torch, data, valid, n, mem_rate)
-    log(f"[per-call] fused_lz4@row: the three-launch sequence it replaced {out['fused_lz4@row']['sequence_ms']:.4f} ms; "
-        f"the empty cluster launch {out['fused_lz4@row']['floor_ms']:.4f} ms")
-    fused_edges(torch, mem_rate)
+    for codec in ("lz4", "snappy"):
+        key = f"fused_{codec}@row"
+        out[key] = fused_row(torch, data, valid, n, mem_rate, codec)
+        log(f"[per-call] {key}: the three-launch sequence it replaced {out[key]['sequence_ms']:.4f} ms; "
+            f"the empty cluster launch {out[key]['floor_ms']:.4f} ms")
+        fused_edges(torch, mem_rate, codec)
     out.update(zstd_encode_rows(torch, *inp["row"]["zstd"], "row", mem_rate))
     out.update(zstd_decode_row(torch, inp["items"], "batch", mem_rate))
     for label, staged in inp["edges"].items():
@@ -2733,6 +2761,7 @@ def cluster_kernels(torch, state, mem_rate: float) -> dict:
 
     lc = base.leader.commit_index + torch.from_numpy(rng.integers(-2, 6, g)).to(dev)
     rows = torch.from_numpy(rng.integers(0, g, g)).to(dev)
+    distinct = len(np.unique(rows.cpu().numpy()))
     app = base.leader.match_index[:, 0][rows] + torch.from_numpy(rng.integers(-3, 8, g)).to(dev)
     app_f = app - torch.from_numpy(rng.integers(0, 3, g)).to(dev)
     for name, kern, plain, args, nbytes in (
@@ -2741,7 +2770,7 @@ def cluster_kernels(torch, state, mem_rate: float) -> dict:
         # rows, dirty, flushed read; slot 0 of match / flushed read and
         # written once per distinct row
         ("local_append_update", quorum_ops.local_append_update, quorum_ops.local_append_update_plain,
-         (rows, app, app_f), 24 * g + 32 * len(np.unique(rows.cpu().numpy()))),
+         (rows, app, app_f), 24 * g + 32 * distinct),
     ):
         reset_lead()
         want = lanes(plain(lead, *args))
@@ -2749,15 +2778,22 @@ def cluster_kernels(torch, state, mem_rate: float) -> dict:
         got = lanes(kern(lead, *args))
         torch.cuda.synchronize()
         out[name] = {
-            "shape": f"G={g} R={r}" + (f" M={g}" if name == "local_append_update" else ""),
+            "shape": f"G={g} R={r}" + (f" M={g} distinct rows={distinct}" if name == "local_append_update" else ""),
             "max_abs_err": max_abs_err(got, want),
             "ms": time_kernel(lambda: kern(lead, *args), reset_lead),
             "plain_ms": time_plain(lambda: plain(lead, *args), reset_lead),
             "bound_ms": nbytes / mem_rate * 1e3,
         }
+    # the library's function: two scatter_reduce_(amax) calls on the same
+    # appends' cells (the rows are drawn in range, so no wrap or drop)
+    cells = rows * r + quorum_ops.SELF_SLOT
+    out["local_append_update"]["library_ms"] = time_kernel(lambda: (
+        lead.match_index.view(-1).scatter_reduce_(0, cells, app, "amax"),
+        lead.flushed_index.view(-1).scatter_reduce_(0, cells, app_f, "amax")), reset_lead)
     for name, e in out.items():
+        lib_ms = f", library {e['library_ms']:.4f} ms" if "library_ms" in e else ""
         log(f"[cluster] {name:<20} {e['shape']}: kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, "
-            f"plain {e['plain_ms']:.3f} ms")
+            f"plain {e['plain_ms']:.3f} ms{lib_ms}")
     return out
 
 
@@ -2804,6 +2840,7 @@ def main() -> int:
     for name in ("cell_parse", "lz4_emit", "snappy_emit"):
         results[name] = codec[f"{name}@fused"]
     results["fused_lz4"] = codec["fused_lz4"]
+    results["fused_snappy"] = codec["fused_snappy"]
     per_call = phase_per_call(torch, MEM_BYTES_PER_S)
 
     reset_launches()
@@ -2855,7 +2892,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path_launches.get(name, 0), "max_abs_err": e["max_abs_err"],
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-            "bound_by": "bytes", "library_ms": None, "shape": e["shape"],
+            "bound_by": "bytes", "library_ms": e.get("library_ms"), "shape": e["shape"],
         })
         if name in ALSO_REPLACES:
             kernels[-1]["also_replaces"] = ALSO_REPLACES[name]

@@ -1,15 +1,17 @@
-// Fused CRC-32C + LZ4 over one upload: one launch, one thread-block cluster
-// of C CTAs a row.
+// Fused CRC-32C + LZ4 or snappy over one upload: one launch, one
+// thread-block cluster of C CTAs a row.
 //
 // Replaces redpanda_tpu/ops/fused.py:42 _fused (the Kafka batch CRC over
 // prefix || body, cellparse.py:30 cell_parse and lz4.py:59 _compress_chunks
-// of the body, in one program). The rows are ops/fused.py's
+// of the body, in one program) and fused.py:69 _fused_snappy (the same
+// with snappy.py:52 _compress_chunks). The rows are ops/fused.py's
 // [B, 40 + n + 16] uploads, [crc prefix | body | guard], zero past the body's
 // valid length v <= n <= 65536; the body is read in place at column
-// `offset`. Outputs: the CRC (int64 [B]), the LZ4 block (uint8 [B, m],
-// m = out_bound(n), bytes past out_len unwritten) and out_len (int32 [B]),
+// `offset`. Outputs: the CRC (int64 [B]), the block (uint8 [B, m], m = the
+// codec's out_bound(n), bytes past out_len unwritten: LZ4's block, or
+// snappy's elements without the length preamble) and out_len (int32 [B]),
 // equal to the three-launch sequence's (crc32c_rows, rp_cell_parse,
-// rp_lz4_emit); the parse vectors stay in shared memory.
+// rp_lz4_emit / rp_snappy_emit); the parse vectors stay in shared memory.
 //
 // What bounds it: latency. At one call's row (n = 32,768, v ~ 16.6 K) the
 // bytes are ~33 KB in and out, 0.01 us at 3.35 TB/s; the sequence spent 75 us
@@ -78,14 +80,17 @@
 //     writes its range with 16-byte stores and its two edges byte by byte.
 // Shared memory (Layout): the row; the sort keys, later the sequences; the
 // digit entries, then the candidates, then the output image; per cell has,
-// j, offs; the inboxes and the CRC tables: 224,416 B at n = 65,536 and
-// C = 4, 150,896 B at n = 32,768 and C = 16. n = 65,536 needs C >= 4 (the
-// keys a CTA sorts), and a launch whose shared memory does not fit, or
-// whose cluster cannot be resident, is refused and returns its error. At
-// one call's row (n = 32,768, v ~ 16.6 K) on an H100 80GB HBM3 at 700 W the
+// j, offs; the inboxes and the CRC tables: with LZ4 224,416 B at n =
+// 65,536 and C = 4, 150,896 B at n = 32,768 and C = 16; snappy's image is
+// smaller (its range_bound), 222,112 B at n = 65,536 and C = 4. n = 65,536
+// needs C >= 4 (the keys a CTA sorts); a shape whose shared memory does
+// not fit reports no resident cluster (rp_fused_shape), and a launch whose
+// cluster cannot be resident is refused and returns its error. At one
+// call's row (n = 32,768, v ~ 16.6 K) on an H100 80GB HBM3 at 700 W the LZ4
 // launch takes 28.7 us at C = 16 (31.6 at C = 8; the sequence 87.3). The
-// kernel is a template over the codec (csrc/lz77.cuh's Lz4; a codec also
-// gives Layout its range_bound); this file instantiates Lz4.
+// kernel is a template over the codec (csrc/lz77.cuh's Lz4 and Snappy: the
+// sizes, the final run, the heads and deferred parts, and Layout's
+// range_bound); this file instantiates both.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -842,14 +847,16 @@ __global__ void __launch_bounds__(FUSED_THREADS, 1) fused_kernel(FusedArgs a) {
 __global__ void fused_empty_kernel() {}
 
 // Per device and instantiation, once: the dynamic shared memory the
-// kernel may opt in to and (C = 16) the non-portable cluster size.
+// kernel may opt in to (returned in *limit) and (C = 16) the
+// non-portable cluster size.
 template <class Codec, int C>
-static cudaError_t fused_setup(int dev) {
+static cudaError_t fused_setup(int dev, int* limit) {
     static std::mutex mu;
-    static bool done[MAX_DEVICES];
+    static int limits[MAX_DEVICES];  // 0: not yet set up
     if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
     std::lock_guard<std::mutex> lock(mu);
-    if (done[dev]) return cudaSuccess;
+    *limit = limits[dev];
+    if (*limit > 0) return cudaSuccess;
     int optin = 0;
     cudaFuncAttributes fa;
     cudaError_t e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -859,7 +866,7 @@ static cudaError_t fused_setup(int dev) {
             e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, optin - (int)fa.sharedSizeBytes);
         if (e == cudaSuccess && C > 8) e = cudaFuncSetAttribute(f, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     }
-    if (e == cudaSuccess) done[dev] = true;
+    if (e == cudaSuccess) *limit = limits[dev] = optin - (int)fa.sharedSizeBytes;
     return e;
 }
 
@@ -879,15 +886,18 @@ static cudaLaunchConfig_t cluster_config(i64 b_n, int smem, cudaStream_t s, cuda
     return cfg;
 }
 
-// How many clusters of the kernel can be resident at once (0: none fits).
+// How many clusters of the kernel can be resident at once (0: none fits,
+// also where a CTA's shared memory exceeds the card's).
 template <class Codec, int C>
 static cudaError_t fused_clusters(int n, int offset, int* count) {
-    int dev = 0;
+    int dev = 0, limit = 0;
+    *count = 0;
     cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = fused_setup<Codec, C>(dev);
-    if (e != cudaSuccess) return e;
+    if (e == cudaSuccess) e = fused_setup<Codec, C>(dev, &limit);
+    const int bytes = Layout<Codec>(n, offset, C).bytes;
+    if (e != cudaSuccess || bytes > limit) return e;
     cudaLaunchAttribute attr[1];
-    cudaLaunchConfig_t cfg = cluster_config<C>(1, Layout<Codec>(n, offset, C).bytes, 0, attr);
+    cudaLaunchConfig_t cfg = cluster_config<C>(1, bytes, 0, attr);
     return cudaOccupancyMaxActiveClusters(count, fused_kernel<Codec, C>, &cfg);
 }
 
@@ -941,6 +951,42 @@ static cudaError_t launch_empty(i64 b_n, int n, int offset, cudaStream_t s) {
         default: return (int)cudaErrorInvalidValue; \
     }
 
+// the entries' codec argument
+enum { CODEC_LZ4, CODEC_SNAPPY };
+
+template <class Codec>
+static int fused_entry(const uint8_t* data, const int32_t* valid, const uint32_t* consts, i64* crc, uint8_t* out,
+                       int32_t* out_len, i64 b_n, i64 stride, i64 offset, i64 n, i64 m, i64 piece, i64 k_units,
+                       i64 c, void* stream) {
+    if (b_n <= 0) return 0;
+    if (m < 1 || m > MAX_OUT || k_units < 1 || piece < 1 || piece > k_units * FUSED_THREADS ||
+        piece * c < (offset + n + 15) / 16 || stride < offset + n + CELL || b_n * c > 0x7FFFFFFF)
+        return (int)cudaErrorInvalidValue;
+    const FusedArgs a{data, valid, consts, crc, out, out_len, stride, (int)offset, (int)n, (int)m, (int)piece,
+                      (int)k_units};
+#define FUSED_CALL(C) launch_fused<Codec, C>(a, b_n, (cudaStream_t)stream)
+    BY_CLUSTER((int)c, FUSED_CALL)
+#undef FUSED_CALL
+}
+
+template <class Codec>
+static int empty_entry(i64 b_n, i64 offset, i64 n, i64 c, void* stream) {
+#define EMPTY_CALL(C) launch_empty<Codec, C>(b_n, (int)n, (int)offset, (cudaStream_t)stream)
+    BY_CLUSTER((int)c, EMPTY_CALL)
+#undef EMPTY_CALL
+}
+
+template <class Codec>
+static int shape_entry(i64 offset, i64 n, i64 c, int32_t* smem_clusters) {
+    smem_clusters[0] = 0;
+    smem_clusters[1] = 0;
+#define SHAPE_CALL(C) \
+    (smem_clusters[0] = Layout<Codec>((int)n, (int)offset, C).bytes, \
+     fused_clusters<Codec, C>((int)n, (int)offset, smem_clusters + 1))
+    BY_CLUSTER((int)c, SHAPE_CALL)
+#undef SHAPE_CALL
+}
+
 extern "C" {
 
 const char* rp_error_string(int err) {
@@ -951,36 +997,33 @@ const char* rp_error_string(int err) {
 // operators for the CRC's `piece` units a CTA and k_units a thread (a
 // row of offset + n bytes needs piece * c units). The CRC covers [0, offset + v)
 // of each row, the body is read at [offset, offset + n + CELL); out: B*m
-// bytes, m = out_bound(n).
+// bytes, m = the codec's out_bound(n).
 int rp_fused_lz4(const uint8_t* data, const int32_t* valid, const uint32_t* consts, i64* crc, uint8_t* out,
                  int32_t* out_len, i64 b_n, i64 stride, i64 offset, i64 n, i64 m, i64 piece, i64 k_units,
                  i64 c, void* stream) {
-    if (b_n <= 0) return 0;
-    if (m < 1 || m > MAX_OUT || k_units < 1 || piece < 1 || piece > k_units * FUSED_THREADS ||
-        piece * c < (offset + n + 15) / 16 || stride < offset + n + CELL || b_n * c > 0x7FFFFFFF)
-        return (int)cudaErrorInvalidValue;
-    const FusedArgs a{data, valid, consts, crc, out, out_len, stride, (int)offset, (int)n, (int)m, (int)piece,
-                      (int)k_units};
-#define FUSED_CALL(C) launch_fused<Lz4, C>(a, b_n, (cudaStream_t)stream)
-    BY_CLUSTER((int)c, FUSED_CALL)
-#undef FUSED_CALL
+    return fused_entry<Lz4>(data, valid, consts, crc, out, out_len, b_n, stride, offset, n, m, piece, k_units, c,
+                            stream);
 }
 
-// an empty kernel at rp_fused_lz4's grid, cluster and shared memory
-int rp_fused_empty(i64 b_n, i64 offset, i64 n, i64 c, void* stream) {
-#define EMPTY_CALL(C) launch_empty<Lz4, C>(b_n, (int)n, (int)offset, (cudaStream_t)stream)
-    BY_CLUSTER((int)c, EMPTY_CALL)
-#undef EMPTY_CALL
+// the same with snappy's elements for the block
+int rp_fused_snappy(const uint8_t* data, const int32_t* valid, const uint32_t* consts, i64* crc, uint8_t* out,
+                    int32_t* out_len, i64 b_n, i64 stride, i64 offset, i64 n, i64 m, i64 piece, i64 k_units,
+                    i64 c, void* stream) {
+    return fused_entry<Snappy>(data, valid, consts, crc, out, out_len, b_n, stride, offset, n, m, piece, k_units,
+                               c, stream);
 }
 
-// the kernel's dynamic shared memory and resident clusters at a shape
-int rp_fused_shape(i64 offset, i64 n, i64 c, int32_t* smem_clusters) {
-    smem_clusters[0] = 0;
-    smem_clusters[1] = 0;
-#define SHAPE_CALL(C) \
-    (smem_clusters[0] = Layout<Lz4>((int)n, (int)offset, C).bytes, fused_clusters<Lz4, C>((int)n, (int)offset, smem_clusters + 1))
-    BY_CLUSTER((int)c, SHAPE_CALL)
-#undef SHAPE_CALL
+// an empty kernel at the codec's (CODEC_*) fused grid, cluster and shared memory
+int rp_fused_empty(i64 b_n, i64 offset, i64 n, i64 c, i64 codec, void* stream) {
+    if (codec == CODEC_SNAPPY) return empty_entry<Snappy>(b_n, offset, n, c, stream);
+    return codec == CODEC_LZ4 ? empty_entry<Lz4>(b_n, offset, n, c, stream) : (int)cudaErrorInvalidValue;
+}
+
+// the codec's kernel's dynamic shared memory and resident clusters at a
+// shape (0 clusters where its shared memory does not fit)
+int rp_fused_shape(i64 offset, i64 n, i64 c, i64 codec, int32_t* smem_clusters) {
+    if (codec == CODEC_SNAPPY) return shape_entry<Snappy>(offset, n, c, smem_clusters);
+    return codec == CODEC_LZ4 ? shape_entry<Lz4>(offset, n, c, smem_clusters) : (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

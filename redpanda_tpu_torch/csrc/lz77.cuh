@@ -1,5 +1,5 @@
 // Device code shared by the LZ4 / snappy kernels of csrc/codec.cu and the
-// fused CRC + codec kernel of csrc/fused.cu: the parse grid's constants,
+// fused CRC + codec kernels of csrc/fused.cu: the parse grid's constants,
 // the block scan, the two codecs' byte rules (Lz4 / Snappy put_head, the
 // one place they live) and the staging helpers.
 #pragma once
@@ -117,6 +117,13 @@ struct Lz4 {
 
 struct Snappy {
     static constexpr int SELF_PART = 12;  // copy bytes a sequence writes itself (four copies)
+    // the most bytes the sequences of `cells` cells and the final run take
+    // for an n-byte row: a sequence is its literal tag (<= 3 bytes, none
+    // without literals), its literals and 3 ceil(mlen / 64) bytes of
+    // copies, which is <= mlen since a match is >= 4 bytes; literals and
+    // matches are disjoint parts of the row, a cell starts at most one
+    // sequence and the final run adds one more tag
+    static __host__ __device__ constexpr int range_bound(int n, int cells) { return n + 3 * cells + 3; }
     static __device__ int lit_extra(int len) { return len <= 60 ? 0 : (len <= 256 ? 1 : 2); }
     static __device__ int lit_size(int lit) { return lit > 0 ? 1 + lit_extra(lit) + lit : 0; }
     static __device__ int size(bool has, int lit, int mlen) {

@@ -83,9 +83,15 @@
 //     fold launch it saves.
 //   * build_heartbeats alone is a one-row-a-thread gather.
 //   * follower_commit_step is one thread per group (four [G] lanes read,
-//     two written: bytes); local_append_update one thread per append,
-//     atomicMax into slot 0 because one batch may name a row twice. Both
-//     rules live in quorum_rules.cuh, where the ring cluster step
+//     two written: bytes). local_append_update raises slot 0 by atomicMax
+//     (one batch may name a row twice): a small batch one append a thread
+//     (local_append_kernel), a large one in 2 * parts passes of one
+//     launch, a lane and a part of the rows each
+//     (local_append_parts_kernel; the caller picks parts): each atomic
+//     lands on a random 32-byte sector, and the fewer lines the blocks in
+//     flight touch, the more of them L2 still holds when the next append
+//     to the row arrives. Both rules live in quorum_rules.cuh (the passes
+//     take local_append's max lane by lane), where the ring cluster step
 //     (cluster.cu) applies them to its mirrors and its self slot.
 // All of them update or read the lanes in place; the JAX program donates
 // its state buffers the same way (donate_argnums=0).
@@ -565,6 +571,8 @@ __global__ void follower_commit_kernel(i64* __restrict__ commit,
     last_visible[g] = imax(last_visible[g], c);
 }
 
+// One append a thread, both lanes raised by the shared rule (atomicMax:
+// a batch may name a row twice): the launch for small batches.
 __global__ void local_append_kernel(i64* __restrict__ match,
                                     i64* __restrict__ flushed,
                                     const i64* __restrict__ group_idx,
@@ -576,6 +584,50 @@ __global__ void local_append_kernel(i64* __restrict__ match,
     const i64 k = scatter_cell(group_idx[i], 0, g_n, r_n);  // SELF_SLOT
     if (k < 0) return;  // the scatter drops it
     local_append<true>(&match[k], &flushed[k], dirty[i], flushed_in[i]);
+}
+
+// The local append in 2 * parts passes of one launch, pass q = blockIdx.y:
+// it raises lane q / parts (match, then flushed) for the cells in part
+// q % parts, [span * part, span * (part + 1)) with span = ceil(G / parts)
+// rows of r_n cells, each thread reading one append's row and, where the
+// row is in the part, the lane's value. Each atomic lands on a random
+// 32-byte sector; at M = G = 1M the memory system sets the time, and the
+// fewer lines the blocks in flight touch, the more of a row's appends
+// find its line in L2 (PERF.md).
+__global__ void local_append_parts_kernel(i64* __restrict__ match,
+                                          i64* __restrict__ flushed,
+                                          const i64* __restrict__ group_idx,
+                                          const i64* __restrict__ dirty,
+                                          const i64* __restrict__ flushed_in,
+                                          i64 m, i64 g_n, i64 r_n, unsigned parts,
+                                          i64 span) {
+    const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= m) return;
+    const i64 k = scatter_cell(group_idx[i], 0, g_n, r_n);  // SELF_SLOT
+    const i64 lo = (i64)(blockIdx.y % parts) * span;
+    if (k < lo || k >= lo + span) return;  // another part's, or dropped (k < 0)
+    if (blockIdx.y < parts) {
+        atomicMax(match + k, dirty[i]);
+    } else {
+        atomicMax(flushed + k, flushed_in[i]);
+    }
+}
+
+// parts == 0: one append a thread; else 2 * parts passes
+static cudaError_t launch_local_append(i64* match, i64* flushed, const i64* group_idx, const i64* dirty,
+                                       const i64* flushed_in, i64 m, i64 g_n, i64 r_n, i64 parts,
+                                       unsigned threads, cudaStream_t s) {
+    const i64 blocks = (m + threads - 1) / threads;
+    if (parts < 0 || 2 * parts > 65535 || blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
+    if (parts == 0) {
+        local_append_kernel<<<(unsigned)blocks, threads, 0, s>>>(match, flushed, group_idx, dirty, flushed_in, m,
+                                                                 g_n, r_n);
+    } else {
+        local_append_parts_kernel<<<dim3((unsigned)blocks, (unsigned)(2 * parts)), threads, 0, s>>>(
+            match, flushed, group_idx, dirty, flushed_in, m, g_n, r_n, (unsigned)parts,
+            (g_n + parts - 1) / parts * r_n);
+    }
+    return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ C entries
@@ -729,11 +781,10 @@ int rp_follower_commit(i64* commit, i64* last_visible, const i64* flushed,
 
 int rp_local_append(i64* match, i64* flushed, const i64* group_idx,
                     const i64* dirty, const i64* flushed_in, i64 m, i64 g_n,
-                    i64 r_n, void* stream) {
+                    i64 r_n, i64 parts, void* stream) {
     if (m <= 0 || g_n <= 0) return 0;
-    local_append_kernel<<<blocks_for(m), THREADS, 0, (cudaStream_t)stream>>>(
-        match, flushed, group_idx, dirty, flushed_in, m, g_n, r_n);
-    return (int)cudaGetLastError();
+    return (int)launch_local_append(match, flushed, group_idx, dirty, flushed_in, m, g_n, r_n, parts, THREADS,
+                                    (cudaStream_t)stream);
 }
 
 int rp_build_heartbeats(const i64* hb_idx, const i64* term, const i64* commit,

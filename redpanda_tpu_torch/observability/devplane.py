@@ -2,7 +2,7 @@
 
 The JAX package's `RP_DEVPLANE=1` telemetry (kernel latency
 histograms, transfer accounting, compile events, the one-fold-per-frame
-counter) is not ported yet (ROADMAP queue 1 step 10). The port keeps
+counter) is not ported yet (ROADMAP queue 1 step 3). The port keeps
 the off-state contract: `instrument(f, name) is f`, no wrapper and no
 per-call branch, and the frame hooks the mesh backend calls
 (`tick_scope`, `frame_scope`, `count_fold`, `count_transfer`) do

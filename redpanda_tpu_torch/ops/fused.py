@@ -11,22 +11,26 @@ Row layout ([B, PREFIX + n + CELL] uint8, zero-padded):
 
 The Kafka batch CRC covers crc_prefix || body (model/record.h:398).
 
-`_fused` (CRC + LZ4) on the card is ONE launch of `rp_fused_lz4`
-(csrc/fused.cu): a thread-block cluster of C CTAs a row, which stages
-the row in every CTA, folds the CRC in C pieces, sorts the body's
-positions by hash across the cluster, verifies, scans and emits the LZ4
-block, the parse vectors never leaving shared memory
-(`LAUNCHES["fused_lz4"]`). `plan` picks C from the row count, the bucket
-and the clusters the card holds at once: CLUSTER_ONE_ROW CTAs a row,
-halved while the rows' clusters would not all be resident, down to the
-smallest size the bucket allows. On an H100 the cluster launch beat the
-three-launch sequence it replaced at every row count measured (1 to 256
-rows, PERF.md), so every CUDA call takes it; a launch that is refused
-raises. On the CPU `_fused` runs the plain chain (`crc32c_device_plain`,
-`cell_parse_plain`, `lz4_emit_plain`), the kernel's twin.
-`_fused_snappy` is the sequence: `crc32c_rows` (csrc/crc32c.cu) over
-prefix || body, then the parse and emission kernels of csrc/codec.cu
-reading each body in place at column PREFIX.
+`_fused` (CRC + LZ4) and `_fused_snappy` (CRC + snappy) on the card are
+each ONE launch of the cluster kernel of csrc/fused.cu (`rp_fused_lz4`,
+`rp_fused_snappy`: one template, the codec's byte rules from
+csrc/lz77.cuh): a thread-block cluster of C CTAs a row, which stages the
+row in every CTA, folds the CRC in C pieces, sorts the body's positions
+by hash across the cluster, verifies, scans and emits the block, the
+parse vectors never leaving shared memory (`LAUNCHES["fused_lz4"]`,
+`LAUNCHES["fused_snappy"]`). `plan` picks C from the row count, the
+bucket and the clusters of the codec's kernel the card holds at once:
+CLUSTER_ONE_ROW CTAs a row, halved while the rows' clusters would not
+all be resident, down to the smallest size that sorts the bucket's keys
+and fits the card's shared memory. On an H100 the cluster launch beat
+the three-launch sequence it replaced at every row count measured (1 to
+256 rows, PERF.md), so every CUDA call takes it; a launch that is
+refused raises. On the CPU both run the plain chain
+(`crc32c_device_plain`, `cell_parse_plain`, the codec's plain emission),
+the kernel's twin; `_fused_sequence` / `_fused_snappy_sequence` keep the
+three launches (`crc32c_rows`, then the parse and emission kernels of
+csrc/codec.cu reading each body in place at column PREFIX) for the
+harnesses that time them.
 
 The zstd leg uses the JAX program's row width, PREFIX + n rounded up to
 512 bytes (no CELL guard: the huff0 encode reads only [0, n) of the
@@ -54,7 +58,13 @@ PREFIX = 40  # models/record.py _CRC_PREFIX packed size
 # entries with device=None run here; the CPU tests set it to "cpu"
 DEFAULT_DEVICE = "cuda"
 
-LAUNCHES = {"fused_lz4": 0}
+LAUNCHES = {"fused_lz4": 0, "fused_snappy": 0}
+
+# the codecs of the cluster kernel: each one's id in the C entries (CODEC_*
+# in csrc/fused.cu), its launch entry, its block's bound and its parse +
+# emission as separate launches (the plain sequence's second half)
+CODECS = {"lz4": (0, "rp_fused_lz4", lz4.out_bound, lz4._compress_chunks),
+          "snappy": (1, "rp_fused_snappy", snappy.out_bound, snappy._compress_chunks)}
 
 # csrc/fused.cu: threads a CTA, the cluster sizes it is built for, the CRC
 # operators a K
@@ -66,14 +76,15 @@ CLUSTER_ONE_ROW = 16
 
 _LIB = None
 _CONSTS: dict = {}  # (device, n, C) -> the CRC tables and operators
-_RESIDENT: dict = {}  # (device, n) -> {C: clusters of that size resident at once}
+_RESIDENT: dict = {}  # (device, n, codec) -> {C: clusters of that size resident at once}
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare csrc/fused.cu's entry points on a loaded library."""
-    _build.bind(lib, "rp_fused_lz4", 6, 8)
-    _build.bind(lib, "rp_fused_empty", 0, 4)
-    lib.rp_fused_shape.argtypes = [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+    for _, entry, _, _ in CODECS.values():
+        _build.bind(lib, entry, 6, 8)
+    _build.bind(lib, "rp_fused_empty", 0, 5)
+    lib.rp_fused_shape.argtypes = [ctypes.c_int64] * 4 + [ctypes.c_void_p]
     lib.rp_fused_shape.restype = ctypes.c_int
     return lib
 
@@ -85,19 +96,21 @@ def _lib():
     return _LIB
 
 
-def shape_info(n: int, c: int) -> tuple:
-    """(dynamic shared memory bytes, resident clusters) of the kernel for
-    bucket n at cluster size c, as the card reports them."""
+def shape_info(n: int, c: int, codec: str = "lz4") -> tuple:
+    """(dynamic shared memory bytes, resident clusters) of the codec's
+    kernel for bucket n at cluster size c, as the card reports them (no
+    cluster where the shared memory does not fit)."""
     lib = _lib()
     out = (ctypes.c_int32 * 2)()
-    _build.check(lib, lib.rp_fused_shape(PREFIX, n, c, ctypes.addressof(out)), "fused shape")
+    _build.check(lib, lib.rp_fused_shape(PREFIX, n, c, CODECS[codec][0], ctypes.addressof(out)), "fused shape")
     return int(out[0]), int(out[1])
 
 
-def launch_empty(data: torch.Tensor, n: int, c: int) -> None:
+def launch_empty(data: torch.Tensor, n: int, c: int, codec: str = "lz4") -> None:
     """An empty kernel at launch_fused's grid, cluster and shared memory."""
     lib = _lib()
-    _build.check(lib, lib.rp_fused_empty(data.shape[0], PREFIX, n, c, _build.stream_of(data)), "fused empty")
+    rc = lib.rp_fused_empty(data.shape[0], PREFIX, n, c, CODECS[codec][0], _build.stream_of(data))
+    _build.check(lib, rc, "fused empty")
 
 
 def sort_keys(c: int) -> int:
@@ -111,14 +124,25 @@ def min_cluster(n: int) -> int:
     return next(c for c in CLUSTERS if -(-n // c) <= sort_keys(c))
 
 
+def sizes(n: int, resident: dict) -> list:
+    """The cluster sizes `plan` can choose for bucket n: those that sort
+    the bucket's keys and of which `resident` (as `plan` takes it) holds
+    at least one cluster."""
+    return [c for c in CLUSTERS if c >= min_cluster(n) and resident[c] > 0]
+
+
 def plan(b: int, n: int, resident: dict) -> int:
     """The cluster size C for a launch of b rows of bucket n. `resident`
     maps each size to the clusters of it the card holds at once (one CTA
     an SM; a cluster's CTAs share one GPC, so an H100's 132 SMs hold 66
-    of 2, 30 of 4, 15 of 8, 7 of 16): CLUSTER_ONE_ROW, halved while the b
-    clusters would not all be resident, down to the bucket's smallest
-    size."""
-    floor = min_cluster(n)
+    of 2, 30 of 4, 15 of 8, 7 of 16; 0 where the shared memory does not
+    fit): CLUSTER_ONE_ROW, halved while the b clusters would not all be
+    resident, down to the smallest of `sizes`. Raises where there is
+    none."""
+    fit = sizes(n, resident)
+    if not fit:
+        raise ValueError(f"no cluster size fits bucket n={n} on this card (resident {resident})")
+    floor = fit[0]
     c = max(CLUSTER_ONE_ROW, floor)
     while c > floor and b > resident[c]:
         c //= 2
@@ -161,29 +185,32 @@ def crc_consts(device, n: int, c: int) -> torch.Tensor:
     return buf
 
 
-def resident(device, n: int) -> dict:
-    """{C: clusters of C CTAs resident at once} for bucket n on `device`,
-    as the card reports them (once per device and bucket)."""
-    key = (str(device), n)
+def resident(device, n: int, codec: str = "lz4") -> dict:
+    """{C: clusters of C CTAs resident at once} of the codec's kernel for
+    bucket n on `device`, as the card reports them (once per device,
+    bucket and codec)."""
+    key = (str(device), n, codec)
     if key not in _RESIDENT:
         with torch.cuda.device(device):
-            _RESIDENT[key] = {c: shape_info(n, c)[1] if -(-n // c) <= sort_keys(c) else 0 for c in CLUSTERS}
+            _RESIDENT[key] = {c: shape_info(n, c, codec)[1] if -(-n // c) <= sort_keys(c) else 0
+                              for c in CLUSTERS}
     return _RESIDENT[key]
 
 
-def plan_for(data: torch.Tensor, n: int) -> int:
+def plan_for(data: torch.Tensor, n: int, codec: str = "lz4") -> int:
     """`plan` for these rows on their card."""
-    return plan(data.shape[0], n, resident(data.device, n))
+    return plan(data.shape[0], n, resident(data.device, n, codec))
 
 
-def launch_fused(data: torch.Tensor, body_len: torch.Tensor, n: int, c: int):
-    """One launch of the cluster kernel with c CTAs a row: (crc int64 [B],
-    out uint8 [B, out_bound(n)] (bytes past each out_len unwritten),
-    out_len int32 [B])."""
+def launch_fused(data: torch.Tensor, body_len: torch.Tensor, n: int, c: int, codec: str = "lz4"):
+    """One launch of the codec's cluster kernel with c CTAs a row: (crc
+    int64 [B], out uint8 [B, out_bound(n)] (bytes past each out_len
+    unwritten), out_len int32 [B])."""
     if c not in CLUSTERS or -(-n // c) > sort_keys(c):
         raise ValueError(f"cluster size {c} cannot take n={n} (sizes {CLUSTERS}, >= {min_cluster(n)})")
+    _, entry, bound, _ = CODECS[codec]
     b, stride = data.shape
-    m = lz4.out_bound(n)
+    m = bound(n)
     dev = data.device
     crc = torch.empty(b, dtype=torch.int64, device=dev)
     out = torch.empty((b, m), dtype=torch.uint8, device=dev)
@@ -191,38 +218,53 @@ def launch_fused(data: torch.Tensor, body_len: torch.Tensor, n: int, c: int):
     if b:
         piece, k = crc_piece(n, c)
         lib = _lib()
-        rc = lib.rp_fused_lz4(
+        rc = getattr(lib, entry)(
             data.data_ptr(), body_len.data_ptr(), crc_consts(dev, n, c).data_ptr(), crc.data_ptr(),
             out.data_ptr(), out_len.data_ptr(), b, stride, PREFIX, n, m, piece, k, c, _build.stream_of(data),
         )
-        _build.check(lib, rc, "fused_lz4")
-        LAUNCHES["fused_lz4"] += 1
+        _build.check(lib, rc, f"fused_{codec}")
+        LAUNCHES[f"fused_{codec}"] += 1
+    return crc, out, out_len
+
+
+def _sequence(data: torch.Tensor, body_len: torch.Tensor, n: int, codec: str):
+    """The CRC, the parse and the codec's emission one after the other:
+    on the CPU the plain chain; on the card the three launches the
+    codec's cluster kernel replaced (chip_smoke and chip_fused time them
+    beside it)."""
+    crc = crc32c_rows(data, body_len, PREFIX)
+    out, out_len = CODECS[codec][3](data, body_len, n, PREFIX)
     return crc, out, out_len
 
 
 def _fused_sequence(data: torch.Tensor, body_len: torch.Tensor, n: int):
-    """The CRC, the parse and the LZ4 emission one after the other: on the
-    CPU the plain chain; on the card the three launches `rp_fused_lz4`
-    replaced (chip_smoke and chip_fused time them beside it)."""
-    crc = crc32c_rows(data, body_len, PREFIX)
-    out, out_len = lz4._compress_chunks(data, body_len, n, PREFIX)
-    return crc, out, out_len
+    """`_sequence` for LZ4 (`rp_fused_lz4` replaced it)."""
+    return _sequence(data, body_len, n, "lz4")
 
 
 def _fused(data: torch.Tensor, body_len: torch.Tensor, n: int):
     """data [B, PREFIX + n + CELL] uint8; body_len int32 [B]. Returns
     (crc int64 [B] over prefix || body, lz4 blocks, their lengths)."""
+    return _fused_codec(data, body_len, n, "lz4")
+
+
+def _fused_codec(data: torch.Tensor, body_len: torch.Tensor, n: int, codec: str):
+    """The codec's plain chain on the CPU, one cluster launch on the card."""
     cp.check_rows(data, body_len, n, PREFIX)
     if data.device.type == "cpu":
-        return _fused_sequence(data, body_len, n)
-    return launch_fused(data, body_len, n, plan_for(data, n))
+        return _sequence(data, body_len, n, codec)
+    return launch_fused(data, body_len, n, plan_for(data, n, codec), codec)
+
+
+def _fused_snappy_sequence(data: torch.Tensor, body_len: torch.Tensor, n: int):
+    """`_sequence` for snappy (`rp_fused_snappy` replaced it)."""
+    return _sequence(data, body_len, n, "snappy")
 
 
 def _fused_snappy(data: torch.Tensor, body_len: torch.Tensor, n: int):
-    """Same layout as `_fused`, snappy emission instead of LZ4."""
-    crc = crc32c_rows(data, body_len, PREFIX)
-    out, out_len = snappy._compress_chunks(data, body_len, n, PREFIX)
-    return crc, out, out_len
+    """Same layout as `_fused`, snappy elements instead of the LZ4 block
+    (the length preamble is the host's)."""
+    return _fused_codec(data, body_len, n, "snappy")
 
 
 def _lz4_width(n: int) -> int:

@@ -33,7 +33,9 @@ loops:
 * `follower_commit_step` — the follower-side rule
   (consensus.cc:2760-2777): commit = min(leader_commit, flushed),
   monotone; `local_append_update` — scatter-max of local appends into
-  the self slot. Neither has a caller on a main path (as in the
+  the self slot (one launch; for a large batch in passes of a lane and a
+  part of the rows each, so the slots the blocks in flight touch stay
+  in L2). Neither has a caller on a main path (as in the
   reference); the ring cluster step (parallel/cluster_step.py) applies
   the same two rules, written once in csrc/quorum_rules.cuh.
 
@@ -87,7 +89,7 @@ def bind(lib):
     lib.rp_frame_grid.argtypes = [ctypes.c_int64] * 5 + [ctypes.c_void_p]
     lib.rp_frame_grid.restype = ctypes.c_int
     _build.bind(lib, "rp_follower_commit", 4, 2)
-    _build.bind(lib, "rp_local_append", 5, 3)
+    _build.bind(lib, "rp_local_append", 5, 4)
     return lib
 
 
@@ -401,6 +403,20 @@ def local_append_update_plain(state, group_idx, dirty, flushed) -> GroupState:
     return state
 
 
+# the local append's launch (measured on an H100 at G = 1M, PERF.md): one
+# append a thread while the batch touches at most APPEND_ONE_PASS_ROWS rows
+# (min(M, G)), else 2 * APPEND_PARTS passes, a lane and a part of the rows
+# each
+APPEND_ONE_PASS_ROWS = 131072
+APPEND_PARTS = 4
+
+
+def append_parts(m: int, g: int) -> int:
+    """The row parts rp_local_append runs M appends into G rows in: 0 (one
+    append a thread, both lanes) or APPEND_PARTS."""
+    return 0 if min(m, g) <= APPEND_ONE_PASS_ROWS else APPEND_PARTS
+
+
 def local_append_update(
     state: GroupState,
     group_idx: torch.Tensor,  # [M] i64 rows, [-G, 0) counting from the end
@@ -428,7 +444,7 @@ def local_append_update(
         group_idx.data_ptr(),
         dirty.data_ptr(),
         flushed.data_ptr(),
-        m, g, r,
+        m, g, r, append_parts(m, g),
         _build.stream_of(group_idx),
     )
     _build.check(lib, rc, "local_append_update")

@@ -1,4 +1,5 @@
-"""Port vs reference: the fused CRC + LZ4 kernel's scheme (csrc/fused.cu).
+"""Port vs reference: the fused CRC + LZ4 / snappy kernel's scheme
+(csrc/fused.cu).
 
 The kernel runs only on a card. Its arithmetic is replayed here in numpy,
 step for step, and held against the JAX package and the plain versions:
@@ -17,11 +18,15 @@ step for step, and held against the JAX package and the plain versions:
   * the per-CTA scans joined by the two exchanges (absorption across a
     CTA boundary, run ends from the later CTAs, the first sequence's
     literal start from the earlier ones) and each CTA's output range,
-    against the plain parse and the plain LZ4 emission;
+    against the plain parse and the plain LZ4 and snappy emissions, and
+    each codec's range_bound (csrc/lz77.cuh) against the largest range;
   * the wrapper's plan (the cluster size by rows, bucket and the card's
-    resident clusters) and its refusal to route a failed launch anywhere
-    else.
+    resident clusters of the codec's kernel, skipping a size whose
+    shared memory does not fit) and its refusal to route a failed launch
+    anywhere else; the CPU path of both entries, the plain chain.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +41,7 @@ from redpanda_tpu_torch.ops import cellparse as tcp
 from redpanda_tpu_torch.ops import crc32c as tcrc
 from redpanda_tpu_torch.ops import fused as tfused
 from redpanda_tpu_torch.ops import lz4 as tlz4
+from redpanda_tpu_torch.ops import snappy as tsnappy
 from redpanda_tpu_torch.utils import crc as host_crc
 
 CELL = tcp.CELL
@@ -301,20 +307,40 @@ def test_crc_operators_append_zeros():
 
 
 # ---------------------------------------------- the scans and the ranges
+def _lz4_extra(x):
+    return (x - 15) // 255 + 1 if x >= 15 else 0
+
+
 def _lz4_size(lit, mlen):
-    def n_extra(x):
-        return (x - 15) // 255 + 1 if x >= 15 else 0
-    return 1 + n_extra(lit) + lit + 2 + n_extra(mlen - 4)
+    return 1 + _lz4_extra(lit) + lit + 2 + _lz4_extra(mlen - 4)
 
 
-def _replay_cluster_scans(has, j, offs, v, n, c):
+def _snappy_lit_size(lit):
+    return 1 + (0 if lit <= 60 else 1 if lit <= 256 else 2) + lit if lit > 0 else 0
+
+
+def _snappy_size(lit, mlen):
+    return _snappy_lit_size(lit) + 3 * cdiv(mlen, 64)
+
+
+# csrc/lz77.cuh: a sequence's bytes (size), the final run's (final_size)
+# and range_bound(n, cells), the bytes a CTA's range of `cells` cells may take
+CODEC_RULES = {
+    "lz4": (_lz4_size, lambda f: 1 + _lz4_extra(f) + f, lambda n, cells: n + n // 255 + 5 * cells + 2),
+    "snappy": (_snappy_size, _snappy_lit_size, lambda n, cells: n + 3 * cells + 3),
+}
+
+
+def _replay_cluster_scans(has, j, offs, v, n, c, codec="lz4", fixups=None):
     """The kernel's steps after the verification, CTA by CTA: absorption
     inside each CTA, exchange 1 (first and last cells, least boundary
     after the first), run ends from the later CTAs, local literal starts
     and sizes, exchange 2 (the run end and size sum a CTA, its first
-    sequence), each CTA's base, ranges and sequences. Returns (sequences
-    as (cell, start, lit_start, lit, mlen, offs), f_start, out_len,
-    [(base, end)] a CTA)."""
+    sequence), each CTA's base, ranges and sequences, by the codec's
+    sizes. Returns (sequences as (cell, start, lit_start, lit, mlen,
+    offs), f_start, out_len, [(base, end)] a CTA); `fixups` (a list)
+    takes (local literals, literals) of each CTA's first sequence."""
+    size, final_size, _ = CODEC_RULES[codec]
     walk_end = min(v + 1, n)
     ncw = cdiv(walk_end, CELL)
     cpc = cdiv(ncw, c)
@@ -355,7 +381,7 @@ def _replay_cluster_scans(has, j, offs, v, n, c):
                 if pe == 0:
                     first = (mstart, mlen)
                 seqs.append([cc, total, pe, mstart, mlen, offs[cc]])
-                total += _lz4_size(mstart - pe, mlen)
+                total += size(mstart - pe, mlen)
                 pe = nb[i] * CELL
         local.append(seqs)
         s2.append(dict(max_contrib=pe, size_sum=total, heads=len(seqs), first=first))
@@ -364,13 +390,15 @@ def _replay_cluster_scans(has, j, offs, v, n, c):
         t, fix = s2[r]["size_sum"], 0
         if s2[r]["heads"]:
             ms, ml = s2[r]["first"]
-            fix = _lz4_size(ms - incoming, ml) - _lz4_size(ms, ml)
+            fix = size(ms - incoming, ml) - size(ms, ml)
+            if fixups is not None:
+                fixups.append((ms, ms - incoming))
         bases.append((base, incoming, fix))
         base += t + fix
         incoming = max(incoming, s2[r]["max_contrib"])
     total, f_start = base, incoming
     f_lit = max(v - f_start, 0)
-    out_len = total + 1 + ((f_lit - 15) // 255 + 1 if f_lit >= 15 else 0) + f_lit
+    out_len = total + final_size(f_lit)
     seqs = []
     for k in range(c):
         b0, inc, fix = bases[k]
@@ -422,6 +450,88 @@ def test_cluster_scans_match_plain(c):
         assert ranges[0][0] == 0 and ranges[-1][1] == got_len
         for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
             assert a0 <= a1 == b0
+
+
+def _adjacent_matches_row():
+    """P | Q | P[:512] | Q[:512] | random: the run copying P ends at byte
+    2,560 (cell 160), where the copy of Q starts at another offset, so the
+    sequence there has no literals; with v = 5,119 (320 cells walked)
+    cell 160 starts a CTA at C = 2, 4, 8 and 16, so that CTA sizes its
+    first sequence with 2,560 literals until the fix-up takes them all
+    away (snappy: its literal tag too)."""
+    rng = np.random.default_rng(29)
+    p = rng.integers(0, 256, 1024, dtype=np.uint8).tobytes()
+    q = rng.integers(0, 256, 1024, dtype=np.uint8).tobytes()
+    return p + q + p[:512] + q[:512] + rng.integers(0, 256, 2047, dtype=np.uint8).tobytes()
+
+
+@pytest.mark.parametrize("c", (2, 4, 8, 16))
+@pytest.mark.parametrize("codec", ("lz4", "snappy"))
+def test_cluster_scans_match_plain_by_codec(codec, c):
+    """The per-CTA scans and the two exchanges, with the codec's sizes,
+    give the plain parse's sequences and the plain emission's starts and
+    length (snappy: a zero-literal sequence has no tag, the final run
+    none when it is empty), the CTAs' ranges tile [0, out_len), and the
+    fix-up takes a CTA's first sequence from local literals to none."""
+    bodies = _scan_rows() + [_adjacent_matches_row()]
+    batch, valid, n = tlz4.stage_chunks(tlz4.as_arrays(bodies), codec)
+    data, vt = torch.from_numpy(batch), torch.from_numpy(valid)
+    parse = [t.numpy() for t in tcp.cell_parse(data, vt, n)]
+    emit = tlz4.lz4_emit if codec == "lz4" else tsnappy.snappy_emit
+    _, out_len = emit(data, vt, tcp.cell_parse(data, vt, n), n)
+    has, mstart, offs, mlen, lit_start, lit_len, last_end = parse
+    size = CODEC_RULES[codec][0]
+    fixups = []
+    for i, body in enumerate(bodies):
+        v = len(body)
+        raw_has, raw_j, raw_offs = _raw_cells(batch[i], v, n)
+        seqs, f_start, got_len, ranges = _replay_cluster_scans(raw_has, raw_j, raw_offs, v, n, c, codec, fixups)
+        heads = np.flatnonzero(has[i])
+        assert [s[0] for s in seqs] == heads.tolist()
+        starts = np.cumsum([0] + [size(lit_len[i][h], mlen[i][h]) for h in heads])[:-1]
+        for s, h, st in zip(seqs, heads, starts):
+            assert s[1:] == (st, lit_start[i][h], lit_len[i][h], mlen[i][h], offs[i][h]), (i, h)
+        assert f_start == last_end[i] and got_len == int(out_len[i]), i
+        assert ranges[0][0] == 0 and ranges[-1][1] == got_len
+        for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+            assert a0 <= a1 == b0
+    assert any(local > 0 and lit == 0 for local, lit in fixups), "no first sequence lost all its literals"
+
+
+def _edge_rows(n):
+    return {"one_byte": b"a" * n, "distinct": chip_smoke.distinct_grams_row(n),
+            "random": np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8).tobytes(), "zeros": bytes(n)}
+
+
+@pytest.mark.parametrize("n", (512, 65536))
+@pytest.mark.parametrize("codec", ("lz4", "snappy"))
+def test_range_bound_holds_every_cta_range(codec, n):
+    """Each codec's range_bound(n, ceil(n / 16 / C)) (Layout's image
+    region less its 32 bytes of alignment) is at least every CTA's output
+    range on the skew edges (one repeated byte: one sequence whose copies
+    the owner defers; distinct 4-grams and random bytes: the final run
+    alone; zeros), at v in {0, 1, 3, 4, 5, n} and C = 2 to 16, and the
+    replay's length is the plain emission's."""
+    _, _, bound = CODEC_RULES[codec]
+    emit = tlz4.lz4_emit if codec == "lz4" else tsnappy.snappy_emit
+    for kind, full in _edge_rows(n).items():
+        bodies = [full[:v] for v in (0, 1, 3, 4, 5, n)]
+        batch, valid, nn = tlz4.stage_chunks(tlz4.as_arrays(bodies), codec)
+        data, vt = torch.from_numpy(batch), torch.from_numpy(valid)
+        _, out_len = emit(data, vt, tcp.cell_parse(data, vt, nn), nn)
+        for i, body in enumerate(bodies):
+            raw = _raw_cells_of(batch[i].tobytes(), len(body), nn)
+            for c in tfused.CLUSTERS:
+                _, _, got_len, ranges = _replay_cluster_scans(*raw, len(body), nn, c, codec)
+                assert got_len == int(out_len[i]), (kind, len(body), c)
+                widest = max(e - b for b, e in ranges)
+                assert widest <= bound(nn, cdiv(nn // CELL, c)), (kind, len(body), c, widest)
+
+
+@functools.cache
+def _raw_cells_of(row: bytes, v, n):
+    """_raw_cells of a staged row, once a row for both codecs' tests."""
+    return _raw_cells(np.frombuffer(row, np.uint8), v, n)
 
 
 def _raw_cells(d, v, n):
@@ -484,12 +594,51 @@ def test_plan_by_rows_and_resident_clusters():
     assert [tfused.plan(b, 32768, H100) for b in (15, 16, 30, 31, 66, 67)] == [8, 4, 4, 2, 2, 2]
 
 
+def test_plan_skips_sizes_the_shared_memory_refuses(monkeypatch):
+    """A size the card reports no resident cluster of (its shared memory
+    does not fit: rp_fused_shape) is never chosen, also as the floor: at
+    n = 65,536 without C = 4 the floor is 8; with no size left plan
+    raises. `sizes`, which the harnesses hold every size of, lists what
+    plan can choose. plan_for reads the codec's own resident clusters."""
+    refused = {**H100, 4: 0}
+    assert tfused.sizes(65536, refused) == [8, 16] and tfused.sizes(65536, H100) == [4, 8, 16]
+    assert tfused.sizes(512, H100) == list(tfused.CLUSTERS)
+    for b in (1, 7, 8, 15, 16, 30, 31, 256):
+        c = tfused.plan(b, 65536, refused)
+        assert c in tfused.sizes(65536, refused) and refused[c] > 0
+        assert c == 16 or b > refused[16]
+    assert tfused.plan(256, 65536, H100) == 4
+    assert tfused.plan(1, 512, {2: 66, 4: 30, 8: 15, 16: 0}) == 8
+    with pytest.raises(ValueError, match="no cluster size"):
+        tfused.plan(1, 65536, {2: 66, 4: 0, 8: 0, 16: 0})
+    data = torch.zeros((64, tfused.PREFIX + 65536 + CELL), dtype=torch.uint8)
+    monkeypatch.setitem(tfused._RESIDENT, (str(data.device), 65536, "lz4"), dict(H100))
+    monkeypatch.setitem(tfused._RESIDENT, (str(data.device), 65536, "snappy"), refused)
+    assert tfused.plan_for(data, 65536, "lz4") == 4
+    assert tfused.plan_for(data, 65536, "snappy") == 8
+
+
+def test_snappy_layout_fits_where_lz4_does():
+    """Layout's image region (csrc/fused.cu): snappy's range_bound is at
+    most LZ4's at every bucket and cluster size, so its kernel's shared
+    memory never exceeds the LZ4 kernel's."""
+    lz4_bound, snappy_bound = CODEC_RULES["lz4"][2], CODEC_RULES["snappy"][2]
+    for n in (512, 4096, 32768, 65536):
+        for c in tfused.CLUSTERS:
+            cells = cdiv(n // CELL, c)
+            assert snappy_bound(n, cells) <= lz4_bound(n, cells)
+
+
 class _RefusingLib:
-    """A library whose fused launch reports a refused cluster launch."""
+    """A library whose fused launches report a refused cluster launch."""
 
     @staticmethod
     def rp_fused_lz4(*_args):
         return 9  # cudaErrorInvalidConfiguration
+
+    @staticmethod
+    def rp_fused_snappy(*_args):
+        return 9
 
     @staticmethod
     def rp_error_string(_rc):
@@ -513,6 +662,53 @@ def test_a_refused_launch_raises(monkeypatch):
         tfused.launch_fused(torch.from_numpy(mat), torch.from_numpy(blen), n, 3)
     with pytest.raises(ValueError, match="cluster size"):
         tfused.launch_fused(torch.from_numpy(mat), torch.from_numpy(blen), 65536, 2)
+
+
+def test_a_refused_snappy_launch_raises(monkeypatch):
+    """The same for rp_fused_snappy: KernelError, nothing counted, no
+    fallback to the three-launch sequence."""
+    monkeypatch.setattr(tfused, "_LIB", _RefusingLib())
+    monkeypatch.setattr(_build, "stream_of", lambda _t: 0)
+    monkeypatch.setattr(tfused, "crc_consts", lambda _dev, _n, _c: torch.zeros(1, dtype=torch.int32))
+    mat, blen, n = tfused.stage_fused([bytes(40)], [b"abc" * 100])
+    before = dict(tfused.LAUNCHES)
+    with pytest.raises(_build.KernelError, match="fused_snappy"):
+        tfused.launch_fused(torch.from_numpy(mat), torch.from_numpy(blen), n, 8, "snappy")
+    assert tfused.LAUNCHES == before
+    with pytest.raises(ValueError, match="cluster size"):
+        tfused.launch_fused(torch.from_numpy(mat), torch.from_numpy(blen), 65536, 2, "snappy")
+
+
+def test_fused_snappy_cpu_path_is_the_plain_chain():
+    """On the CPU `_fused_snappy` is the plain chain: equal to the
+    three-launch sequence's CPU twin, and its entry to the JAX program."""
+    rng = np.random.default_rng(9)
+    bodies = [chip_smoke.json_text(rng, 3000), b"", rng.integers(0, 256, 900, dtype=np.uint8).tobytes()]
+    prefixes = [rng.integers(0, 256, 40, dtype=np.uint8).tobytes() for _ in bodies]
+    mat, blen, n = tfused.stage_fused(prefixes, bodies)
+    data, valid = torch.from_numpy(mat), torch.from_numpy(blen)
+    for got, want in zip(tfused._fused_snappy(data, valid, n), tfused._fused_snappy_sequence(data, valid, n)):
+        assert torch.equal(got, want)
+    assert tfused.LAUNCHES["fused_snappy"] == 0
+    crcs, blocks = tfused.crc_snappy_fused(prefixes, bodies, device="cpu")
+    jcrcs, jblocks = jfused.crc_snappy_fused(prefixes, bodies)
+    np.testing.assert_array_equal(crcs, np.asarray(jcrcs))
+    assert blocks == jblocks
+
+
+@pytest.mark.parametrize("n", (512, 65536))
+def test_crc_snappy_fused_matches_jax_on_skew_edges(n):
+    """crc_snappy_fused on the CPU against the JAX program on the skew
+    edges (one repeated byte, distinct 4-grams, random bytes, zeros) at
+    v in {0, 1, 3, 4, 5, n}: CRCs and blocks (preamble included) equal."""
+    rng = np.random.default_rng(n + 1)
+    for kind, full in _edge_rows(n).items():
+        bodies = [full[:v] for v in (0, 1, 3, 4, 5, n)]
+        prefixes = [rng.integers(0, 256, 40, dtype=np.uint8).tobytes() for _ in bodies]
+        crcs, blocks = tfused.crc_snappy_fused(prefixes, bodies, device="cpu")
+        jcrcs, jblocks = jfused.crc_snappy_fused(prefixes, bodies)
+        np.testing.assert_array_equal(crcs, np.asarray(jcrcs), err_msg=kind)
+        assert blocks == jblocks, kind
 
 
 def test_fused_cpu_path_is_the_plain_chain():

@@ -963,3 +963,94 @@ def test_launch_frame_refuses(case):
             tq.launch_mesh_frame(torch_state(fields), replies, known, known)
         else:
             tq.launch_frame(torch_state(fields), replies, tvec(np.arange(4)), known, None)
+
+
+# ------------------------------------------------------------------
+# The local append (csrc/quorum.cu local_append_kernel), replayed.
+
+def _replay_local_append(fields, rows, dirty, flushed, parts, threads=256, seed=0):
+    """The local append on numpy lanes, as csrc/quorum.cu launches it for
+    `parts` row parts: ceil(M / threads) blocks of `threads`, thread t of
+    block b taking append b * threads + t and its cell by the index rule
+    (dropped when still out of range). parts == 0 (local_append_kernel):
+    one pass raising both lanes. Else (local_append_parts_kernel) 2 *
+    parts passes, pass q raising lane q / parts (match, then flushed)
+    where the cell is in [lo, lo + span), span = ceil(G / parts) * R
+    cells, lo = span * (q % parts). The atomics land in a seeded order.
+    Returns the lanes."""
+    g, r = fields["match_index"].shape
+    lanes = [fields["match_index"].copy().reshape(-1), fields["flushed_index"].copy().reshape(-1)]
+    vals = (np.asarray(dirty, np.int64), np.asarray(flushed, np.int64))
+    m = len(rows)
+    blocks = -(-m // threads)
+    span = -(-g // max(parts, 1)) * r
+    work = []
+    for q in range(max(2 * parts, 1)):
+        lo = span * (q % parts) if parts else 0
+        for blk in range(blocks):
+            for t in range(threads):
+                i = blk * threads + t
+                c = _cell(rows[i], 0, g, r) if i < m else -1
+                if c >= 0 and parts == 0:
+                    work += [(0, i, c), (1, i, c)]
+                elif parts and lo <= c < lo + span:
+                    work.append((q // parts, i, c))
+    cells = [(i, c) for i in range(m) for c in [_cell(rows[i], 0, g, r)] if c >= 0]
+    assert sorted(work) == [(lane, i, c) for lane in (0, 1) for i, c in cells], "each kept append once a lane"
+    for k in np.random.default_rng(seed).permutation(len(work)):
+        lane, i, c = work[k]
+        lanes[lane][c] = max(lanes[lane][c], vals[lane][i])
+    return lanes[0].reshape(g, r), lanes[1].reshape(g, r)
+
+
+def _append_batch(rng, g, m):
+    """M appends to random rows with rows repeated at several distances
+    (within a warp, across warps and blocks), rows -1, -G, -G - 1, G and
+    G + 5 and the in-range twins of the wrapped ones, values around the
+    slots' (some raise nothing) and the i64 extremes."""
+    rows = rng.integers(0, g, m).astype(np.int64)
+    for gap in (1, 32, m // 2):
+        at = rng.integers(0, m - gap, 8)
+        rows[at + gap] = rows[at]
+    bad = np.array([-1, -g, -g - 1, g, g + 5, g - 1, 0, -1], np.int64)
+    rows = np.insert(rows, np.sort(rng.integers(0, m, bad.size)), bad)
+    dirty = rng.integers(-1, 1100, rows.size).astype(np.int64)
+    dirty[:2] = (I64_MIN, 2**63 - 1)
+    return rows, dirty, dirty - rng.integers(0, 60, rows.size)
+
+
+@pytest.mark.parametrize("parts,threads", [(4, 256), (0, 256), (1, 32), (3, 32), (8, 64)])
+def test_kernel_replay_local_append_matches_jax(parts, threads):
+    """The local append's scheme (4 row parts, 8 passes, at 256-thread
+    blocks as at the cluster shape; one pass as for small batches; and
+    others; G = 24 is no multiple of 8 parts) on batches whose M is not
+    a multiple of the block, with duplicate rows within and across warps
+    and blocks and rows -1, -G, -G - 1, G, G + 5: the lanes equal the JAX
+    program's and the plain version's in every seeded order of the
+    atomics."""
+    rng = np.random.default_rng(57)
+    for g, r in ((24, 8), (1500, 3)):
+        fields = random_fields(rng, g, r)
+        rows, dirty, fl = _append_batch(rng, g, 3 * threads + 37)
+        assert len(rows) % threads
+        js = jq.local_append_update(jax_state(fields), *map(jnp.asarray, (rows, dirty, fl)))
+        ts = tq.local_append_update(torch_state(fields), *map(tvec, (rows, dirty, fl)))
+        for seed in range(3):
+            got = _replay_local_append(fields, rows, dirty, fl, parts, threads, seed)
+            for lane, want, plain in zip(got, (js.match_index, js.flushed_index),
+                                         (ts.match_index, ts.flushed_index)):
+                np.testing.assert_array_equal(lane, np.asarray(want), err_msg=f"seed {seed} vs JAX")
+                np.testing.assert_array_equal(lane, plain.numpy(), err_msg=f"seed {seed} vs plain")
+
+
+def test_local_append_parts_by_batch():
+    """The row parts the entry passes to rp_local_append: 0 (one append a
+    thread) up to APPEND_ONE_PASS_ROWS rows touched (min(M, G)); else
+    APPEND_PARTS = 4 (8 passes), at the cluster shape (G = M = 1M), below
+    it and past M = G."""
+    one_pass, parts = tq.APPEND_ONE_PASS_ROWS, tq.APPEND_PARTS
+    assert parts == 4
+    assert tq.append_parts(1, 10**6) == 0 and tq.append_parts(one_pass, 10**6) == 0
+    assert tq.append_parts(10**6, one_pass) == 0 and tq.append_parts(10**8, 24) == 0
+    assert tq.append_parts(one_pass + 1, 10**6) == parts and tq.append_parts(10**6, 10**6) == parts
+    assert tq.append_parts(2 * 10**6, 10**6) == parts and tq.append_parts(10**8, 10**6) == parts
