@@ -11,6 +11,7 @@ over the rows.
     python3 chip_quorum.py breakdown .chipcheck/old [OUT_DIR]
     python3 chip_quorum.py ab .chipcheck/old [OUT_DIR]
     python3 chip_quorum.py append .chipcheck/old [OUT_DIR]
+    python3 chip_quorum.py follower .chipcheck/old [OUT_DIR]
 
 The old directory holds a tree whose mesh frame is a launch sequence
 (a copy of the commit lane, the fold, the sweep, two zero fills and
@@ -65,6 +66,24 @@ cluster's kernels, old and new. The designs that lost to the passes (several
 appends a thread, slot reads that skip atomics, `red.global`, a binned
 two-launch design) are described in PERF.md.
 Its old directory holds the files of 5a3ba4a (as for `ab`).
+
+`follower` breaks down and times the follower rule
+(`follower_commit_step`) at chip_smoke phase 10's cluster shape (G =
+1,000,000, R = 8, leader_commit = commit + U{-2..5}): the old tree's
+kernel (one thread a row) and pieces of it at its grid (`FOLLOW_EXTRAS`,
+appended to the old quorum.cu: an empty kernel, the three [G] lanes
+read and commit and visible written, slot 0's column of flushed alone);
+this tree's entry (`FOLLOW_ROWS` rows a thread, vectors, the column only
+where leader_commit > commit) and copies of it (`FOLLOW_VARIANTS`: 2 and 8
+rows a thread, the column loaded on every row, every vector written
+back, the column read through the read-only path), the pieces and kernels also under each L2 fetch granularity hint
+(32, 64, 128 bytes; then the default again). Every side is first held
+exactly against the plain version on
+those inputs, on rows with no update (leader_commit = i64 min), on G - 3
+rows (the scalar tail) and on a view one row in (unaligned [G] lanes).
+Then all in turns (each side, then the same in reverse), and the ring
+cluster's kernels and `local_append_update` old against new. Its old
+directory holds the files of 288c153 (as for `ab`).
 
 Every library is built under .chipcheck/quorum (git-ignored) with
 `-Xptxas -v` (registers and spills printed and kept); results are
@@ -287,6 +306,68 @@ NEW_VARIANTS = {
     "new": [],
     "coop_t128": [("#define FRAME_THREADS 256", "#define FRAME_THREADS 128")],
     "coop_t512": [("#define FRAME_THREADS 256", "#define FRAME_THREADS 512")],
+}
+
+
+FOLLOW_EXTRAS = r"""
+// KIND: 0 nothing; 1 the three [G] lanes read, commit and visible written
+// (commit = max(commit, leader_commit): the rule's stores without its
+// column); 2 slot 0's column of flushed read on every row (a store no
+// value reaches keeps the loads)
+template <int KIND>
+__global__ void fc_piece_kernel(i64* __restrict__ commit, i64* __restrict__ vis, const i64* __restrict__ flushed,
+                                const i64* __restrict__ lc, i64 g_n, i64 r_n) {
+    if (KIND == 0) return;
+    const i64 g = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g >= g_n) return;
+    if (KIND == 1) {
+        const i64 c = commit[g], l = lc[g], v = vis[g];
+        commit[g] = c > l ? c : l;
+        vis[g] = v > c ? v : c;
+    }
+    if (KIND == 2) {
+        const i64 f = flushed[g * r_n];
+        if (f == -0x7FFFFFFFFFFFFFF7LL) commit[g] = f;
+    }
+}
+
+extern "C" int rp_fc_piece(i64* commit, i64* vis, const i64* flushed, const i64* lc, i64 g_n, i64 r_n, i64 kind,
+                           void* stream) {
+    if (g_n <= 0) return 0;
+    const unsigned blocks = (unsigned)((g_n + THREADS - 1) / THREADS);
+    const cudaStream_t st = (cudaStream_t)stream;
+#define FC_PIECE(K) fc_piece_kernel<K><<<blocks, THREADS, 0, st>>>(commit, vis, flushed, lc, g_n, r_n)
+    switch (kind) {
+        case 0: FC_PIECE(0); break;
+        case 1: FC_PIECE(1); break;
+        case 2: FC_PIECE(2); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+// the device's L2 fetch granularity hint (cudaLimitMaxL2FetchGranularity):
+// `before` gets the current value, which becomes `bytes` unless it is < 0
+extern "C" int rp_l2_fetch(i64 bytes, i64* before) {
+    size_t v = 0;
+    cudaError_t e = cudaDeviceGetLimit(&v, cudaLimitMaxL2FetchGranularity);
+    if (e != cudaSuccess) return (int)e;
+    *before = (i64)v;
+    return bytes < 0 ? 0 : (int)cudaDeviceSetLimit(cudaLimitMaxL2FetchGranularity, (size_t)bytes);
+}
+"""
+FOLLOW_PIECES = {0: "old grid: empty kernel", 1: "old grid: the [G] lanes alone (read 3, write 2)",
+                 2: "old grid: slot 0's column alone (every row)"}
+# copies of this tree's quorum.cu with the follower kernel changed
+FOLLOW_VARIANTS = {
+    "rows 2": [("#define FOLLOW_ROWS 4", "#define FOLLOW_ROWS 2")],
+    "rows 8": [("#define FOLLOW_ROWS 4", "#define FOLLOW_ROWS 8")],
+    "column on every row": [("fl[k] = lc[k] > c[k] ? __ldcs(flushed + (g0 + k) * r_n) : 0;",
+                             "fl[k] = g0 + k < g_n ? __ldcs(flushed + (g0 + k) * r_n) : 0;")],
+    "every vector written": [("            if (moved) __stcs(", "            __stcs("),
+                             ("            if (raised) __stcs(", "            __stcs(")],
+    "column by __ldg": [("fl[k] = lc[k] > c[k] ? __ldcs(flushed + (g0 + k) * r_n) : 0;",
+                         "fl[k] = lc[k] > c[k] ? __ldg(flushed + (g0 + k) * r_n) : 0;")],
 }
 
 
@@ -975,6 +1056,109 @@ def append(torch, old_dir: str) -> dict:
     return res
 
 
+def follower(torch, old_dir: str) -> dict:
+    """The follower rule's breakdown, this tree's kernel and its variants,
+    each exact side held first, then all in turns; the cluster kernels and
+    the local append old against new (module doc)."""
+    from redpanda_tpu_torch.models.consensus_state import GroupState
+    from redpanda_tpu_torch.parallel import cluster_step as cluster_ops
+
+    ptxas = {}
+    new_src = open(os.path.join(_build.CSRC_DIR, "quorum.cu")).read()
+    sources = {"old_quorum": (open(os.path.join(old_dir, "quorum.cu")).read() + FOLLOW_EXTRAS, old_dir),
+               "old_cluster": (open(os.path.join(old_dir, "cluster.cu")).read(), old_dir)}
+    sources.update({name: (patched(new_src, p, name), _build.CSRC_DIR) for name, p in FOLLOW_VARIANTS.items()})
+    libs = build(sources, ptxas)
+    for name in ("old_quorum", *FOLLOW_VARIANTS):
+        quorum_ops.bind(libs[name])
+    _build.bind(libs["old_quorum"], "rp_fc_piece", 4, 3)
+    _build.build_all(("quorum", "health", "cluster"))
+    for lib in (libs["old_cluster"], cluster_ops._lib()):
+        _build.bind(lib, "rp_cluster_tick", 18, 3)
+        _build.bind(lib, "rp_election_round", 9, 4)
+    this = quorum_ops._lib()
+    quorum_sides = {"old": libs["old_quorum"], "new": this, **{k: libs[k] for k in FOLLOW_VARIANTS}}
+    sides = Sides(quorum_sides, {k: health_ops._lib() for k in quorum_sides},
+                  {k: (libs["old_cluster"] if k == "old" else cluster_ops._lib()) for k in quorum_sides})
+    rng = np.random.default_rng(cs.SEED + 12)
+    g = cs.CLUSTER_G
+    base = cs.cluster_state(cs.cluster_fields(rng, g), "cuda").leader
+    lead = GroupState(*(t.clone() for t in base))
+    r = base.match_index.shape[1]
+    lc = base.commit_index + torch.from_numpy(rng.integers(-2, 6, g)).cuda()
+    none = torch.where(torch.from_numpy(rng.random(g) < 0.2).cuda(), torch.iinfo(torch.int64).min, lc)
+    stream = _build.stream_of(base.match_index)
+
+    def reset():
+        for a, b in zip(lead, base):
+            a.copy_(b)
+
+    def call(side, rows=slice(None), lanes=lc):
+        part = GroupState(*(t[rows] for t in lead))
+        return lambda: sides.run(side, lambda: quorum_ops.follower_commit_step(part, lanes[rows]))
+
+    def held(label, rows, lanes):
+        reset()
+        part = GroupState(*(t[rows] for t in lead))
+        quorum_ops.follower_commit_step_plain(part, lanes[rows])
+        want = tensors(lead)
+        for side in quorum_sides:
+            reset()
+            call(side, rows, lanes)()
+            torch.cuda.synchronize()
+            same(tensors(lead), want, f"follower_commit_step {side} on {label} vs plain")
+
+    for label, rows, lanes in (("phase 10", slice(None), lc), ("no update on a fifth", slice(None), none),
+                               ("G - 3 rows", slice(0, g - 3), lc), ("a view one row in", slice(1, g), lc)):
+        held(label, rows, lanes)
+    msg = ("follower_commit_step: every side equal to the plain version on phase 10's leader commits, with a "
+           "fifth of the rows without an update, on G - 3 rows and on a view one row in, tolerance exact")
+    print(msg, flush=True)
+    moved = int((lc > base.commit_index).sum())
+    res = {"card": cs.nvidia_smi(), "clocks": clocks(), "ptxas": ptxas, "G": g, "R": r, "held": msg,
+           "rows with leader_commit > commit": moved}
+
+    def piece(kind):
+        old = libs["old_quorum"]
+        return lambda: _build.check(old, old.rp_fc_piece(
+            lead.commit_index.data_ptr(), lead.last_visible.data_ptr(), lead.flushed_index.data_ptr(),
+            lc.data_ptr(), g, r, kind, stream), f"follower piece {kind}")
+
+    fns = {name: piece(kind) for kind, name in FOLLOW_PIECES.items()}
+    fns.update({f"follower_commit_step {side}": call(side) for side in quorum_sides})
+    t = {}
+    for name in list(fns) + list(fns)[::-1]:
+        t.setdefault(name, []).append(time_us(fns[name], reset))
+    res["us"] = {k: float(np.mean(v)) for k, v in t.items()}
+    res["us turns"] = t
+    print("follower", json.dumps(res["us"]), flush=True)
+    # the same pieces and kernels under each L2 fetch granularity hint (how
+    # many bytes a sector miss brings from device memory), then the default
+    fetch = libs["old_quorum"].rp_l2_fetch
+    fetch.argtypes, fetch.restype = [ctypes.c_int64, ctypes.c_void_p], ctypes.c_int
+    default = ctypes.c_int64()
+    _build.check(libs["old_quorum"], fetch(-1, ctypes.addressof(default)), "L2 fetch granularity")
+    by_fetch = {}
+    for bytes_ in (32, 64, 128):
+        _build.check(libs["old_quorum"], fetch(bytes_, ctypes.addressof(ctypes.c_int64())), "L2 fetch")
+        by_fetch[bytes_] = {name: time_us(fns[name], reset) for name in
+                            (FOLLOW_PIECES[1], FOLLOW_PIECES[2], "follower_commit_step old",
+                             "follower_commit_step new", "follower_commit_step column on every row")}
+    _build.check(libs["old_quorum"], fetch(default.value, ctypes.addressof(ctypes.c_int64())), "L2 fetch")
+    res["by L2 fetch granularity"] = {"default": default.value, **by_fetch}
+    print("L2 fetch granularity", json.dumps(res["by L2 fetch granularity"]), flush=True)
+    # the neighbours that share no code with the rule, old against new
+    batch = append_batch(torch, np.random.default_rng(cs.SEED + 13), base, g)
+    t = {}
+    for side in ("old", "new", "new", "old"):
+        t.setdefault(f"local_append_update {side}", []).append(time_us(
+            lambda: sides.run(side, lambda: quorum_ops.local_append_update(lead, *batch)), reset))
+    res["local append"] = {"us": {k: float(np.mean(v)) for k, v in t.items()}, "us turns": t}
+    print("local append", json.dumps(res["local append"]), flush=True)
+    res["cluster"] = cluster_ab(torch, sides)
+    return res
+
+
 def clocks() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -989,7 +1173,7 @@ def main() -> int:
     mode, old_dir = sys.argv[1], sys.argv[2]
     out = sys.argv[3] if len(sys.argv) > 3 else OUT
     print(cs.nvidia_smi(), flush=True)
-    res = {"breakdown": breakdown, "ab": ab, "append": append}[mode](torch, old_dir)
+    res = {"breakdown": breakdown, "ab": ab, "append": append, "follower": follower}[mode](torch, old_dir)
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, f"quorum_{mode}.json"), "w") as fh:
         json.dump(res, fh, indent=1)

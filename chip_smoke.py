@@ -56,7 +56,10 @@ Phases, each raising on any mismatch:
      distinct 4-grams, random bytes, zeros at v in {0, 1, 3, 4, 5} and
      full, n = 512 and 65,536; the host CRC) at every cluster size
      `plan` can choose, the zstd encode on phase
-     8b's one row and the decode of that block's four streams, and the
+     8b's one row, `_fused_zstd` there (one rp_fused_zstd launch, exact
+     against the plain chain and the host CRC) beside the empty encode
+     launch and the two-launch sequence it replaced, the decode of that
+     block's four streams, and the
      parse and both emissions on two full-width 64 KiB skew edges (one
      repeated byte; all 4-grams distinct); beside them the per-launch
      floor, one empty kernel launch timed the same way;
@@ -73,9 +76,13 @@ Phases, each raising on any mismatch:
      segment, edge rows at every bucket n = 256 ... 65536, rows of
      lengths 1-5 and v = 1, 5, 15 (mod 64) at odd column offsets and
      pitches (quarters at every alignment), one symbol over 64 KiB, the
-     Kraft down loop at 64 KiB, the fused CRC + encode at the fused
-     shape, and tampered, truncated and regen = 0 streams (the decode
-     error names the same stream);
+     Kraft down loop at 64 KiB, the fused CRC + encode (`_fused_zstd`:
+     one rp_fused_zstd launch a call) at the fused shape and on edge rows
+     (v = 0, 1, 3, 4, 5, 8, n - 1, n of random bytes and of one repeated
+     byte at n = 512 and 65,536, each alone and 40 to a launch), exact
+     against the plain CRC, the host CRC and the plain encode, timed
+     beside the two-launch sequence it replaced, and tampered, truncated
+     and regen = 0 streams (the decode error names the same stream);
   8. the tiered segment path at full size: one 128 MiB segment of
      serialized record batches (a quarter JSON-like values, a quarter
      random, half zipf-skewed) through compression.compress / uncompress
@@ -105,13 +112,14 @@ Phases, each raising on any mismatch:
      retention stranding mirrors) with every lane, elected, the terms
      and both totals equal to the plain versions after every call; the
      cluster kernels and the two follower-side quorum rules (no main-path
-     caller, held against their plain versions) on the device clock,
+     caller, held against their plain versions; the follower rule also
+     on G - 3 rows and on a view one row in) on the device clock,
      local_append_update also beside the library's two
      scatter_reduce_(amax) calls on the same appends.
 The launch counters are zeroed just before each main-path phase (3, 4,
 6, 8, 8b, 9 and 10) and read just after; every kernel must have
 launched there, except those in OFF_PATH (follower_commit_step,
-local_append_update, build_heartbeats, fused_snappy).
+local_append_update, build_heartbeats, fused_snappy, fused_zstd).
 
 Output: progress lines, the card line, one JSON line of per-kernel
 numbers, and last `{"ok": true, "device": {...}}`. Without a CUDA card
@@ -168,6 +176,7 @@ KERNELS = {
     "snappy_emit": ("redpanda_tpu_torch/csrc/codec.cu", "redpanda_tpu/ops/snappy.py:52", snappy_ops.LAUNCHES),
     "fused_lz4": ("redpanda_tpu_torch/csrc/fused.cu", "redpanda_tpu/ops/fused.py:42", fused_ops.LAUNCHES),
     "fused_snappy": ("redpanda_tpu_torch/csrc/fused.cu", "redpanda_tpu/ops/fused.py:69", fused_ops.LAUNCHES),
+    "fused_zstd": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/fused.py:89", fused_ops.LAUNCHES),
     "zstd_encode": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:190", zstd_ops.LAUNCHES),
     "zstd_decode": ("redpanda_tpu_torch/csrc/zstd.cu", "redpanda_tpu/ops/zstd.py:274", zstd_ops.LAUNCHES),
     "health_totals": ("redpanda_tpu_torch/csrc/health.cu", "redpanda_tpu/parallel/mesh_frame.py:103", health_ops.LAUNCHES),
@@ -204,9 +213,11 @@ ALSO_REPLACES = {"tick_frame": "redpanda_tpu/ops/health.py:90"}
 # rules (held against their plain versions at the cluster shape), the
 # standalone heartbeat gather, whose one caller, the tick frame, runs it
 # inside the frame kernel (the reference's build_heartbeats_jit has no
-# caller outside tick_frame either), and the fused CRC + snappy (the
+# caller outside tick_frame either), the fused CRC + snappy (the
 # registry's snappy leg compresses without a CRC; held at phases 5 and 5b)
-OFF_PATH = ("follower_commit_step", "local_append_update", "build_heartbeats", "fused_snappy")
+# and the fused CRC + zstd (crc_zstd_fused has no caller in the package,
+# as in the reference; held at phases 5b and 7)
+OFF_PATH = ("follower_commit_step", "local_append_update", "build_heartbeats", "fused_snappy", "fused_zstd")
 
 
 def log(msg: str) -> None:
@@ -1326,9 +1337,10 @@ def per_call_inputs(torch) -> dict:
 def phase_per_call(torch, mem_rate: float) -> dict:
     """Phase 5b: the kernels of one call's shape, each equal to its plain
     version (exact) and timed: CRC, parse and LZ4 emission on phase 6's
-    one fused row; the zstd encode on phase 8b's one row and the decode of
-    its four streams; the parse and both emissions on the two full-width
-    skew edges; and the per-launch floor (one empty kernel)."""
+    one fused row; the zstd encode and `_fused_zstd` on phase 8b's one row
+    and the decode of its four streams; the parse and both emissions on
+    the two full-width skew edges; and the per-launch floor (one empty
+    kernel)."""
     from redpanda_tpu_torch.ops import _build
 
     inp = per_call_inputs(torch)
@@ -1356,6 +1368,10 @@ def phase_per_call(torch, mem_rate: float) -> dict:
             f"the empty cluster launch {out[key]['floor_ms']:.4f} ms")
         fused_edges(torch, mem_rate, codec)
     out.update(zstd_encode_rows(torch, *inp["row"]["zstd"], "row", mem_rate))
+    out["fused_zstd@row"] = fused_zstd_row(torch, *inp["row"]["zstd"], mem_rate)
+    log(f"[per-call] fused_zstd@row: the two-launch sequence it replaced "
+        f"{out['fused_zstd@row']['sequence_ms']:.4f} ms; the empty encode launch "
+        f"{out['fused_zstd@row']['floor_ms']:.4f} ms")
     out.update(zstd_decode_row(torch, inp["items"], "batch", mem_rate))
     for label, staged in inp["edges"].items():
         rows, _, _ = codec_kernel_rows(torch, *staged, label, mem_rate, reps=30)
@@ -1812,11 +1828,11 @@ def phase_zstd_kernels(torch, segment: bytes, mem_rate: float) -> dict:
     """Phase 7: the zstd kernels against their plain versions on the
     card, exact: 32 full-width 64 KiB chunks of the segment, the edge
     rows at every bucket n = 256 ... 65536, rows whose quarters start at
-    every alignment, the fused CRC + encode at the fused shape, and the
-    decode on those chunks' streams plus tampered, truncated and regen =
-    0 streams."""
+    every alignment, the decode on those chunks' streams plus tampered,
+    truncated and regen = 0 streams, and the fused CRC + encode (one
+    rp_fused_zstd launch) at the fused shape and on edge rows. Returns
+    {"fused_zstd": its entry}."""
     from redpanda_tpu_torch.ops import fused
-    from redpanda_tpu_torch.utils.crc import crc32c_batch
 
     rng = np.random.default_rng(SEED + 8)
     step = SEGMENT_BYTES // ZSTD_BLOCK // ZSTD_CHECK_CHUNKS
@@ -1862,19 +1878,17 @@ def phase_zstd_kernels(torch, segment: bytes, mem_rate: float) -> dict:
         raise AssertionError(f"decode error {got!r} != plain {want!r}")
     log(f"[zstd] decode_streams refuses the tampered stream as the plain version does: {got!r}")
 
-    # -- the fused CRC + encode at the fused path's shape
+    # -- the fused CRC + encode (one rp_fused_zstd launch) at the fused path's shape and on edge rows
     prefixes = [rng.integers(0, 256, fused.PREFIX, dtype=np.uint8).tobytes() for _ in range(FUSED_ROWS)]
     mat, body_len, n = fused.stage_fused(prefixes, fused_bodies(FUSED_ROWS), fused._zstd_width)
     assert n == FUSED_BODY
     fdata, fvalid = torch.from_numpy(mat).cuda(), torch.from_numpy(body_len).cuda()
     crc_lens = fvalid.to(torch.int64) + fused.PREFIX
-    crc, *enc = fused._fused_zstd(fdata, fvalid, FUSED_BODY)
-    want = zstd_ops._encode_chunks_plain(fdata, fvalid, FUSED_BODY, fused.PREFIX)
-    torch.cuda.synchronize()
-    max_abs_err(dict(zip(ENC_FIELDS, enc)), dict(zip(ENC_FIELDS, want)))
-    crc_err = max_abs_err({"crc": crc}, {"crc": crc_ops.crc32c_device_plain(fdata, crc_lens)})
-    host = crc32c_batch(fdata.cpu().numpy(), crc_lens.cpu().numpy().astype(np.uint64))
-    assert_equal(crc.cpu().numpy().astype(np.uint32), host, "fused zstd crc vs host")
+    t0 = time.perf_counter()
+    err = fused_zstd_err(torch, fdata, fvalid, FUSED_BODY, "fused_zstd@fused")
+    t1 = time.perf_counter()
+    edge_launches = fused_zstd_edges(torch)
+    t2 = time.perf_counter()
     v_sum = int(fvalid.sum())
     sb = zstd_ops.stream_byte_bound(FUSED_BODY)
 
@@ -1884,18 +1898,102 @@ def phase_zstd_kernels(torch, segment: bytes, mem_rate: float) -> dict:
 
     out = {"fused_zstd": {
         "shape": f"B={FUSED_ROWS} n={FUSED_BODY} offset={fused.PREFIX} bytes={v_sum}",
-        "max_abs_err": crc_err,
+        "max_abs_err": err,
         "ms": time_kernel(lambda: fused._fused_zstd(fdata, fvalid, FUSED_BODY), reps=10),
         "plain_ms": time_plain(plain, reps=1),
-        # prefix and body of every row and lens read once; the CRC (int64),
-        # nbits, all SB bytes of the four streams and bits written
-        "bound_ms": (v_sum + fused.PREFIX * FUSED_ROWS + 8 * FUSED_ROWS + 8 * FUSED_ROWS
+        # prefix and body of every row and the int32 lengths read once; the
+        # CRC (int64), nbits, all SB bytes of the four streams and bits written
+        "bound_ms": (v_sum + fused.PREFIX * FUSED_ROWS + 4 * FUSED_ROWS + 8 * FUSED_ROWS
                      + FUSED_ROWS * (256 + 4 * sb + 16)) / mem_rate * 1e3,
+        "sequence_ms": time_kernel(lambda: fused._fused_zstd_sequence(fdata, fvalid, FUSED_BODY), reps=10),
     }}
-    log(f"[zstd] fused_zstd {out['fused_zstd']['shape']}: CRCs equal to the plain CRC and the host's, "
-        f"encode equal to plain, tolerance exact; sequence {out['fused_zstd']['ms']:.4f} ms, "
-        f"bound {out['fused_zstd']['bound_ms']:.4f} ms, plain {out['fused_zstd']['plain_ms']:.3f} ms")
+    t3 = time.perf_counter()
+    e = out["fused_zstd"]
+    log(f"[zstd] fused_zstd {e['shape']}: one rp_fused_zstd launch a call, CRCs equal to the plain CRC and "
+        f"the host's, encode (nbits, codes, all stream bytes, bits) equal to plain, tolerance exact; also on "
+        f"the edge rows (v = 0, 1, 3, 4, 5, 8, n - 1, n of random bytes and of one repeated byte at n = 512 "
+        f"and 65536, each alone and {FUSED_EDGE_ROWS} rows in one launch; {edge_launches} launches); kernel "
+        f"{e['ms']:.4f} ms, the two-launch sequence it replaced {e['sequence_ms']:.4f} ms, bound "
+        f"{e['bound_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms; checks took {t1 - t0:.1f} s at the fused "
+        f"shape, {t2 - t1:.1f} s on the edge rows, timings {t3 - t2:.1f} s")
     return out
+
+
+def fused_zstd_plain(torch, data, valid, n: int) -> dict:
+    """The plain chain of `_fused_zstd` on CUDA rows: the plain CRC of
+    prefix || body and the plain encode's nbits, codes, streams and
+    bits."""
+    off = fused_ops.PREFIX
+    lens = valid.to(torch.int64) + off
+    nbits, codes = zstd_ops._lengths_plain(data, valid, n, off)
+    streams, bits = zstd_ops._emit_plain(data, valid, nbits, codes, n, off)
+    # bytes past a row's length are never read: the plain CRC walks the columns the longest row holds
+    crc = crc_ops.crc32c_device_plain(data[:, : int(lens.max())], lens)
+    return {"crc": crc, "nbits": nbits, "streams": streams, "bits": bits, "codes": codes}
+
+
+def fused_zstd_err(torch, data, valid, n: int, what: str, want: dict | None = None) -> float:
+    """`_fused_zstd` on CUDA rows: exactly one rp_fused_zstd launch, its
+    CRC, nbits, every stream byte and bits (and the launch's codes) equal
+    to the plain CRC, the host CRC and the plain encode (`want`, the
+    plain chain's outputs on these rows, else computed here), exact.
+    Returns max_abs_err."""
+    from redpanda_tpu_torch.utils.crc import crc32c_batch
+
+    before = fused_ops.LAUNCHES["fused_zstd"]
+    got = fused_ops._fused_zstd(data, valid, n)
+    if fused_ops.LAUNCHES["fused_zstd"] != before + 1:
+        raise AssertionError(f"{what}: _fused_zstd was not one rp_fused_zstd launch")
+    codes = fused_ops.launch_fused_zstd(data, valid, n)[2]
+    if want is None:
+        want = fused_zstd_plain(torch, data, valid, n)
+    torch.cuda.synchronize()
+    err = max_abs_err(dict(zip(("crc", "nbits", "streams", "bits"), got)),
+                      {k: want[k] for k in ("crc", "nbits", "streams", "bits")})
+    max_abs_err({"codes": codes}, {"codes": want["codes"]})
+    lens = valid.to(torch.int64) + fused_ops.PREFIX
+    host = crc32c_batch(data.cpu().numpy(), lens.cpu().numpy().astype(np.uint64))
+    assert_equal(got[0].cpu().numpy().astype(np.uint32), host, f"{what}: crc vs host")
+    return err
+
+
+def fused_zstd_edge_rows(n: int):
+    """(data, body lengths) staged at bucket n of the fused zstd edge rows:
+    v in {0, 1, 3, 4, 5, 8, n - 1, n} of random bytes, then of one
+    repeated byte, each with a random prefix."""
+    rng = np.random.default_rng(SEED + 34 + n)
+    bodies = []
+    for raw in (rng.integers(0, 256, n, dtype=np.uint8).tobytes(), b"\x61" * n):
+        bodies += [raw[:v] for v in (0, 1, 3, 4, 5, 8, n - 1, n)]
+    prefixes = [rng.integers(0, 256, fused_ops.PREFIX, dtype=np.uint8).tobytes() for _ in bodies]
+    mat, blen, nn = fused_ops.stage_fused(prefixes, bodies, fused_ops._zstd_width)
+    assert nn == n
+    return mat, blen
+
+
+# rows of the fused zstd edge launch: past the 33 rows (csrc/zstd.cu
+# ENC_FEW_ROWS) that take 512-thread CTAs, so it runs at 256
+FUSED_EDGE_ROWS = 40
+
+
+def fused_zstd_edges(torch) -> int:
+    """`_fused_zstd` on the edge rows at n = 512 and 65,536
+    (fused_zstd_edge_rows), each row alone (512-thread CTAs) and the 16
+    tiled to FUSED_EDGE_ROWS in one launch (256-thread CTAs), exact
+    (fused_zstd_err) against one plain chain a bucket. Returns the
+    launches."""
+    launches = 0
+    for n in (512, 65536):
+        mat, blen = fused_zstd_edge_rows(n)
+        data, valid = torch.from_numpy(mat).cuda(), torch.from_numpy(blen).cuda()
+        want = fused_zstd_plain(torch, data, valid, n)
+        groups = [[i] for i in range(len(blen))] + [[i % len(blen) for i in range(FUSED_EDGE_ROWS)]]
+        for rows in groups:
+            idx = torch.tensor(rows, device=data.device)
+            what = f"fused_zstd n={n} rows {rows[:3]}{'...' if len(rows) > 3 else ''}"
+            fused_zstd_err(torch, data[idx], valid[idx], n, what, {k: w[idx] for k, w in want.items()})
+            launches += 2
+    return launches
 
 
 def block_kinds(blob: bytes) -> tuple:
@@ -2122,6 +2220,33 @@ def zstd_encode_rows(torch, data, vt, n: int, offset: int, label: str, mem_rate:
         "bound_ms": (v_sum + 4 * b + 5 * 256 * b + b * 4 * (sb + 4)) / mem_rate * 1e3,
         "floor_ms": encode_floor_ms(torch, b, n),
     }}
+
+
+def fused_zstd_row(torch, data, valid, n: int, offset: int, mem_rate: float) -> dict:
+    """`_fused_zstd` on phase 8b's one row: one rp_fused_zstd launch, exact
+    against the plain chain and the host CRC, timed beside its bound, its
+    plain chain, the empty encode launch at its shape and the two-launch
+    sequence it replaced."""
+    assert offset == fused_ops.PREFIX
+    err = fused_zstd_err(torch, data, valid, n, "fused_zstd@row")
+    b, v_sum = data.shape[0], int(valid.sum())
+    sb = zstd_ops.stream_byte_bound(n)
+    lens = valid.to(torch.int64) + offset
+
+    def plain():
+        crc_ops.crc32c_device_plain(data, lens)
+        zstd_ops._encode_chunks_plain(data, valid, n, offset)
+
+    return {
+        "shape": f"row: B={b} n={n} offset={offset} bytes={v_sum}",
+        "max_abs_err": err,
+        "ms": time_kernel(lambda: fused_ops._fused_zstd(data, valid, n), reps=30),
+        "plain_ms": time_plain(plain, reps=2),
+        # prefix, body and length read once; the CRC, nbits, the streams and bits written
+        "bound_ms": (v_sum + offset * b + 4 * b + 8 * b + b * (256 + 4 * sb + 16)) / mem_rate * 1e3,
+        "floor_ms": encode_floor_ms(torch, b, n),
+        "sequence_ms": time_kernel(lambda: fused_ops._fused_zstd_sequence(data, valid, n), reps=30),
+    }
 
 
 def zstd_decode_row(torch, items, label: str, mem_rate: float) -> dict:
@@ -2784,6 +2909,21 @@ def cluster_kernels(torch, state, mem_rate: float) -> dict:
             "plain_ms": time_plain(lambda: plain(lead, *args), reset_lead),
             "bound_ms": nbytes / mem_rate * 1e3,
         }
+    # the follower rule where G is no multiple of its rows a thread (the
+    # scalar tail) and on a view one row in (the [G] lanes 8 bytes off a
+    # 16-byte boundary: the unaligned kernel), each against its plain version
+    follow = out["follower_commit_step"]
+    for label, rows_of in (("tail", slice(0, g - 3)), ("unaligned", slice(1, g))):
+        reset_lead()
+        part = GroupState(*(t[rows_of] for t in lead))
+        aligned = all(t.data_ptr() % 16 == 0 for t in (part.commit_index, part.last_visible, lc[rows_of]))
+        want = lanes(quorum_ops.follower_commit_step_plain(GroupState(*(t.clone() for t in part)), lc[rows_of]))
+        got = lanes(quorum_ops.follower_commit_step(part, lc[rows_of]))
+        torch.cuda.synchronize()
+        follow[f"{label}_max_abs_err"] = max_abs_err(got, want)
+        follow[f"{label}_shape"] = f"G={part.commit_index.numel()} R={r} aligned={aligned}"
+    log(f"[cluster] follower_commit_step on {follow['tail_shape']} and {follow['unaligned_shape']}: equal to "
+        f"plain, tolerance exact")
     # the library's function: two scatter_reduce_(amax) calls on the same
     # appends' cells (the rows are drawn in range, so no wrap or drop)
     cells = rows * r + quorum_ops.SELF_SLOT
@@ -2866,7 +3006,7 @@ def main() -> int:
     t0 = time.perf_counter()
     segment = build_segment(np.random.default_rng(SEED + 9))
     log(f"[segment] built {len(segment)} B of serialized record batches in {time.perf_counter() - t0:.1f} s")
-    phase_zstd_kernels(torch, segment, MEM_BYTES_PER_S)
+    results.update(phase_zstd_kernels(torch, segment, MEM_BYTES_PER_S))
     seg = phase_segment(torch, segment, MEM_BYTES_PER_S)
     del segment
     zr = phase_zstd_recompress(torch)

@@ -22,7 +22,27 @@ for the step counts and the phase cycles per row.
 `ab` times that pair beside this tree's `rp_zstd_encode` in turns (old,
 new, new, old) at the one-call row, the segment's 2,048 x 64 KiB and
 the fused 256 x 32 KiB shape, each output held exactly against the
-other.
+other. `breakdown` and `ab` target the two-kernel pair of a8c2a9e's zstd.cu.
+
+    mkdir -p .chipcheck/old
+    for f in zstd.cu crc32c.cu crc_ops.cuh; do
+        git show <commit>:redpanda_tpu_torch/csrc/$f > .chipcheck/old/$f; done
+    python3 chip_zstd_encode.py fused .chipcheck/old [OUT_DIR]
+
+`fused` takes a tree whose `_fused_zstd` is the two-launch sequence
+(`rp_crc32c`, then `rp_zstd_encode`, with this tree's argument lists:
+288c153's) and this tree's one-launch `rp_fused_zstd` (the encode kernel
+with its CRC stage). Every output of the new kernel (CRC, nbits, codes,
+all stream bytes, bits) is first held exactly against the old sequence's
+and the plain chain's at one call's row (one 16 x 1 KiB record batch,
+n = 32,768), at 4, 16, 64 and 256 batches, at the fused 256 x 32 KiB
+shape and on edge rows (v = 0, 1, 3, 4, 5, 8, n - 1, n of random bytes
+and of one repeated byte at n = 512 and 65,536, alone and 40 to a
+launch). Then, in turns (old, new, new, old), at each shape: the old
+sequence and each of its launches alone (the breakdown), the new kernel,
+and the standalone encode (`kCrc` false) old against new, also at the
+segment's 2,048 x 64 KiB; beside them the empty encode launch. Both
+instantiations' `-Xptxas -v` lines are kept.
 
 Variants are built under .chipcheck/ (git-ignored); results are printed
 and written to OUT_DIR/zstd_encode_<mode>.json (default .chipcheck/).
@@ -30,6 +50,7 @@ and written to OUT_DIR/zstd_encode_<mode>.json (default .chipcheck/).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -201,19 +222,23 @@ def nvcc(name: str, src, flags=()) -> tuple:
     if r.returncode:
         raise RuntimeError(f"nvcc {name}:\n{r.stderr[-3000:]}")
     info = [ln.strip() for ln in r.stderr.splitlines() if "registers" in ln or "Compiling entry" in ln
-            or "bytes stack" in ln]
+            or "bytes stack" in ln or "spill" in ln]
     return name, so, info
 
 
-def build(sources: dict) -> dict:
+def build(sources: dict, ptxas: dict = None) -> dict:
     os.makedirs(WORK, exist_ok=True)
     with ThreadPoolExecutor(len(sources)) as ex:
         built = list(ex.map(lambda kv: nvcc(*kv), sources.items()))
     libs = {}
     for name, so, info in built:
         lib = ctypes.CDLL(so)
+        lib.rp_error_string.restype = ctypes.c_char_p
+        lib.rp_error_string.argtypes = [ctypes.c_int]
         for ln in info:
             print(f"[ptxas] {name}: {ln}", flush=True)
+        if ptxas is not None:
+            ptxas[name] = info
         libs[name] = lib
     return libs
 
@@ -384,7 +409,7 @@ def main() -> int:
     mode, old_src = sys.argv[1], sys.argv[2]
     out = sys.argv[3] if len(sys.argv) > 3 else OUT
     print(cs.nvidia_smi(), flush=True)
-    res = {"breakdown": breakdown, "ab": ab, "newvar": newvar}[mode](torch, old_src)
+    res = {"breakdown": breakdown, "ab": ab, "newvar": newvar, "fused": fused_ab}[mode](torch, old_src)
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, f"zstd_encode_{mode}.json"), "w") as fh:
         json.dump(res, fh, indent=1)
@@ -398,7 +423,7 @@ NEW_SRC = os.path.join(REPO, "redpanda_tpu_torch", "csrc", "zstd.cu")
 def new_marked(s: str) -> str:
     """This tree's encode kernel with thread 0's clock64() taken after
     every barrier, the deltas from its start written per CTA."""
-    a = s.index("zstd_encode_kernel(const uint8_t*")
+    a = s.index("encode_row(const uint8_t*")
     b = s.index("// the encode's launch shape")
     body, tail = s[a:b], s[b:]
     body = body.replace("__syncthreads();", "__syncthreads(); MK();")
@@ -406,10 +431,10 @@ def new_marked(s: str) -> str:
     body = sub(body, "    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n",
                "    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
                "    long long mk_t[24]; int mk_n = 0; mk_t[mk_n++] = clock64();\n")
-    body = sub(body, "    if (tid == 0) bits_out[row * ENC_CLUSTER + q] = tb;\n}\n",
+    body = sub(body, "    if (tid == 0) bits_out[row * ENC_CLUSTER + q] = tb;\n",
                "    if (tid == 0) bits_out[row * ENC_CLUSTER + q] = tb;\n    __syncthreads(); MK();\n"
                "    if (tid == 0) { long long* d = g_dbg + 32 * (i64)blockIdx.x; d[0] = mk_n;\n"
-               "        for (int i = 1; i < mk_n; ++i) d[i] = mk_t[i] - mk_t[i - 1]; }\n}\n")
+               "        for (int i = 1; i < mk_n; ++i) d[i] = mk_t[i] - mk_t[i - 1]; }\n")
     s = s[:a]
     head = s.replace("typedef long long i64;", "typedef long long i64;\n" + DBG +
                          "#define MK() do { if (mk_n < 24) mk_t[mk_n++] = clock64(); } while (0)\n")
@@ -418,10 +443,11 @@ def new_marked(s: str) -> str:
 
 # the encode's launch shape by row count (512 threads a CTA up to
 # ENC_FEW_ROWS rows, else 256) against one shape for all, patched in
+THREADS_AT = "static int encode_threads(i64 b_n) { return b_n <= ENC_FEW_ROWS ? 512 : 256; }"
 NEW_CONFIGS = {
     "auto": [],
-    "all_256": [("    return b_n <= ENC_FEW_ROWS\n", "    return false\n")],
-    "all_512": [("    return b_n <= ENC_FEW_ROWS\n", "    return true\n")],
+    "all_256": [(THREADS_AT, THREADS_AT.replace("b_n <= ENC_FEW_ROWS ? 512 : 256", "256"))],
+    "all_512": [(THREADS_AT, THREADS_AT.replace("b_n <= ENC_FEW_ROWS ? 512 : 256", "512"))],
 }
 
 
@@ -543,6 +569,178 @@ def ab(torch, old_src: str) -> dict:
         print(label, json.dumps(r), flush=True)
     return res
 
+
+@contextlib.contextmanager
+def using(crc=None, zstd=None):
+    """Run the wrappers on other libraries for the duration."""
+    from redpanda_tpu_torch.ops import crc32c as crc_ops
+
+    saved = crc_ops._LIB, zstd_ops._LIB
+    crc_ops._LIB, zstd_ops._LIB = crc or saved[0], zstd or saved[1]
+    try:
+        yield
+    finally:
+        crc_ops._LIB, zstd_ops._LIB = saved
+
+
+def fused_shapes(torch) -> dict:
+    """label -> (data, valid, n) staged as crc_zstd_fused stages them: B
+    record batches (16 x 1 KiB records, half JSON-like, half random) and
+    chip_smoke phase 7's 256 rows of 32 KiB bodies."""
+    out = {}
+    for b in (1, 4, 16, 64, 256):
+        batches = cs.build_batches(np.random.default_rng(cs.SEED + 6), count=b)
+        mat, blen, n = fused.stage_fused([x.header.crc_prefix() for x in batches], [bytes(x.body) for x in batches],
+                                         fused._zstd_width)
+        out["row" if b == 1 else f"B={b}"] = (torch.from_numpy(mat).cuda(), torch.from_numpy(blen).cuda(), n)
+    rng = np.random.default_rng(cs.SEED + 8)
+    prefixes = [rng.integers(0, 256, fused.PREFIX, dtype=np.uint8).tobytes() for _ in range(cs.FUSED_ROWS)]
+    mat, blen, n = fused.stage_fused(prefixes, cs.fused_bodies(cs.FUSED_ROWS), fused._zstd_width)
+    out["fused 256 x 32 KiB"] = (torch.from_numpy(mat).cuda(), torch.from_numpy(blen).cuda(), n)
+    return out
+
+
+def fused_edge_shapes(torch) -> dict:
+    """chip_smoke's fused zstd edge rows (`fused_zstd_edge_rows` at n = 512
+    and 65,536), each row alone and the 16 tiled to FUSED_EDGE_ROWS in one
+    launch."""
+    out = {}
+    for n in (512, 65536):
+        mat, blen = cs.fused_zstd_edge_rows(n)
+        data, valid = torch.from_numpy(mat).cuda(), torch.from_numpy(blen).cuda()
+        groups = [[i] for i in range(len(blen))] + [[i % len(blen) for i in range(cs.FUSED_EDGE_ROWS)]]
+        for g, rows in enumerate(groups):
+            idx = torch.tensor(rows, device=data.device)
+            out[f"edge n={n} #{g}"] = (data[idx], valid[idx], n)
+    return out
+
+
+def fused_ab(torch, old_dir: str) -> dict:
+    """288c153's two-launch `_fused_zstd` against this tree's
+    `rp_fused_zstd`, and the standalone encode old against new (module
+    doc); clock64() marks a CTA of the fused and the standalone kernel
+    between their barriers."""
+    from redpanda_tpu_torch.ops import crc32c as crc_ops
+
+    ptxas = {}
+    old_inc, new_inc = ("-I", old_dir), ("-I", _build.CSRC_DIR)
+    src = open(NEW_SRC).read()
+    libs = build({"old_zstd": (open(os.path.join(old_dir, "zstd.cu")).read(), old_inc),
+                  "old_crc32c": (open(os.path.join(old_dir, "crc32c.cu")).read(), old_inc),
+                  "new_zstd": (src, new_inc), "new_marked": (new_marked(src), new_inc)}, ptxas)
+    bind_encode(libs["old_zstd"])
+    _build.bind(libs["old_crc32c"], "rp_crc32c", 4, 4)
+    for name in ("new_zstd", "new_marked"):
+        bind_encode(libs[name])
+        _build.bind(libs[name], "rp_fused_zstd", 8, 4)
+        libs[name].rp_fused_zstd_units.argtypes = [ctypes.c_int64] * 3
+    _build.bind(libs["new_marked"], "rp_dbg", 1, 2)
+    old = dict(crc=libs["old_crc32c"], zstd=libs["old_zstd"])
+    new = dict(zstd=libs["new_zstd"])
+    res = {"card": cs.nvidia_smi(), "clocks": subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip(), "ptxas": ptxas}
+
+    def outputs(fn):
+        got = [t.clone() for t in fn()]
+        torch.cuda.synchronize()
+        return got
+
+    def old_seq(data, valid, n):
+        with using(**old):
+            crc = crc_ops.crc32c_rows(data, valid, fused.PREFIX)
+            nbits, codes, streams, bits = zstd_ops.launch_encode(data, valid, n, fused.PREFIX)
+        return crc, nbits, codes, streams, bits
+
+    def new_fused(data, valid, n):
+        with using(**new):
+            return fused.launch_fused_zstd(data, valid, n)
+
+    def held(label, data, valid, n):
+        want = outputs(lambda: old_seq(data, valid, n))
+        got = outputs(lambda: new_fused(data, valid, n))
+        for name, g, w in zip(("crc", "nbits", "codes", "streams", "bits"), got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{label}: rp_fused_zstd {name} differs from the old sequence")
+        with using(**new):
+            cs.fused_zstd_err(torch, data, valid, n, label)  # against the plain chain and the host CRC
+
+    shapes = fused_shapes(torch)
+    for label, (data, valid, n) in {**shapes, **fused_edge_shapes(torch)}.items():
+        held(label, data, valid, n)
+    msg = (f"rp_fused_zstd equal to the old sequence and to the plain chain (host CRC) at {list(shapes)} and "
+           "on the edge rows, tolerance exact")
+    print(msg, flush=True)
+    res["held"] = msg
+    for label, (data, valid, n) in shapes.items():
+        b = data.shape[0]
+        fns = {"old sequence": (old, lambda: old_seq(data, valid, n)),
+               "new rp_fused_zstd": (new, lambda: new_fused(data, valid, n)),
+               "old crc32c_rows alone": (old, lambda: crc_ops.crc32c_rows(data, valid, fused.PREFIX)),
+               "old rp_zstd_encode alone": (old, lambda: zstd_ops.launch_encode(data, valid, n, fused.PREFIX)),
+               "new rp_zstd_encode alone": (new, lambda: zstd_ops.launch_encode(data, valid, n, fused.PREFIX))}
+        t = {}
+        order = list(fns)
+        for name in order + order[::-1]:
+            libset, fn = fns[name]
+            with using(**libset):
+                t.setdefault(name, []).append(time_us(fn))
+        with using(**new):
+            empty = time_us(lambda: _build.check(libs["new_zstd"], libs["new_zstd"].rp_zstd_encode_empty(
+                b, n, _build.stream_of(data)), "empty"))
+        r = {"B": b, "n": n, "bytes": int(valid.sum()),
+             "K": libs["new_zstd"].rp_fused_zstd_units(b, fused.PREFIX, n),
+             "us": {k: float(np.mean(v)) for k, v in t.items()}, "us turns": t,
+             "empty encode launch us": empty}
+        res[label] = r
+        print(label, json.dumps(r), flush=True)
+    res["marks"] = fused_marks(torch, libs["new_marked"], {k: shapes[k] for k in ("row", "fused 256 x 32 KiB")})
+    # the standalone encode on the segment path's shape, old against new
+    segment = cs.build_segment(np.random.default_rng(cs.SEED + 9))
+    chunks = [segment[o : o + cs.ZSTD_BLOCK] for o in range(0, len(segment), cs.ZSTD_BLOCK)]
+    del segment
+    data, valid = cs.stage_rows(torch, chunks, cs.ZSTD_BLOCK)
+    outs = {}
+    for side, libset in (("old", old), ("new", new)):
+        with using(**libset):
+            outs[side] = outputs(lambda: zstd_ops.launch_encode(data, valid, cs.ZSTD_BLOCK, 0))
+    if not all(torch.equal(a, b) for a, b in zip(outs["old"], outs["new"])):
+        raise AssertionError("segment: the new standalone encode differs from the old one")
+    t = {}
+    for side in ("old", "new", "new", "old"):
+        with using(**(old if side == "old" else new)):
+            t.setdefault(f"rp_zstd_encode {side}", []).append(
+                time_us(lambda: zstd_ops.launch_encode(data, valid, cs.ZSTD_BLOCK, 0), reps=20))
+    res["seg2048"] = {"B": data.shape[0], "n": cs.ZSTD_BLOCK, "us": {k: float(np.mean(v)) for k, v in t.items()},
+                      "us turns": t}
+    print("seg2048", json.dumps(res["seg2048"]), flush=True)
+    return res
+
+
+def fused_marks(torch, lib, shapes: dict) -> dict:
+    """One launch of the marked copy (new_marked: thread 0's clock64()
+    after each barrier, the deltas per CTA) of rp_fused_zstd and of the
+    standalone encode at each shape: mean and max cycles a CTA between
+    barriers, by CTA rank (CTA 0 also folds the prefix)."""
+    out = {}
+    with using(zstd=lib):
+        for label, (data, valid, n) in shapes.items():
+            b = data.shape[0]
+            for kind, fn in (("fused", lambda: fused.launch_fused_zstd(data, valid, n)),
+                             ("encode", lambda: zstd_ops.launch_encode(data, valid, n, fused.PREFIX))):
+                fn()
+                torch.cuda.synchronize()
+                d = np.zeros(32 * 4 * b, np.int64)
+                _build.check(lib, lib.rp_dbg(d.ctypes.data, 0, d.size, None), "dbg")
+                d = d.reshape(b, 4, 32)
+                k = int(d[:, :, 0].max())
+                out[f"{label} {kind}"] = {
+                    "mean cycles": [float(x) for x in d[:, :, 1:k].mean((0, 1))],
+                    "max cycles": [int(x) for x in d[:, :, 1:k].max((0, 1))],
+                    "CTA 0 mean cycles": [float(x) for x in d[:, 0, 1:k].mean(0)],
+                }
+    print("marks", json.dumps(out), flush=True)
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

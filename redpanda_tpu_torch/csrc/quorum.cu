@@ -82,8 +82,16 @@
 //     sweeps rows ~5 us slower than an ordinary launch, more than the
 //     fold launch it saves.
 //   * build_heartbeats alone is a one-row-a-thread gather.
-//   * follower_commit_step is one thread per group (four [G] lanes read,
-//     two written: bytes). local_append_update raises slot 0 by atomicMax
+//   * follower_commit_step: FOLLOW_ROWS consecutive rows a thread. Its
+//     bytes are the three [G] lanes (commit, leader_commit, last_visible:
+//     16-byte vectors with the streaming hint where the lanes are 16-byte
+//     aligned, else one row at a time) and slot 0's column of flushed, R
+//     slots apart, so each value read costs a 32-byte sector; the rule
+//     reads it only where leader_commit > commit, so only those rows load
+//     it, all of a thread's loads issued before the first compare. Every
+//     row's visible becomes max(visible, new commit) (a row with no update
+//     still raises a lagging visible to its commit); a vector that no row
+//     changed is not written back. local_append_update raises slot 0 by atomicMax
 //     (one batch may name a row twice): a small batch one append a thread
 //     (local_append_kernel), a large one in 2 * parts passes of one
 //     launch, a lane and a part of the rows each
@@ -114,6 +122,8 @@
 #define COMMIT_THREADS 128
 // rows a thread of the mesh frame's sweep kernel
 #define MESH_ROWS 4
+// rows a thread of the follower rule (a multiple of 2: 16-byte vectors)
+#define FOLLOW_ROWS 4
 // the frame's block: the sweep holds a row in registers (72 at R <= 8,
 // 140 at R <= 16, 255 at R <= 32), so a block of 256 threads keeps
 // every instance within the register file
@@ -559,16 +569,62 @@ static bool aligned_rows(i64 r_n, const i64* match, const i64* flushed, const u8
 }
 
 // ------------------------------------------------------ follower rules
-__global__ void follower_commit_kernel(i64* __restrict__ commit,
-                                       i64* __restrict__ last_visible,
-                                       const i64* __restrict__ flushed,
-                                       const i64* __restrict__ leader_commit,
-                                       i64 g_n, i64 r_n) {
-    const i64 g = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-    if (g >= g_n) return;
-    const i64 c = follower_commit(commit[g], leader_commit[g], flushed[g * r_n]);
-    commit[g] = c;
-    last_visible[g] = imax(last_visible[g], c);
+// FOLLOW_ROWS consecutive rows a thread. kAligned: the three [G] lanes are
+// 16-byte aligned, so a thread whose rows all exist moves them as vectors;
+// otherwise (and for the grid's last rows) one row at a time.
+template <bool kAligned>
+__global__ void __launch_bounds__(THREADS)
+follower_commit_kernel(i64* __restrict__ commit, i64* __restrict__ last_visible,
+                       const i64* __restrict__ flushed, const i64* __restrict__ leader_commit,
+                       i64 g_n, i64 r_n) {
+    constexpr int K = FOLLOW_ROWS;
+    const i64 g0 = ((i64)blockIdx.x * THREADS + threadIdx.x) * K;
+    if (g0 >= g_n) return;
+    const bool vec = kAligned && g0 + K <= g_n;
+    i64 c[K], lc[K], vis[K], fl[K];
+    if (vec) {
+#pragma unroll
+        for (int k = 0; k < K; k += 2) {
+            const longlong2 x = __ldcs(reinterpret_cast<const longlong2*>(commit + g0 + k));
+            const longlong2 y = __ldcs(reinterpret_cast<const longlong2*>(leader_commit + g0 + k));
+            const longlong2 z = __ldcs(reinterpret_cast<const longlong2*>(last_visible + g0 + k));
+            c[k] = x.x; c[k + 1] = x.y; lc[k] = y.x; lc[k + 1] = y.y; vis[k] = z.x; vis[k + 1] = z.y;
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const bool in = g0 + k < g_n;
+            c[k] = in ? __ldcs(commit + g0 + k) : 0;
+            lc[k] = in ? __ldcs(leader_commit + g0 + k) : 0;  // 0 = commit: no update
+            vis[k] = in ? __ldcs(last_visible + g0 + k) : 0;
+        }
+    }
+    // slot 0's flushed only where the rule reads it, every load before a compare
+#pragma unroll
+    for (int k = 0; k < K; ++k) fl[k] = lc[k] > c[k] ? __ldcs(flushed + (g0 + k) * r_n) : 0;
+    i64 nc[K], nv[K];
+    bool moved = false, raised = false;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        nc[k] = follower_commit(c[k], lc[k], fl[k]);
+        nv[k] = imax(vis[k], nc[k]);
+        moved |= nc[k] != c[k];
+        raised |= nv[k] != vis[k];
+    }
+    if (vec) {
+#pragma unroll
+        for (int k = 0; k < K; k += 2) {
+            if (moved) __stcs(reinterpret_cast<longlong2*>(commit + g0 + k), make_longlong2(nc[k], nc[k + 1]));
+            if (raised) __stcs(reinterpret_cast<longlong2*>(last_visible + g0 + k), make_longlong2(nv[k], nv[k + 1]));
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            if (g0 + k >= g_n) break;
+            if (nc[k] != c[k]) commit[g0 + k] = nc[k];
+            if (nv[k] != vis[k]) last_visible[g0 + k] = nv[k];
+        }
+    }
 }
 
 // One append a thread, both lanes raised by the shared rule (atomicMax:
@@ -774,8 +830,15 @@ int rp_follower_commit(i64* commit, i64* last_visible, const i64* flushed,
                        const i64* leader_commit, i64 g_n, i64 r_n,
                        void* stream) {
     if (g_n <= 0) return 0;
-    follower_commit_kernel<<<blocks_for(g_n), THREADS, 0, (cudaStream_t)stream>>>(
-        commit, last_visible, flushed, leader_commit, g_n, r_n);
+    const unsigned blocks = blocks_for((g_n + FOLLOW_ROWS - 1) / FOLLOW_ROWS);
+    const bool aligned = (uintptr_t)commit % 16 == 0 && (uintptr_t)last_visible % 16 == 0 &&
+                         (uintptr_t)leader_commit % 16 == 0;
+    if (aligned)
+        follower_commit_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+            commit, last_visible, flushed, leader_commit, g_n, r_n);
+    else
+        follower_commit_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+            commit, last_visible, flushed, leader_commit, g_n, r_n);
     return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,9 @@
 //                    bitstreams of _encode_one :147)
 //   rp_zstd_decode   redpanda_tpu/ops/zstd.py:274 _decode_streams (_decode_one
 //                    :244)
-// and with csrc/crc32c.cu the fused program of redpanda_tpu/ops/fused.py:89.
+//   rp_fused_zstd    redpanda_tpu/ops/fused.py:89 _fused_zstd (the Kafka batch
+//                    CRC over prefix || body, then _encode_chunks of the body):
+//                    the encode kernel with its CRC stage (kCrc), one launch
 //
 // Encode rows hold their chunk at columns [offset, offset + n) of a
 // [B, stride] uint8 matrix, zero past the valid length v <= n <= 65536; the
@@ -55,6 +57,39 @@
 // above, 256 threads (48 registers), five CTAs an SM. A refused launch
 // returns its error.
 //
+// fused_zstd — the same kernel with kCrc set: the CRC rides on the encode's
+// staging, so each row is read from device memory once and one launch floor
+// is paid, where the sequence read it twice (csrc/crc32c.cu, then the
+// encode). CRC-32C is linear over GF(2): appending L zero bytes to a
+// register is a linear map Z^L (csrc/crc_ops.cuh). CTA q folds the raw CRC
+// (register 0) of the bytes it counts, [start, start + hv), from its staged
+// copy; CTA 0 also stages and folds the offset-byte prefix before its
+// quarter, the CRC's initial 0xFFFFFFFF xored into the message's first 4
+// bytes (the message is >= offset >= 4 bytes). The range is cut into
+// 16-byte units counted from its end, thread t of the folding warps taking
+// units [t K, t K + K) slice-by-4 from register 0, earliest first, so the
+// bytes before the range (masked) fold into a zero register and count for
+// nothing; K is fixed by (offset, n, THREADS) (crc_units, which the host
+// reads through rp_fused_zstd_units), and the lanes and the warps are
+// joined in trees of operators the host builds for that K
+// (ops/fused.zstd_crc_consts), only the lanes whose result a later level
+// reads computing each level. The CTA's part then moves to the message's
+// end by Z^(v - start - hv), a length that depends on the row, built from
+// its bits with the host's Z^(2^j) (j < 17), each held as its 32 columns
+// and applied by one warp as a xor-reduction of the columns the register's
+// bits select. Where it runs: after the one cluster barrier, the fold by
+// every warp but warp 0 while warp 0 runs the Kraft loop, the join across
+// warps and the shift by the last warp while warp 0 builds the codes (the
+// encode's other warps wait at both); its constants (10.9 KB) arrive in a
+// second cp.async group waited on only after the barrier, and at 256
+// threads the registers are held to the standalone encode's 48 (five CTAs
+// an SM). Folded before the barrier (pushed beside the histogram counts),
+// the stage sat on the row's chain and on the histogram phase's
+// shared-memory traffic (PERF.md). The three peers send their 4
+// bytes to CTA 0 by st.async, counted off an mbarrier CTA 0 arms before
+// the start arrival (the one wait on it is CTA 0's, at its end; no cluster
+// barrier is added), and CTA 0 xors the four and stores the CRC.
+//
 // zstd_decode — latency-bound: a huff0 stream is one dependent chain
 // (each symbol's position depends on every earlier code length), 16,384
 // symbols long at a 64 KiB block, so the time is the chain's step times
@@ -102,6 +137,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "crc_ops.cuh"
 
 typedef long long i64;
 
@@ -153,8 +190,45 @@ struct EncShared {
     int sum, down;            // the seed's sum; whether it overshoots
 };
 
-__host__ __device__ constexpr int enc_smem_bytes(int threads, int n) {
-    return enc_img_bytes(threads, n) + enc_sym_bytes(n) + (int)sizeof(EncShared);
+// The CRC stage (kCrc): its constants (ops/fused.zstd_crc_consts, staged
+// after EncShared in this order) and its words. CTA 0's staged quarter has
+// the prefix before it, so its symbol region grows by round16(offset).
+#define CRC_SLICE_WORDS (4 * 256)  // slice-by-4 tables T0..T3
+#define CRC_LANE_OPS 5             // Z^(16 K 2^j), j < 5: across a warp's lanes
+#define CRC_WARP_OPS 4             // Z^(16 K 32 2^j), j < log2(folding warps) <= 4: across warps
+#define CRC_POW2 17                // Z^(2^j), j < 17, as 32 columns: shifts below 2^17 (a row <= 65,536)
+#define CRC_CONST_WORDS (CRC_SLICE_WORDS + (CRC_LANE_OPS + CRC_WARP_OPS) * OP_WORDS + CRC_POW2 * 32)
+#define CRC_MAX_PREFIX 64          // the prefix a fused launch may stage before CTA 0's quarter
+
+struct CrcShared {
+    unsigned long long bar;        // (CTA 0) owed the three peers' parts
+    uint32_t part[32];             // each folding warp's joined part
+    uint32_t in[ENC_CLUSTER];      // (CTA 0) each CTA's part, shifted to the message's end
+};
+
+// the symbol region (with kCrc, room for CTA 0's prefix), then EncShared
+__host__ __device__ constexpr int enc_sym_region(int n, bool crc, int offset) {
+    return enc_sym_bytes(n) + (crc ? round16(offset) : 0);
+}
+
+// where the CRC's constants start (16-byte aligned, after EncShared)
+__host__ __device__ constexpr int crc_consts_at(int threads, int n, int offset) {
+    return round16(enc_img_bytes(threads, n) + enc_sym_region(n, true, offset) + (int)sizeof(EncShared));
+}
+
+__host__ __device__ constexpr int enc_smem_bytes(int threads, int n, bool crc = false, int offset = 0) {
+    return crc ? crc_consts_at(threads, n, offset) + CRC_CONST_WORDS * 4 + (int)sizeof(CrcShared)
+               : enc_img_bytes(threads, n) + enc_sym_bytes(n) + (int)sizeof(EncShared);
+}
+
+// the threads of a CTA that fold its CRC piece: warps 1 .. (warp 0 runs
+// the Kraft loop meanwhile)
+__host__ __device__ constexpr int crc_fold_threads(int threads) { return threads - 32; }
+
+// K, the CRC's 16-byte units a folding thread: crc_fold_threads K units
+// cover the longest range a CTA folds, CTA 0's offset + n / 4 bytes
+__host__ __device__ constexpr int crc_units(int offset, int n, int threads) {
+    return ((offset + n / 4 + 15) / 16 + crc_fold_threads(threads) - 1) / crc_fold_threads(threads);
 }
 
 __device__ __forceinline__ int floor_log2(int x) { return 31 - __clz(x); }
@@ -174,6 +248,96 @@ __device__ __forceinline__ void cluster_wait() {
 // arrival that orders nothing: the CTA has started
 __device__ __forceinline__ void cluster_arrive_relaxed() {
     asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+// register c folded over the 4 bytes w, slice-by-4 (entry i of table k at
+// tab[256 k + i])
+__device__ __forceinline__ uint32_t slice4(const uint32_t* tab, uint32_t c, uint32_t w) {
+    c ^= w;
+    return tab[768 + (c & 255u)] ^ tab[512 + ((c >> 8) & 255u)] ^ tab[256 + ((c >> 16) & 255u)] ^ tab[c >> 24];
+}
+
+// the four bytes at byte o of the dynamic shared memory: a funnel shift of
+// the two aligned words that hold them
+__device__ __forceinline__ uint32_t smem_word(const uint32_t* s32, int o) {
+    return __funnelshift_r(s32[o >> 2], s32[(o >> 2) + 1], (o & 3) * 8);
+}
+
+// One CTA's CRC piece: the raw CRC (register 0) of shared bytes [lo, e),
+// in 16-byte units counted from e, thread t folding units [t K, t K + K),
+// earliest first; bytes before lo read as zero, so they fold into a zero
+// register. With `init`, the CRC's initial 0xFFFFFFFF is xored into bytes
+// lo .. lo + 3. Each warp's lanes are joined by Z^(16 K 2^j) in a tree
+// whose level j only lanes that are multiples of 2^(j + 1) compute (the
+// others' table reads would only add bank conflicts; warps without units
+// skip it); lane 0 holds the warp's part.
+__device__ __forceinline__ uint32_t crc_lanes(const uint32_t* s32, const uint32_t* tab, const uint32_t* lane_ops,
+                                              int lo, int e, bool init, int k_units, int tid, int lane, int warp) {
+    const int nu = (e - lo + 15) >> 4;
+    uint32_t f = 0;
+    for (int u = k_units - 1; u >= 0; --u) {
+        const int un = tid * k_units + u;
+        if (un >= nu) continue;
+        const int x0 = e - 16 * (un + 1);
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+            const int rel = x0 + 4 * w - lo;  // the word's first byte in the range
+            if (rel <= -4) continue;           // wholly before it: the register is still zero
+            uint32_t wd = smem_word(s32, x0 + 4 * w);
+            if (rel < 0) wd &= ~0u << (-8 * rel);
+            if (init && rel < 4) wd ^= rel >= 0 ? ~0u >> (8 * rel) : ~0u << (-8 * rel);
+            f = slice4(tab, f, wd);
+        }
+    }
+    if (32 * k_units * warp < nu)
+#pragma unroll
+        for (int j = 0; j < CRC_LANE_OPS; ++j) {
+            const uint32_t up = __shfl_down_sync(FULL, f, 1 << j);
+            if ((lane & ((2 << j) - 1)) == 0) f ^= apply_op(lane_ops + j * OP_WORDS, up);
+        }
+    return f;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+// the same shared memory location in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
+    uint32_t r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+    return r;
+}
+
+// 4 bytes into a peer's shared memory, counted off the peer's mbarrier
+__device__ __forceinline__ void st_async(uint32_t peer, uint32_t v, uint32_t peer_bar) {
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, [%2];"
+                 ::"r"(peer), "r"(v), "r"(peer_bar) : "memory");
+}
+
+// an mbarrier of one arrival, made by it owed `bytes`, visible to the
+// cluster's async stores
+__device__ __forceinline__ void bar_owe(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
+        "@!p bra WAIT;\n"
+        "}\n" ::"r"(bar) : "memory");
+}
+
+// Z^s(r) by one warp (r the same in every lane): for each set bit j of s,
+// r becomes the xor of Z^(2^j)'s columns that r's bits select
+__device__ __forceinline__ uint32_t crc_shift(const uint32_t* pow2_cols, uint32_t r, int s, int lane) {
+#pragma unroll 1
+    for (int j = 0; j < CRC_POW2; ++j)
+        if (s >> j & 1) r = __reduce_xor_sync(FULL, (r >> lane & 1u) ? pow2_cols[32 * j + lane] : 0u);
+    return r;
 }
 
 // The up loop, one warp (lane l holds symbols 8l .. 8l + 7): while the sum
@@ -320,25 +484,32 @@ __device__ __forceinline__ unsigned unit_mask(int i0, int lim) {
 
 // The whole _encode_chunks of one row in one cluster of four CTAs; CTA q
 // owns stream q, the symbols [q m4, q m4 + slen_q) (m4 = ceil(v / 4)), and
-// reads them from device memory once.
-template <int THREADS>
-__global__ void __cluster_dims__(ENC_CLUSTER, 1, 1) __launch_bounds__(THREADS)
-zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ valid,
-                   uint8_t* __restrict__ nbits_out, int32_t* __restrict__ codes_out,
-                   uint8_t* __restrict__ streams_out, int32_t* __restrict__ bits_out, i64 stride,
-                   i64 offset, int n) {
+// reads them from device memory once. With kCrc also the CRC of columns
+// [0, offset + v) (the head of this file; crc_consts, crc_out, k_units).
+// The body of both kernels below, which differ only in their launch bounds.
+template <int THREADS, bool kCrc>
+__device__ __forceinline__ void
+encode_row(const uint8_t* __restrict__ data, const int32_t* __restrict__ valid,
+           uint8_t* __restrict__ nbits_out, int32_t* __restrict__ codes_out,
+           uint8_t* __restrict__ streams_out, int32_t* __restrict__ bits_out, i64 stride,
+           i64 offset, int n, const uint32_t* __restrict__ crc_consts, i64* __restrict__ crc_out,
+           int k_units) {
     constexpr int WARPS = THREADS / 32, UNIT = ENC_UNIT, HIST = enc_hist_bytes(THREADS);
     extern __shared__ __align__(16) uint8_t smem[];
     uint32_t* img = reinterpret_cast<uint32_t*>(smem);  // the stream image, once the codes are built
     uint32_t* sub = img;                                // before: [WARPS][256] histograms,
     uint32_t* inbox = img + HIST / 4;                   // [ENC_CLUSTER][256] quarters' histograms,
     int2* pair = reinterpret_cast<int2*>(smem + HIST + ENC_INBOX);  // and the down loop's pairs
-    uint8_t* sym = smem + enc_img_bytes(THREADS, n);
-    EncShared& sh = *reinterpret_cast<EncShared*>(sym + enc_sym_bytes(n));
+    const int sym_at = enc_img_bytes(THREADS, n);
+    uint8_t* sym = smem + sym_at;
+    EncShared& sh = *reinterpret_cast<EncShared*>(sym + enc_sym_region(n, kCrc, (int)offset));
+    uint32_t* crc_s = reinterpret_cast<uint32_t*>(smem + crc_consts_at(THREADS, n, (int)offset));
+    CrcShared& cs = *reinterpret_cast<CrcShared*>(crc_s + CRC_CONST_WORDS);
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     cg::cluster_group cluster = cg::this_cluster();
-    cluster_arrive_relaxed();  // peers may write this CTA's inbox once every CTA has started
     const int q = (int)cluster.block_rank();  // the stream
+    if (kCrc && q == 0 && tid == 0) bar_owe(smem_addr(&cs.bar), (ENC_CLUSTER - 1) * 4);  // the peers' CRC parts
+    cluster_arrive_relaxed();  // peers may write this CTA's inbox once every CTA has started
     const i64 row = blockIdx.x / ENC_CLUSTER;
     const int sb = stream_bytes(n);
     const uint8_t* src_row = data + row * stride + offset;
@@ -350,19 +521,33 @@ zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__
     const int start = q * m4;
     const int slen = q < 3 ? m4 : (v - 3 * m4 > 0 ? v - 3 * m4 : 0);  // start + slen <= n
     const int hv = v - start < 0 ? 0 : (v - start < slen ? v - start : slen);  // counted: [0, hv)
-    const uint8_t* src = src_row + start;
-    const int a = (int)((uintptr_t)src & 15);  // symbol i at sym[a + i]
+    const int pre = kCrc && q == 0 ? (int)offset : 0;  // CTA 0 of a fused launch stages the prefix too
+    const uint8_t* src = src_row + start - pre;
+    const int as = (int)((uintptr_t)src & 15);  // staged byte i at sym[as + i]
+    const int a = as + pre;                     // symbol i at sym[a + i]
 
-    // -- stage the quarter: 16-byte copies in the aligned middle, scalar head and tail
+    // -- stage the quarter: 16-byte copies in the aligned middle, scalar head
+    // and tail (with kCrc, the CRC's constants in a second group, first
+    // waited on after the cluster barrier)
     {
-        const int head = ((16 - a) & 15) < slen ? (16 - a) & 15 : slen;
-        const int nvec = (slen - head) >> 4;
-        const unsigned s16 = (unsigned)__cvta_generic_to_shared(sym + a + head);
+        const int len = slen + pre;
+        const int head = ((16 - as) & 15) < len ? (16 - as) & 15 : len;
+        const int nvec = (len - head) >> 4;
+        const unsigned s16 = (unsigned)__cvta_generic_to_shared(sym + as + head);
         for (int i = tid; i < nvec; i += THREADS) cp_async16(s16 + 16 * i, src + head + 16 * i);
         asm volatile("cp.async.commit_group;" ::: "memory");
-        for (int i = tid; i < head; i += THREADS) sym[a + i] = src[i];
-        for (int i = head + 16 * nvec + tid; i < slen; i += THREADS) sym[a + i] = src[i];
-        asm volatile("cp.async.wait_group 0;" ::: "memory");
+        if (kCrc) {
+            const unsigned c16 = smem_addr(crc_s);
+            for (int i = tid; i < CRC_CONST_WORDS / 4; i += THREADS) cp_async16(c16 + 16 * i, crc_consts + 4 * i);
+            asm volatile("cp.async.commit_group;" ::: "memory");
+        }
+        for (int i = tid; i < head; i += THREADS) sym[as + i] = src[i];
+        for (int i = head + 16 * nvec + tid; i < len; i += THREADS) sym[as + i] = src[i];
+        if (kCrc) {
+            asm volatile("cp.async.wait_group 1;" ::: "memory");
+        } else {
+            asm volatile("cp.async.wait_group 0;" ::: "memory");
+        }
     }
     __syncthreads();
 
@@ -385,7 +570,9 @@ zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__
     }
     __syncthreads();
     // -- push this quarter's histogram into every CTA of the cluster; after
-    // the barrier no CTA touches another's memory, so none waits to exit
+    // the barrier no CTA touches another's memory, so none waits to exit,
+    // except that with kCrc CTAs 1-3 later st.async their CRC parts into
+    // CTA 0's cs.in: CTA 0 must not exit before its bar_wait on cs.bar
     cluster_wait();  // every CTA has started
     if (tid < 256) {
         uint32_t c = 0;
@@ -396,6 +583,7 @@ zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__
     }
     cluster_arrive();
     cluster_wait();
+    if (kCrc) asm volatile("cp.async.wait_group 0;" ::: "memory");  // the CRC's constants, published below
 
     // -- the row's counts; the Kraft seed u = clip(2^floor_log2(q), 1, 1024),
     // q = clip(ceil(c * 2048 / v), 1, 2048) (c * 2048 < 2^28: 32-bit division)
@@ -412,7 +600,16 @@ zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__
         pair[tid] = make_int2(c > 0 ? c * 256 + tid : 0x7FFFFFFF, c > 0 ? u - 1 : 0);
     }
     __syncthreads();
-    if (warp == 0) kraft_up(sh, lane, true);
+    constexpr int FOLD_WARPS = crc_fold_threads(THREADS) / 32;
+    if (warp == 0) {
+        kraft_up(sh, lane, true);
+    } else if (kCrc && warp <= FOLD_WARPS) {
+        // -- this CTA's CRC piece, [a - pre, a + hv) of the staged copy, while
+        // warp 0 runs the Kraft loop: each folding warp's lanes folded and joined
+        const uint32_t f = crc_lanes(reinterpret_cast<const uint32_t*>(smem), crc_s, crc_s + CRC_SLICE_WORDS,
+                                     sym_at + a - pre, sym_at + a + hv, pre > 0, k_units, tid - 32, lane, warp - 1);
+        if (lane == 0) cs.part[warp - 1] = f;
+    }
     __syncthreads();
     if (sh.down) {
         // The down loop halves the smallest (count, symbol) among present u >= 2
@@ -452,6 +649,27 @@ zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__
         }
         t = (int)__reduce_add_sync(FULL, (unsigned)t);
         if (lane == 0) sh.wtot[warp] = t;
+    }
+    if (kCrc && warp == WARPS - 1) {
+        // -- (while warp 0 builds the codes) the folding warps joined by Z^(16
+        // K 32 2^j), the CTA's part moved to the message's end by Z^(v - start
+        // - hv) and sent to CTA 0
+        const uint32_t* warp_ops = crc_s + CRC_SLICE_WORDS + CRC_LANE_OPS * OP_WORDS;
+        uint32_t f = lane < FOLD_WARPS ? cs.part[lane] : 0u;
+#pragma unroll
+        for (int j = 0; (1 << j) < FOLD_WARPS; ++j) {
+            const uint32_t up = __shfl_down_sync(FULL, f, 1 << j);
+            if ((lane & ((2 << j) - 1)) == 0) f ^= apply_op(warp_ops + j * OP_WORDS, up);
+        }
+        const int s = v - start - hv;  // < 0 only for an empty piece (hv = 0), whose part is 0
+        f = crc_shift(warp_ops + CRC_WARP_OPS * OP_WORDS, __shfl_sync(FULL, f, 0), s > 0 ? s : 0, lane);
+        if (lane == 0) {
+            if (q == 0) {
+                cs.in[0] = f;
+            } else {
+                st_async(peer_addr(smem_addr(cs.in + q), 0), f, peer_addr(smem_addr(&cs.bar), 0));
+            }
+        }
     }
     __syncthreads();
     // the image holds stream byte k at byte ad + k, so its 16-byte words are
@@ -523,7 +741,38 @@ zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__
     for (int i = tid; i < head; i += THREADS) dst[i] = ib[i];
     for (int i = head + 16 * nv + tid; i < sb; i += THREADS) dst[i] = ib[i];
     if (tid == 0) bits_out[row * ENC_CLUSTER + q] = tb;
+    if (kCrc && q == 0 && tid == THREADS - 1) {
+        // the message's CRC: the four parts (the peers' once they are here), inverted
+        bar_wait(smem_addr(&cs.bar));
+        crc_out[row] = (i64)(cs.in[0] ^ cs.in[1] ^ cs.in[2] ^ cs.in[3] ^ 0xFFFFFFFFu);
+    }
 }
+
+template <int THREADS>
+__global__ void __cluster_dims__(ENC_CLUSTER, 1, 1) __launch_bounds__(THREADS)
+zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ valid,
+                   uint8_t* __restrict__ nbits_out, int32_t* __restrict__ codes_out,
+                   uint8_t* __restrict__ streams_out, int32_t* __restrict__ bits_out, i64 stride,
+                   i64 offset, int n) {
+    encode_row<THREADS, false>(data, valid, nbits_out, codes_out, streams_out, bits_out, stride, offset, n,
+                               nullptr, nullptr, 0);
+}
+
+// the encode with its CRC stage, one kernel a launch shape: at 256 threads
+// the bounds hold its registers to the standalone encode's 48, so five
+// CTAs an SM still fit (a minimum of one block would lift them: 79)
+#define RP_FUSED_ZSTD(NAME, THREADS, BOUNDS)                                                                   \
+    __global__ void __cluster_dims__(ENC_CLUSTER, 1, 1) BOUNDS NAME(                                           \
+        const uint8_t* __restrict__ data, const int32_t* __restrict__ valid, uint8_t* __restrict__ nbits_out, \
+        int32_t* __restrict__ codes_out, uint8_t* __restrict__ streams_out, int32_t* __restrict__ bits_out,   \
+        i64 stride, i64 offset, int n, const uint32_t* __restrict__ crc_consts, i64* __restrict__ crc_out,    \
+        int k_units) {                                                                                         \
+        encode_row<THREADS, true>(data, valid, nbits_out, codes_out, streams_out, bits_out, stride, offset, n, \
+                                  crc_consts, crc_out, k_units);                                               \
+    }
+RP_FUSED_ZSTD(fused_zstd_kernel_256, 256, __launch_bounds__(256, 5))
+RP_FUSED_ZSTD(fused_zstd_kernel_512, 512, __launch_bounds__(512))
+#undef RP_FUSED_ZSTD
 
 // the encode's launch shape and shared memory, no work: the launch floor
 template <int THREADS>
@@ -688,11 +937,23 @@ zstd_decode_kernel(const uint8_t* __restrict__ bufs, const int32_t* __restrict__
     end_out[s] = p > 0 ? p : 0;
 }
 
-template <int THREADS>
-static int encode_launch(const uint8_t* data, const int32_t* valid, uint8_t* nbits, int32_t* codes,
-                         uint8_t* streams, int32_t* bits, i64 b_n, i64 stride, i64 offset, int n,
-                         bool empty, cudaStream_t stream) {
-    const int smem = enc_smem_bytes(THREADS, n);
+// one encode launch's buffers (the CRC's with kCrc)
+struct EncArgs {
+    const uint8_t* data;
+    const int32_t* valid;
+    uint8_t* nbits;
+    int32_t* codes;
+    uint8_t* streams;
+    int32_t* bits;
+    const uint32_t* crc_consts;
+    i64* crc;
+    i64 stride, offset;
+    int n;
+};
+
+template <int THREADS, bool kCrc>
+static int encode_launch(const EncArgs& x, i64 b_n, bool empty, cudaStream_t stream) {
+    const int smem = enc_smem_bytes(THREADS, x.n, kCrc, (int)x.offset);
     const unsigned grid = (unsigned)(ENC_CLUSTER * b_n);
     if (empty) {
         cudaError_t e = cudaFuncSetAttribute(zstd_encode_empty_kernel<THREADS>,
@@ -701,25 +962,34 @@ static int encode_launch(const uint8_t* data, const int32_t* valid, uint8_t* nbi
         zstd_encode_empty_kernel<THREADS><<<grid, THREADS, smem, stream>>>();
         return (int)cudaGetLastError();
     }
+    if (kCrc) {
+        const auto kernel = THREADS == 256 ? fused_zstd_kernel_256 : fused_zstd_kernel_512;
+        cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+        kernel<<<grid, THREADS, smem, stream>>>(
+            x.data, x.valid, x.nbits, x.codes, x.streams, x.bits, x.stride, x.offset, x.n, x.crc_consts, x.crc,
+            crc_units((int)x.offset, x.n, THREADS));
+        return (int)cudaGetLastError();
+    }
     cudaError_t e = cudaFuncSetAttribute(zstd_encode_kernel<THREADS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    zstd_encode_kernel<THREADS><<<grid, THREADS, smem, stream>>>(data, valid, nbits, codes, streams, bits,
-                                                                   stride, offset, n);
+    zstd_encode_kernel<THREADS><<<grid, THREADS, smem, stream>>>(x.data, x.valid, x.nbits, x.codes, x.streams,
+                                                                   x.bits, x.stride, x.offset, x.n);
     return (int)cudaGetLastError();
 }
 
-// the launch shape by row count (see the head of this file)
-static int encode_shape(const uint8_t* data, const int32_t* valid, uint8_t* nbits, int32_t* codes,
-                        uint8_t* streams, int32_t* bits, i64 b_n, i64 stride, i64 offset, i64 n,
-                        bool empty, void* stream) {
+// the launch shape by row count (see the head of this file): threads a CTA
+static int encode_threads(i64 b_n) { return b_n <= ENC_FEW_ROWS ? 512 : 256; }
+
+template <bool kCrc>
+static int encode_shape(const EncArgs& x, i64 b_n, bool empty, void* stream) {
     if (b_n <= 0) return 0;
-    if (n < 4 || n > MAX_N || (n & (n - 1)) || b_n > (1LL << 29)) return (int)cudaErrorInvalidValue;
-    return b_n <= ENC_FEW_ROWS
-               ? encode_launch<512>(data, valid, nbits, codes, streams, bits, b_n, stride, offset, (int)n, empty,
-                                    (cudaStream_t)stream)
-               : encode_launch<256>(data, valid, nbits, codes, streams, bits, b_n, stride, offset, (int)n, empty,
-                                    (cudaStream_t)stream);
+    if (x.n < 4 || x.n > MAX_N || (x.n & (x.n - 1)) || b_n > (1LL << 29)) return (int)cudaErrorInvalidValue;
+    if (kCrc && (x.offset < 4 || x.offset > CRC_MAX_PREFIX)) return (int)cudaErrorInvalidValue;
+    return encode_threads(b_n) == 512
+               ? encode_launch<512, kCrc>(x, b_n, empty, (cudaStream_t)stream)
+               : encode_launch<256, kCrc>(x, b_n, empty, (cudaStream_t)stream);
 }
 
 extern "C" {
@@ -735,12 +1005,33 @@ const char* rp_error_string(int err) {
 int rp_zstd_encode(const uint8_t* data, const int32_t* valid, uint8_t* nbits, int32_t* codes,
                    uint8_t* streams, int32_t* bits, i64 b_n, i64 stride, i64 offset, i64 n,
                    void* stream) {
-    return encode_shape(data, valid, nbits, codes, streams, bits, b_n, stride, offset, n, false, stream);
+    const EncArgs x{data, valid, nbits, codes, streams, bits, nullptr, nullptr, stride, offset, (int)n};
+    return encode_shape<false>(x, b_n, false, stream);
 }
 
 // an empty kernel at the encode's launch shape and shared memory for b_n rows of n
 int rp_zstd_encode_empty(i64 b_n, i64 n, void* stream) {
-    return encode_shape(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, b_n, 0, 0, n, true, stream);
+    const EncArgs x{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, (int)n};
+    return encode_shape<false>(x, b_n, true, stream);
+}
+
+// The encode with the CRC of columns [0, offset + v) of each row (the
+// prefix before the chunk, then its v valid bytes): crc int64 [B], the
+// other outputs as rp_zstd_encode's. consts: ops/fused.zstd_crc_consts for
+// the K that rp_fused_zstd_units gives for the same (b_n, offset, n).
+// 4 <= offset <= CRC_MAX_PREFIX.
+int rp_fused_zstd(const uint8_t* data, const int32_t* valid, const uint32_t* consts, i64* crc, uint8_t* nbits,
+                  int32_t* codes, uint8_t* streams, int32_t* bits, i64 b_n, i64 stride, i64 offset, i64 n,
+                  void* stream) {
+    const EncArgs x{data, valid, nbits, codes, streams, bits, consts, crc, stride, offset, (int)n};
+    return encode_shape<true>(x, b_n, false, stream);
+}
+
+// K, the CRC's 16-byte units a folding thread, of an rp_fused_zstd launch
+// of b_n rows of bucket n at column offset `offset`: the launch shape and
+// its K are chosen here alone, and the host builds its constants for it
+int rp_fused_zstd_units(i64 b_n, i64 offset, i64 n) {
+    return crc_units((int)offset, (int)n, encode_threads(b_n));
 }
 
 // bufs: S rows of sbytes (a multiple of 8, rows 8-byte aligned); out: S

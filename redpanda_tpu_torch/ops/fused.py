@@ -34,8 +34,18 @@ harnesses that time them.
 
 The zstd leg uses the JAX program's row width, PREFIX + n rounded up to
 512 bytes (no CELL guard: the huff0 encode reads only [0, n) of the
-body), and runs two launches: the CRC, then `rp_zstd_encode`
-(csrc/zstd.cu) on the body at column offset PREFIX.
+body). `_fused_zstd` on the card is ONE launch of `rp_fused_zstd`
+(csrc/zstd.cu: the encode's cluster of four CTAs a row with its CRC
+stage, `LAUNCHES["fused_zstd"]`): after the cluster barrier, while warp
+0 runs the Kraft loop, CTA q's other warps fold the CRC of the bytes of
+its quarter it counts from its staged copy (CTA 0 the prefix too), in
+units and joins fixed by the shape (K from the library's
+`rp_fused_zstd_units`, operators from `zstd_crc_consts`); one warp joins them, moves the part to the message's
+end by Z^L with L from the row's length and sends it to CTA 0. A
+launch that is refused raises. On the CPU it is the plain chain;
+`_fused_zstd_sequence` keeps the two launches it replaced
+(`crc32c_rows`, then `rp_zstd_encode` on the body at column PREFIX)
+for the harnesses.
 """
 
 from __future__ import annotations
@@ -58,7 +68,7 @@ PREFIX = 40  # models/record.py _CRC_PREFIX packed size
 # entries with device=None run here; the CPU tests set it to "cpu"
 DEFAULT_DEVICE = "cuda"
 
-LAUNCHES = {"fused_lz4": 0, "fused_snappy": 0}
+LAUNCHES = {"fused_lz4": 0, "fused_snappy": 0, "fused_zstd": 0}
 
 # the codecs of the cluster kernel: each one's id in the C entries (CODEC_*
 # in csrc/fused.cu), its launch entry, its block's bound and its parse +
@@ -75,7 +85,7 @@ CTA_OPS = 15
 CLUSTER_ONE_ROW = 16
 
 _LIB = None
-_CONSTS: dict = {}  # (device, n, C) -> the CRC tables and operators
+_CONSTS: dict = {}  # (device, n, C) or (device, "zstd", n, threads) -> the CRC tables and operators
 _RESIDENT: dict = {}  # (device, n, codec) -> {C: clusters of that size resident at once}
 
 
@@ -333,13 +343,75 @@ def crc_snappy_fused(prefixes: "list[bytes]", bodies: "list", device=None):
                         snappy._preamble, device)
 
 
+# csrc/zstd.cu's CRC stage: operators across a warp's lanes and across
+# warps, and the Z^(2^j) a piece's shift is built from (a shift < 2^17)
+ZSTD_LANE_OPS, ZSTD_WARP_OPS, ZSTD_POW2 = 5, 4, 17
+
+
+@functools.cache
+def zstd_crc_ops(k: int) -> np.ndarray:
+    """The CRC stage's constants for K 16-byte units a folding thread
+    (the library's rp_fused_zstd_units), uint32 words: the slice-by-4
+    tables, Z^(16 K 2^j) for j < 5 (lanes) and Z^(16 K 32 2^j) for j < 4
+    (warps) as nibble tables, then Z^(2^j) for j < 17 as their 32
+    columns."""
+    ops = ([crc_ops.op_tables((16 * k) << j) for j in range(ZSTD_LANE_OPS)]
+           + [crc_ops.op_tables((16 * k * 32) << j) for j in range(ZSTD_WARP_OPS)])
+    return np.concatenate([crc_ops._TABLES.reshape(-1), np.stack(ops).reshape(-1),
+                           crc_ops._z_pow2_cols()[:ZSTD_POW2].reshape(-1)])
+
+
+def zstd_crc_consts(device, k: int) -> torch.Tensor:
+    """`zstd_crc_ops(k)` as one int32 buffer on `device`, built once."""
+    key = (str(device), "zstd", k)
+    buf = _CONSTS.get(key)
+    if buf is None:
+        buf = torch.from_numpy(zstd_crc_ops(k).view(np.int32).copy()).to(device)
+        _CONSTS[key] = buf
+    return buf
+
+
+def launch_fused_zstd(data: torch.Tensor, body_len: torch.Tensor, n: int):
+    """One `rp_fused_zstd` launch: (crc int64 [B], nbits uint8 [B, 256],
+    codes int32 [B, 256], streams uint8 [B, 4, SB], bits int32 [B, 4]).
+    The codes are written for the comparison with the plain version."""
+    b, stride = data.shape
+    dev = data.device
+    crc = torch.empty(b, dtype=torch.int64, device=dev)
+    nbits = torch.empty((b, 256), dtype=torch.uint8, device=dev)
+    codes = torch.empty((b, 256), dtype=torch.int32, device=dev)
+    streams = torch.empty((b, 4, zstd.stream_byte_bound(n)), dtype=torch.uint8, device=dev)
+    bits = torch.empty((b, 4), dtype=torch.int32, device=dev)
+    if b:
+        lib = zstd._lib()
+        consts = zstd_crc_consts(dev, lib.rp_fused_zstd_units(b, PREFIX, n))
+        rc = lib.rp_fused_zstd(
+            data.data_ptr(), body_len.data_ptr(), consts.data_ptr(), crc.data_ptr(), nbits.data_ptr(),
+            codes.data_ptr(), streams.data_ptr(), bits.data_ptr(), b, stride, PREFIX, n, _build.stream_of(data),
+        )
+        _build.check(lib, rc, "fused_zstd")
+        LAUNCHES["fused_zstd"] += 1
+    return crc, nbits, codes, streams, bits
+
+
+def _fused_zstd_sequence(data: torch.Tensor, body_len: torch.Tensor, n: int):
+    """The CRC, then the encode: on the CPU the plain chain; on the card
+    the two launches `rp_fused_zstd` replaced (chip_smoke and
+    chip_zstd_encode time them beside it)."""
+    crc = crc32c_rows(data, body_len, PREFIX)
+    nbits, streams, bits = zstd._encode_chunks(data, body_len, n, PREFIX)
+    return crc, nbits, streams, bits
+
+
 def _fused_zstd(data: torch.Tensor, body_len: torch.Tensor, n: int):
     """data [B, ceil((PREFIX + n) / 512) * 512] uint8; body_len int32
     [B]. Returns (crc int64 [B] over prefix || body, and the body's zstd
     entropy stage: nbits uint8 [B, 256], streams uint8 [B, 4, SB], bits
-    int32 [B, 4])."""
-    crc = crc32c_rows(data, body_len, PREFIX)
-    nbits, streams, bits = zstd._encode_chunks(data, body_len, n, PREFIX)
+    int32 [B, 4]). The plain chain on the CPU, one launch on the card."""
+    zstd._check_encode(data, body_len, n, PREFIX)
+    if data.device.type == "cpu":
+        return _fused_zstd_sequence(data, body_len, n)
+    crc, nbits, _, streams, bits = launch_fused_zstd(data, body_len, n)
     return crc, nbits, streams, bits
 
 

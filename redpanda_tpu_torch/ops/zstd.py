@@ -47,6 +47,8 @@ stream byte up to the byte bound, every `bits`, `nbits`, `out` and
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -73,6 +75,9 @@ def _lib():
         lib = _build.load("zstd")
         _build.bind(lib, "rp_zstd_encode", 6, 4)
         _build.bind(lib, "rp_zstd_decode", 8, 3)
+        _build.bind(lib, "rp_fused_zstd", 8, 4)
+        lib.rp_fused_zstd_units.argtypes = [ctypes.c_int64] * 3
+        lib.rp_fused_zstd_units.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 

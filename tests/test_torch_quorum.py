@@ -1054,3 +1054,111 @@ def test_local_append_parts_by_batch():
     assert tq.append_parts(10**6, one_pass) == 0 and tq.append_parts(10**8, 24) == 0
     assert tq.append_parts(one_pass + 1, 10**6) == parts and tq.append_parts(10**6, 10**6) == parts
     assert tq.append_parts(2 * 10**6, 10**6) == parts and tq.append_parts(10**8, 10**6) == parts
+
+
+# ------------------------------------------------------------------
+# follower_commit_step: csrc/quorum.cu follower_commit_kernel
+
+FOLLOW_ROWS = 4  # csrc/quorum.cu: consecutive rows a thread
+
+
+def _replay_follower(fields, lc, aligned):
+    """follower_commit_kernel on numpy lanes: thread i takes rows [4 i,
+    4 i + 4); where the three [G] lanes are 16-byte aligned (`aligned`)
+    and its rows all exist it moves them as two vectors, else row by row
+    (the rows past G read as commit = leader_commit = 0: no update). Slot
+    0's flushed (at g * R of the flattened lane) is read only for rows with
+    leader_commit > commit. Returns the new lanes, the rows that read
+    flushed, and the threads that took the vector path."""
+    g, r = fields["match_index"].shape
+    t = -(-g // FOLLOW_ROWS)
+    pad = t * FOLLOW_ROWS - g
+
+    def lane(x):
+        return np.concatenate([x, np.zeros(pad, np.int64)]).reshape(t, FOLLOW_ROWS)
+
+    c, l, vis = lane(fields["commit_index"]), lane(lc), lane(fields["last_visible"])
+    rows = np.arange(t * FOLLOW_ROWS).reshape(t, FOLLOW_ROWS)
+    flat = fields["flushed_index"].reshape(-1)
+    reads = l > c
+    assert not reads[rows >= g].any()  # the padded rows never load
+    fl = np.where(reads, flat[np.where(reads, rows * r, 0)], 0)
+    proposed = np.minimum(l, fl)
+    nc = np.where((l > c) & (proposed > c), proposed, c)
+    nv = np.maximum(vis, nc)
+    vec = np.full(t, aligned) & ((rows[:, 0] + FOLLOW_ROWS) <= g)
+    out_c, out_v = fields["commit_index"].copy(), fields["last_visible"].copy()
+    for i in range(t):
+        live = rows[i] < g
+        if vec[i]:  # a vector is written back when any of its rows changed
+            if (nc[i] != c[i]).any():
+                out_c[rows[i]] = nc[i]
+            if (nv[i] != vis[i]).any():
+                out_v[rows[i]] = nv[i]
+        else:  # row by row, where the row changed
+            chg_c, chg_v = live & (nc[i] != c[i]), live & (nv[i] != vis[i])
+            out_c[rows[i][chg_c]] = nc[i][chg_c]
+            out_v[rows[i][chg_v]] = nv[i][chg_v]
+    return {**fields, "commit_index": out_c, "last_visible": out_v}, rows[reads], vec
+
+
+def follower_inputs(rng, g, r):
+    """Random lanes and leader commits with rows that get no update
+    (leader_commit = i64 min), leader_commit equal to commit, above
+    flushed[0] and below commit, rows whose visible lags commit (with
+    and without an update), and i64 extremes."""
+    f = random_fields(rng, g, r)
+    c = f["commit_index"]
+    lc = c + rng.integers(-2, 6, g)
+    kind = rng.integers(0, 6, g)
+    lc[kind == 0] = I64_MIN
+    lc[kind == 1] = c[kind == 1]
+    lc[kind == 2] = f["flushed_index"][kind == 2, 0] + rng.integers(1, 9, int((kind == 2).sum()))
+    lag = rng.random(g) < 0.3
+    f["last_visible"][lag] = c[lag] - rng.integers(1, 9, int(lag.sum()))
+    f["flushed_index"][rng.random(g) < 0.05, 0] = 2**63 - 1
+    lc[rng.random(g) < 0.03] = 2**63 - 1
+    return f, lc.astype(np.int64)
+
+
+def _view_state(fields, lc, skip):
+    """A CPU state (and leader commits) whose every lane is a view that
+    starts `skip` rows into a tensor one row longer: skip = 1 leaves the
+    [G] lanes 8 bytes past a 16-byte boundary."""
+    def grow(x):  # one spare row, before the lane (skip = 1) or after it
+        return np.concatenate([x[:skip], x, x[: 1 - skip]])
+
+    full = tcs.group_state_from_numpy({k: grow(v) for k, v in fields.items()}, "cpu")
+    state = tcs.GroupState(*(getattr(full, k)[skip : skip + len(lc)] for k in FIELDS))
+    lanes = torch.from_numpy(grow(lc))[skip : skip + len(lc)]
+    return state, lanes
+
+
+def _aligned(state, lc):
+    """rp_follower_commit's test: commit, last_visible and leader_commit
+    all 16-byte aligned."""
+    return all(t.data_ptr() % 16 == 0 for t in (state.commit_index, state.last_visible, lc))
+
+
+@pytest.mark.parametrize("r", [3, 8, 16])
+@pytest.mark.parametrize("g", [1, 6, 1023, 1025, 4 * 256 + 3])
+@pytest.mark.parametrize("skip", [0, 1])
+def test_kernel_replay_follower_matches_jax(skip, g, r):
+    """The follower kernel's mapping (4 rows a thread, vectors where the
+    [G] lanes are aligned and the thread's rows all exist, else row by
+    row; flushed[0] read only where leader_commit > commit) on G not a
+    multiple of 4 and on a view offset by one row (unaligned lanes),
+    against the JAX program and the plain version on the same view: rows
+    with no update, leader_commit equal to commit, above flushed, visible
+    lagging commit."""
+    rng = np.random.default_rng(100 * g + 10 * r + skip)
+    fields, lc = follower_inputs(rng, g, r)
+    want = jq.follower_commit_step(jax_state(fields), jnp.asarray(lc))
+    state, lanes = _view_state(fields, lc, skip)
+    aligned = _aligned(state, lanes)
+    assert aligned == (skip == 0)
+    assert_states_equal(want, tq.follower_commit_step(state, lanes))
+    replay, reads, vec = _replay_follower(fields, lc, aligned)
+    assert_states_equal(want, torch_state(replay))
+    np.testing.assert_array_equal(np.sort(reads), np.flatnonzero(lc > fields["commit_index"]))
+    assert vec.sum() == (g // FOLLOW_ROWS if aligned else 0)

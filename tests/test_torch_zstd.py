@@ -44,6 +44,8 @@ from redpanda_tpu_torch.compression import CompressionType
 from redpanda_tpu_torch.compression import tpu_backend as tbackend
 from redpanda_tpu_torch.compression import zstd_frame as zf
 from redpanda_tpu_torch.models import record as trecord
+from redpanda_tpu_torch.ops import _build
+from redpanda_tpu_torch.ops import crc32c as tcrc
 from redpanda_tpu_torch.ops import fused as tfused
 from redpanda_tpu_torch.ops import zstd as tz
 from redpanda_tpu_torch.utils import crc as host_crc
@@ -909,3 +911,226 @@ def test_decode_streams_match_jax_with_shared_tables(shared):
     assert tsym.shape[0] == (len({id(t) for t in tables}) if shared else len(items))
     assert tsym.shape[0] < len(items) if shared else True
     assert tz.decode_streams(streams, regens, tables) == jz.decode_streams(streams, regens, tables)
+
+
+# ------------------------------------------------- rp_fused_zstd's CRC
+FULL = 0xFFFFFFFF
+
+
+def _fold_units(n: int, threads: int) -> tuple:
+    """(fold, K) of an rp_fused_zstd CTA of `threads` at bucket n: every
+    warp but the Kraft loop's folds (csrc/zstd.cu crc_fold_threads), K
+    16-byte units a thread so that fold K units cover CTA 0's range, the
+    prefix and a quarter of the bucket (crc_units)."""
+    fold = threads - 32
+    return fold, -(-(-(-(tfused.PREFIX + n // 4) // 16)) // fold)
+
+
+def _apply(tables, v):
+    """An operator (eight nibble tables) on uint32 vectors."""
+    o = np.zeros_like(v)
+    for c in range(8):
+        o ^= tables[c][(v >> np.uint32(4 * c)) & np.uint32(15)]
+    return o
+
+
+def _slice4(c, w):
+    t = tcrc._TABLES
+    c = c ^ w
+    return (t[3][c & 255] ^ t[2][(c >> np.uint32(8)) & 255] ^ t[1][(c >> np.uint32(16)) & 255]
+            ^ t[0][c >> np.uint32(24)])
+
+
+def _apply_cols(cols, r: int) -> int:
+    """A 32 x 32 operator held as its columns on one register: the xor of
+    the columns r's bits select (the kernel's warp reduction)."""
+    out = 0
+    for b in range(32):
+        if r >> b & 1:
+            out ^= int(cols[b])
+    return out
+
+
+def _shift(cols, r: int, s: int) -> int:
+    """Z^s(r) from the bits of s, as the kernel's crc_shift: Z^(2^j) for
+    each set bit j, each applied by its columns."""
+    for j in range(tfused.ZSTD_POW2):
+        if s >> j & 1:
+            r = _apply_cols(cols[j], r)
+    return r
+
+
+def _replay_fused_crc(row: np.ndarray, v: int, n: int, threads: int, align: int) -> int:
+    """rp_fused_zstd's CRC of one row (its columns [0, PREFIX + v) at a
+    device address = align mod 16): CTA q stages its quarter (CTA 0 the
+    prefix before it) at byte (address & 15) of a symbol region whose
+    other bytes are garbage; its counted range [a - pre, a + hv) is cut
+    into 16-byte units counted from the end, thread t < fold folding
+    units [t K, t K + K) slice-by-4 from register 0, earliest first (bytes
+    before the range masked, words wholly before it skipped; CTA 0 xors
+    the initial 0xFFFFFFFF into the message's first 4 bytes); each warp's
+    lanes joined by Z^(16 K 2^j) (warps holding units), the warps by Z^(16
+    and the warps by Z^(16 K 32 2^j), in trees whose level j only lanes
+    that are multiples of 2^(j + 1) compute; the part moved by Z^(v -
+    start - hv) built from the bits of the shift; CTA 0 xors the four
+    parts and inverts."""
+    fold, k = _fold_units(n, threads)
+    ops = tfused.zstd_crc_ops(k)
+    lanes_op = ops[1024 : 1024 + 5 * 128].reshape(5, 8, 16)
+    warps_op = ops[1024 + 5 * 128 : 1024 + 9 * 128].reshape(4, 8, 16)
+    cols = ops[1024 + 9 * 128 :].reshape(tfused.ZSTD_POW2, 32)
+    warps = fold // 32
+    m4 = (v + 3) // 4
+    crc = 0
+    for q in range(4):
+        start = q * m4
+        slen = m4 if q < 3 else max(v - 3 * m4, 0)
+        hv = min(max(v - start, 0), slen)
+        pre = tfused.PREFIX if q == 0 else 0
+        a_s = (align + tfused.PREFIX + start - pre) % 16
+        a = a_s + pre
+        base = 16  # the symbol region: 16-byte aligned, garbage before and after
+        smem = np.full(base + a + slen + 64, 0xA5, np.uint8)
+        smem[base + a_s : base + a + slen] = row[tfused.PREFIX + start - pre : tfused.PREFIX + start + slen]
+        lo, e = base + a - pre, base + a + hv
+        nu = -(-(e - lo) // 16)
+        t = np.arange(fold)
+        f = np.zeros(fold, np.uint32)
+        for u in range(k - 1, -1, -1):
+            un = t * k + u
+            x0 = e - 16 * (un + 1)
+            for w in range(4):
+                x = x0 + 4 * w
+                rel = x - lo
+                use = (un < nu) & (rel > -4)
+                xs = np.where(use, x, base)[:, None] + np.arange(4)[None, :]
+                wd = (smem[xs].astype(np.uint64) << (np.arange(4, dtype=np.uint64) * 8)).sum(1).astype(np.uint32)
+                neg = (np.clip(-rel, 0, 3) * 8).astype(np.uint64)
+                wd &= ((np.uint64(FULL) << neg) & np.uint64(FULL)).astype(np.uint32)
+                if pre:
+                    init = np.where(rel >= 0, np.uint64(FULL) >> (np.clip(rel, 0, 3) * 8).astype(np.uint64),
+                                    (np.uint64(FULL) << neg) & np.uint64(FULL))
+                    wd ^= np.where(rel < 4, init, 0).astype(np.uint32)
+                f = np.where(use, _slice4(f, wd), f)
+        ln = f.reshape(warps, 32)
+        active = 32 * k * np.arange(warps) < nu
+        for j in range(5):  # lanes that are multiples of 2^(j+1) take Z^(16 K 2^j) of lane l + 2^j
+            up = np.concatenate([ln[:, 1 << j :], ln[:, -(1 << j) :]], axis=1)
+            at = (np.arange(32) & ((2 << j) - 1)) == 0
+            ln = np.where(active[:, None] & at[None, :], ln ^ _apply(lanes_op[j], up), ln)
+        fw = np.zeros(32, np.uint32)
+        fw[:warps] = ln[:, 0]
+        j = 0
+        while 1 << j < warps:  # the same tree across the warps' parts
+            at = (np.arange(32) & ((2 << j) - 1)) == 0
+            fw = np.where(at, fw ^ _apply(warps_op[j], np.concatenate([fw[1 << j :], fw[-(1 << j) :]])), fw)
+            j += 1
+        crc ^= _shift(cols, int(fw[0]), max(v - start - hv, 0))
+    return crc ^ FULL
+
+
+def _fused_rows(n: int, seed: int):
+    """Bodies of the fused CRC tests at bucket n: v in {0, 1, 3, 4, 5, 8,
+    9, 12, 4097, n - 1, n} (those <= n) of random bytes, one of a single
+    repeated byte, and their prefixes."""
+    rng = np.random.default_rng(seed)
+    vs = [v for v in (0, 1, 3, 4, 5, 8, 9, 12, 4097, n - 1, n) if v <= n]
+    bodies = [rng.integers(0, 256, v, dtype=np.uint8).tobytes() for v in vs] + [b"\x61" * (n - 3)]
+    prefixes = [rng.integers(0, 256, tfused.PREFIX, dtype=np.uint8).tobytes() for _ in bodies]
+    return prefixes, bodies
+
+
+@pytest.mark.parametrize("n", (512, 4096, 32768, 65536))
+def test_kernel_replay_fused_crc_matches_host_and_jax(n):
+    """rp_fused_zstd's CRC stage replayed at both launch shapes (512 and
+    256 threads) with the row's address at every residue mod 16 (so each
+    quarter starts at every residue): equal to the host CRC of prefix ||
+    body and to the JAX crc_zstd_fused CRCs."""
+    prefixes, bodies = _fused_rows(n, seed=n + 7)
+    mat, body_len, nn = tfused.stage_fused(prefixes, bodies, tfused._zstd_width)
+    assert nn == n
+    jcrcs, _ = jfused.crc_zstd_fused(prefixes, bodies)
+    for i, (p, b) in enumerate(zip(prefixes, bodies)):
+        want = host_crc.crc32c(b, host_crc.crc32c(p))
+        assert want == int(np.asarray(jcrcs)[i])
+        for threads in ENC_THREADS:
+            for align in range(16):
+                got = _replay_fused_crc(mat[i], int(body_len[i]), n, threads, align)
+                assert got == want, (len(b), threads, align)
+
+
+def test_crc_shift_from_bits_appends_zeros():
+    """Z^L built from the bits of L with the host's Z^(2^j) columns (as the
+    kernel shifts a piece) equals appending L zero bytes, for random L <
+    2^17 and both ends of the range."""
+    cols = tfused.zstd_crc_ops(1)[1024 + 9 * 128 :].reshape(tfused.ZSTD_POW2, 32)
+    rng = np.random.default_rng(5)
+    regs = rng.integers(0, 2**32, 3, dtype=np.uint64).astype(np.uint32)
+    lengths = [0, 1, 40, 65536 + 40, (1 << 17) - 1] + [int(x) for x in rng.integers(0, 1 << 17, 3)]
+    walked, at = regs.copy(), 0
+    for length in sorted(lengths):
+        for _ in range(length - at):  # one zero byte: r = T0[r & 255] ^ (r >> 8)
+            walked = tcrc._TABLES[0][walked & 255] ^ (walked >> np.uint32(8))
+        at = length
+        assert [_shift(cols, int(r), length) for r in regs] == [int(x) for x in walked], length
+
+
+def test_fused_crc_shape():
+    """K units a folding thread (every warp but one) cover CTA 0's longest
+    range (the prefix and a quarter of the bucket) at both launch shapes,
+    within the warps (<= 16) whose tree the constants hold; the constants
+    are the kernel's 2,720 words, their operators those of K's units."""
+    for n in (512, 4096, 32768, 65536):
+        for threads in ENC_THREADS:
+            fold, k = _fold_units(n, threads)
+            units = -(-(tfused.PREFIX + n // 4) // 16)
+            assert fold * k >= units > fold * (k - 1)
+            assert fold // 32 <= 1 << tfused.ZSTD_WARP_OPS and n < 1 << tfused.ZSTD_POW2
+            ops = tfused.zstd_crc_ops(k)
+            assert ops.shape == (1024 + 9 * 128 + tfused.ZSTD_POW2 * 32,)
+            assert np.array_equal(ops[1024 : 1024 + 128], tcrc.op_tables(16 * k).reshape(-1))
+
+
+def test_fused_zstd_cpu_path_is_the_plain_chain():
+    """On the CPU `_fused_zstd` is the plain chain (the CRC, then the
+    encode), equal to `_fused_zstd_sequence` and launching nothing."""
+    prefixes, bodies = _fused_rows(4096, seed=3)
+    mat, body_len, n = tfused.stage_fused(prefixes, bodies, tfused._zstd_width)
+    data, valid = torch.from_numpy(mat), torch.from_numpy(body_len)
+    before = dict(tfused.LAUNCHES)
+    got = tfused._fused_zstd(data, valid, n)
+    for g, w in zip(got, tfused._fused_zstd_sequence(data, valid, n)):
+        assert torch.equal(g, w)
+    assert tfused.LAUNCHES == before
+    want = [host_crc.crc32c(b, host_crc.crc32c(p)) for p, b in zip(prefixes, bodies)]
+    assert got[0].tolist() == want
+
+
+class _RefusingZstdLib:
+    """A zstd library whose fused launch the card refuses."""
+
+    @staticmethod
+    def rp_fused_zstd(*_args):
+        return 9
+
+    @staticmethod
+    def rp_fused_zstd_units(_b, _offset, _n):
+        return 1
+
+    @staticmethod
+    def rp_error_string(_rc):
+        return b"invalid configuration argument"
+
+
+def test_a_refused_fused_zstd_launch_raises(monkeypatch):
+    """A refused rp_fused_zstd launch raises KernelError and counts
+    nothing; the wrapper routes the rows nowhere else (no fallback to the
+    two-launch sequence)."""
+    monkeypatch.setattr(tz, "_LIB", _RefusingZstdLib())
+    monkeypatch.setattr(_build, "stream_of", lambda _t: 0)
+    monkeypatch.setattr(tfused, "zstd_crc_consts", lambda _dev, _k: torch.zeros(1, dtype=torch.int32))
+    mat, blen, n = tfused.stage_fused([bytes(40)], [b"abc" * 100], tfused._zstd_width)
+    before = dict(tfused.LAUNCHES)
+    with pytest.raises(_build.KernelError, match="fused_zstd"):
+        tfused.launch_fused_zstd(torch.from_numpy(mat), torch.from_numpy(blen), n)
+    assert tfused.LAUNCHES == before
