@@ -115,7 +115,19 @@ Phases, each raising on any mismatch:
      caller, held against their plain versions; the follower rule also
      on G - 3 rows and on a view one row in) on the device clock,
      local_append_update also beside the library's two
-     scatter_reduce_(amax) calls on the same appends.
+     scatter_reduce_(amax) calls on the same appends;
+  11. the main path armed: a child process (`chip_smoke.py --armed`,
+     RP_DEVPLANE=1, the default RP_DEVPLANE_SAMPLE) runs phase 3's tick,
+     the mesh backend at 1M rows over D=8 blocks (four tick frames and a
+     health refresh, against the host leg), 64 recompressed(lz4) calls,
+     entry()'s heartbeat_tick (exact against its plain chain) and
+     entry.dryrun_multichip(8), then checks that each probe's sample
+     count is 1 + calls // N for the calls a counting shim saw, one
+     cross-chip fold a frame, no dispatch or transfer on the tick
+     outside a frame, the transfer bytes equal to what the mesh frames
+     must move, and merged_status of an encoded snapshot equal to
+     status(); it prints the armed tick p50 / p99 beside phase 3's and
+     each probe's sampled dispatch->ready p50.
 The launch counters are zeroed just before each main-path phase (3, 4,
 6, 8, 8b, 9 and 10) and read just after; every kernel must have
 launched there, except those in OFF_PATH (follower_commit_step,
@@ -2937,6 +2949,224 @@ def cluster_kernels(torch, state, mem_rate: float) -> dict:
     return out
 
 
+# ----------------------------------------- phase 11: the armed devplane
+# the armed child's depths: phase 3's tick, the mesh at phase 9's scale
+# over fewer windows, part of phase 6's batches, entry() and the dry run
+ARMED_MESH_WINDOWS, ARMED_MESH_BIG_WINDOWS = 2, 1
+ARMED_BATCHES = 64
+# the probes the armed main path must reach (the others have no caller
+# there: quorum.tick_frame, build_heartbeats and fold_replies run inside
+# the frame kernel or a composite, the codec registry legs and the zstd
+# path are not driven by this phase)
+ARMED_PATH = ("quorum.heartbeat_tick", "health.tick_frame", "health.reduce", "mesh_frame.tick_frame",
+              "mesh_frame.health", "fused.crc_lz4", "quorum.commit_step", "cluster.tick",
+              "cluster.election_round")
+
+
+def count_probe_calls(devplane) -> dict:
+    """Count the calls each devplane probe forwards, apart from its own
+    sampling counter: every probe bound so far, and every probe made
+    from here on, gets a counting shim under its `fn`. Returns {id:
+    [name, calls, probe]}, one entry a probe (a name may have several:
+    one MeshFrame or cluster factory call makes one); the entry keeps
+    its probe alive, so no later probe reuses its id."""
+    calls: dict = {}
+
+    def wrap(p):
+        if id(p) in calls:
+            return
+        rec = calls[id(p)] = [p.name, 0, p]
+        inner = p.fn
+
+        def counted(*args, **kwargs):
+            rec[1] += 1
+            return inner(*args, **kwargs)
+
+        p.fn = counted
+
+    for mod in list(sys.modules.values()):
+        if getattr(mod, "__name__", "").startswith("redpanda_tpu_torch"):
+            for v in list(vars(mod).values()):
+                if isinstance(v, devplane._Probe):
+                    wrap(v)
+    init = devplane._Probe.__init__
+
+    def counted_init(self, fn, name):
+        init(self, fn, name)
+        wrap(self)
+
+    devplane._Probe.__init__ = counted_init
+    return calls
+
+
+def sampled(n: int, every: int) -> int:
+    """Samples a probe takes over n calls: the first and every Nth."""
+    return n if every == 1 else (1 + n // every if n else 0)
+
+
+def reply_bucket(m: int) -> int:
+    """The padded reply columns of a frame of m replies (shard_state)."""
+    b = 8
+    while b < m:
+        b *= 2
+    return b
+
+
+def mesh_frame_bytes(g: int, r: int, buckets, health_frames: int) -> dict:
+    """Host<->device bytes the mesh frames must move for g rows of r
+    slots: each tick frame uploads the ten state lanes (i64 term, commit,
+    term_start, last_visible; bool is_leader; i64 match, flushed,
+    last_seq and bool is_voter, is_voter_old a slot), the five i64 reply
+    columns at their bucket and the bool known / active lanes, and reads
+    back five lanes (i64 commit, visible; match, flushed, last_seq a
+    slot), the three health lanes (i64 lag, bool under, bool leaderless)
+    and five i64 totals; each health frame uploads match, commit, both
+    voter masks, is_leader, known and active and reads back the health
+    lanes and four totals."""
+    h2d = sum(g * (4 * 8 + 1) + g * r * (3 * 8 + 2) + 5 * 8 * b + 2 * g for b in buckets)
+    d2h = len(buckets) * (2 * 8 * g + 3 * 8 * g * r + 10 * g + 5 * 8)
+    h2d += health_frames * (8 * g * r + 8 * g + 2 * g * r + 3 * g)
+    d2h += health_frames * (10 * g + 4 * 8)
+    return {"h2d": h2d, "d2h": d2h}
+
+
+def armed_run(device: str, g: int, ticks: int, mesh_g: int, mesh_d: int, batches: int) -> dict:
+    """The main path with every probe live (RP_DEVPLANE=1 at import):
+    the tick of `g` groups for `ticks` ticks, the mesh backend at
+    `mesh_g` rows over `mesh_d` blocks, `batches` recompressed(lz4)
+    calls, entry()'s heartbeat_tick against its plain chain and
+    dryrun_multichip(mesh_d), all on `device`; then every check of the
+    devplane's counts. Raises on any check; returns the numbers."""
+    from redpanda_tpu_torch.compression import CompressionType
+    from redpanda_tpu_torch.entry import dryrun_multichip, entry
+    from redpanda_tpu_torch.models.consensus_state import GroupState
+    from redpanda_tpu_torch.observability import devplane
+    from redpanda_tpu_torch.observability.fleet import RegistrySnapshot
+
+    if not devplane.enabled():
+        raise AssertionError("the armed run needs RP_DEVPLANE=1 at import")
+    every = devplane.SAMPLE_EVERY
+    calls = count_probe_calls(devplane)
+    t0 = time.perf_counter()
+    s = run_slice(g, ticks, device)
+    t1 = time.perf_counter()
+    mesh = run_mesh_slice(mesh_g, mesh_d, device, windows=ARMED_MESH_WINDOWS,
+                          big_windows=ARMED_MESH_BIG_WINDOWS)
+    mesh_r = mesh["arrays"].replica_slots
+    del mesh["arrays"], mesh["rows"]
+    t2 = time.perf_counter()
+    built = build_batches(np.random.default_rng(SEED + 6), batches)
+    with codec_backend("device"):
+        outs = [b.recompressed(CompressionType.lz4, verify_crc=b.header.crc) for b in built]
+    for b, o in zip(built, outs):
+        if lz4_frame_decode(o.body) != b.body:
+            raise AssertionError("an armed recompressed frame does not decode to its body")
+    fn, args = entry(device)
+    plain = GroupState(*(t.clone() for t in args[0]))
+    quorum_ops.fold_replies_plain(plain, *args[1:])
+    quorum_ops.quorum_commit_step_plain(plain)
+    out = fn(*args)
+    err = max_abs_err(dict(zip(GroupState._fields, out)), dict(zip(GroupState._fields, plain)))
+    if not bool((out.commit_index == 100).all()):
+        raise AssertionError("entry(): every group must commit at 100")
+    dryrun_multichip(mesh_d, device)
+    t3 = time.perf_counter()
+
+    st = devplane.status()
+    want: dict = {}
+    n_calls: dict = {}
+    for name, n, _ in calls.values():
+        want[name] = want.get(name, 0) + sampled(n, every)
+        n_calls[name] = n_calls.get(name, 0) + n
+    got = {name: d["count"] for name, d in st["kernels"].items()}
+    bad = {k: (got.get(k, 0), want.get(k, 0)) for k in set(got) | set(want) if got.get(k, 0) != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"sampled counts != 1 + calls // {every} per probe: {bad}")
+    idle = [k for k in ARMED_PATH if n_calls.get(k, 0) == 0]
+    if idle:
+        raise AssertionError(f"probes the armed main path never reached: {idle}")
+    if st["folds"] != st["frames_total"] or st["frames_total"] != mesh["frames"] + 1:
+        raise AssertionError(f"folds {st['folds']} / frames {st['frames']}: one fold a frame, "
+                             f"{mesh['frames'] + 1} frames")
+    if st["tick_violations"] != 0:
+        raise AssertionError(f"{st['tick_violations']} device events on the tick outside a frame")
+    buckets = [8] + [reply_bucket(MESH_WINDOW)] * ARMED_MESH_WINDOWS + \
+        [reply_bucket(MESH_BIG_WINDOW)] * ARMED_MESH_BIG_WINDOWS
+    moved = mesh_frame_bytes(mesh_g, mesh_r, buckets, 1)
+    if st["transfer_bytes"] != moved:
+        raise AssertionError(f"transfer bytes {st['transfer_bytes']} != the mesh frames' {moved}")
+    wire = devplane.snapshot(shard=0, node=0).encode()
+    merged = devplane.merged_status([RegistrySnapshot.decode(wire)])
+    if merged["kernels"] != st["kernels"] or merged["frames"] != st["frames"]:
+        raise AssertionError("merged_status of the snapshot differs from status()")
+    kernels = {k: {"calls": n_calls[k], "samples": d["count"], "p50_ms": d["p50_ms"], "p99_ms": d["p99_ms"]}
+               for k, d in st["kernels"].items() if d["count"]}
+    log(f"[armed] RP_DEVPLANE=1 RP_DEVPLANE_SAMPLE={every}: slice {t1 - t0:.1f} s, mesh {t2 - t1:.1f} s, "
+        f"recompress + entry + dryrun {t3 - t2:.1f} s")
+    log(f"[armed] every probe's samples == 1 + calls // {every}; folds {st['folds']} == frames "
+        f"{st['frames']}; tick_violations 0; transfer bytes {st['transfer_bytes']} == the mesh frames'; "
+        f"entry() heartbeat_tick equal to its plain chain (max_abs_err {err}); merged_status round trip "
+        f"of a {len(wire)} B snapshot equal")
+    return {
+        "tick_s": s["tick_s"], "kernels": kernels, "frame_ms": st["frame_ms"],
+        "transfer_bytes": st["transfer_bytes"], "frames": st["frames"], "folds": st["folds"],
+        "sample_every": every, "entry_max_abs_err": err, "seconds": t3 - t0,
+    }
+
+
+def armed_main() -> int:
+    """The armed child (`chip_smoke.py --armed`, RP_DEVPLANE=1 in its
+    environment): `armed_run` on the card at the main path's sizes;
+    prints its lines and last one JSON object for the parent."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --armed: no CUDA device available", file=sys.stderr)
+        return 2
+    from redpanda_tpu_torch.ops import _build
+
+    # the child's start-up, not a tick's cost: the CUDA context and the
+    # kernel libraries, which the parent's phase 3 finds loaded
+    torch.zeros(1, device="cuda")
+    for name in _build.SOURCES:
+        _build.load(name)
+    armed = armed_run("cuda", G, TICKS, MESH_G, MESH_D, ARMED_BATCHES)
+    print(json.dumps({"armed": armed}), flush=True)
+    return 0
+
+
+def phase_armed(off_tick_s) -> dict:
+    """Phase 11: the main path again with the devplane armed, in a child
+    process (RP_DEVPLANE is read at import) on the card: phase 3's tick,
+    the mesh backend at 1M rows, 64 recompressed(lz4) calls, entry()'s
+    heartbeat_tick and dryrun_multichip(8). The child raises on any
+    check; here its lines are relayed and the tick compared with phase
+    3's off-state tick."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, RP_DEVPLANE="1")
+    run = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--armed"], env=env, capture_output=True,
+        text=True, timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    lines = run.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if run.returncode != 0:
+        raise AssertionError(f"the armed phase failed (rc {run.returncode}):\n{run.stdout[-4000:]}\n"
+                             f"{run.stderr[-8000:]}")
+    armed = json.loads(lines[-1])["armed"]
+    a, o = armed["tick_s"], off_tick_s
+    log(f"[armed] tick p50 {pct(a, 50) * 1e3:.3f} ms p99 {pct(a, 99) * 1e3:.3f} ms armed vs "
+        f"p50 {pct(o, 50) * 1e3:.3f} ms p99 {pct(o, 99) * 1e3:.3f} ms off (phase 3); child "
+        f"{time.perf_counter() - t0:.1f} s")
+    log("[armed] sampled dispatch->ready p50 (calls / samples): " + ", ".join(
+        f"{k} {d['p50_ms']:.3f} ms ({d['calls']}/{d['samples']})" for k, d in sorted(armed["kernels"].items())))
+    fr = armed["frame_ms"]
+    log("[armed] mesh frame dispatch->ready p50: " + ", ".join(
+        f"{k} {d['p50_ms']:.3f} ms (n={d['count']})" for k, d in sorted(fr.items())))
+    return armed
+
+
 def nvidia_smi() -> str:
     try:
         return subprocess.run(
@@ -3015,6 +3245,7 @@ def main() -> int:
     cluster = phase_cluster(torch, MEM_BYTES_PER_S)
     results.update(mesh["kernels"])
     results.update(cluster["kernels"])
+    phase_armed(s["tick_s"])
     for launches in (seg["launches"], zr["launches"], mesh["launches"], cluster["launches"]):
         for name, count in launches.items():
             path_launches[name] = path_launches.get(name, 0) + count
@@ -3055,4 +3286,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(armed_main() if sys.argv[1:] == ["--armed"] else main())

@@ -14,7 +14,14 @@ CPU (the tests) and launches its CUDA kernel, or raises, for tensors
 on the card.
 
 Ported so far:
-  utils/        iobuf, crc32c (host), vint, named types, native loader
+  utils/        iobuf, crc32c (host), vint, named types, native loader,
+                tasks, serde, locks, compileguard (nvcc builds as its
+                compile events)
+  metrics.py    the metrics registry (prefix "redpanda_tpu", as the
+                reference's, so a scraper sees the same names)
+  observability/ trace, load_ledger, health, fleet, flightdata, alerts
+                and the armed devplane (RP_DEVPLANE=1: dispatch->ready
+                probes on every kernel wrapper of the live path)
   compression/  codec registry with the device LZ4 / snappy / zstd legs
   models/       record/record_batch + consensus-state tensors (torch)
   ops/          quorum fold/commit/heartbeat and follower rules, health,
@@ -22,6 +29,7 @@ Ported so far:
   raft/         ShardGroupArrays + TickFrame (device and mesh legs)
   parallel/     the mesh frame and the RF=3 ring cluster step over chip
                 blocks on one card
+  entry.py      entry() and dryrun_multichip(n), as __graft_entry__.py
 """
 
 __version__ = "0.1.0"

@@ -149,7 +149,7 @@ def compress_zstd(data: bytes) -> bytes:
 
 def compress_many_zstd(buffers: "list[bytes]") -> "list[bytes]":
     """Batch-compress buffers into zstd frames whose entropy stage ran
-    as ONE lengths + emission launch over every chunk (ops/zstd.py);
+    as ONE `rp_zstd_encode` launch over every chunk (ops/zstd.py);
     block choice (raw vs RLE vs compressed) is byte-counting host work."""
     from . import zstd_frame as zf
     from ..ops.zstd import encode_chunks

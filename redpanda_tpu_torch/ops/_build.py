@@ -8,7 +8,9 @@ have a plain C interface: every pointer and the CUDA stream go over as
 each entry point returns `cudaGetLastError()` right after its launches
 (0 = ok) so a refused launch raises in the wrapper instead of passing
 silently. Builds go to a temporary name and are renamed into place,
-so concurrent builders never load a half-written library.
+so concurrent builders never load a half-written library. Every build
+is reported to utils/compileguard (`report_build`, with its seconds),
+the port's counterpart of an XLA compile event.
 
 Nothing here runs at import time: the CPU tests import every module on
 machines without nvcc.
@@ -22,6 +24,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from ..utils import compileguard
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -110,6 +114,8 @@ def build_all(names=SOURCES) -> dict[str, float]:
             w.join()
     if errors:
         raise KernelError("\n".join(errors))
+    for name, s in secs.items():
+        compileguard.report_build(name, s)
     return secs
 
 
@@ -122,7 +128,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             if _stale(name):
+                t0 = time.perf_counter()
                 _finish(name, *_start(name))
+                compileguard.report_build(name, time.perf_counter() - t0)
             lib = ctypes.CDLL(_paths(name)[1])
             lib.rp_error_string.restype = ctypes.c_char_p
             lib.rp_error_string.argtypes = [ctypes.c_int]

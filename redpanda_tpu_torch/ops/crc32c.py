@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..models.consensus_state import check_device
+from ..observability import devplane
 from ..utils.crc import _TABLE as _BYTE_TABLE
 from . import _build
 
@@ -251,3 +252,10 @@ def crc32c_batch_device(bufs: np.ndarray, lens: np.ndarray, device="cuda") -> np
         torch.from_numpy(bufs).to(dev), torch.from_numpy(lens).to(dev)
     )
     return out.cpu().numpy().astype(np.uint32)
+
+
+# ----------------------------------------------------- devplane probes
+# The names the live path looks up are bound to their devplane probes
+# (observability/devplane.py; each IS the function while RP_DEVPLANE is
+# unset).
+crc32c_device = devplane.probe(crc32c_device, "crc32c.device")

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from ..models.consensus_state import check_device
+from ..observability import devplane
 from . import _build, lz4, snappy, zstd
 from . import cellparse as cp
 from . import crc32c as crc_ops
@@ -73,8 +74,8 @@ LAUNCHES = {"fused_lz4": 0, "fused_snappy": 0, "fused_zstd": 0}
 # the codecs of the cluster kernel: each one's id in the C entries (CODEC_*
 # in csrc/fused.cu), its launch entry, its block's bound and its parse +
 # emission as separate launches (the plain sequence's second half)
-CODECS = {"lz4": (0, "rp_fused_lz4", lz4.out_bound, lz4._compress_chunks),
-          "snappy": (1, "rp_fused_snappy", snappy.out_bound, snappy._compress_chunks)}
+CODECS = {"lz4": (0, "rp_fused_lz4", lz4.out_bound, lz4._compress_chunks_raw),
+          "snappy": (1, "rp_fused_snappy", snappy.out_bound, snappy._compress_chunks_raw)}
 
 # csrc/fused.cu: threads a CTA, the cluster sizes it is built for, the CRC
 # operators a K
@@ -399,7 +400,7 @@ def _fused_zstd_sequence(data: torch.Tensor, body_len: torch.Tensor, n: int):
     the two launches `rp_fused_zstd` replaced (chip_smoke and
     chip_zstd_encode time them beside it)."""
     crc = crc32c_rows(data, body_len, PREFIX)
-    nbits, streams, bits = zstd._encode_chunks(data, body_len, n, PREFIX)
+    nbits, streams, bits = zstd._encode_chunks_raw(data, body_len, n, PREFIX)
     return crc, nbits, streams, bits
 
 
@@ -441,3 +442,13 @@ def crc_zstd_fused(prefixes: "list[bytes]", bodies: "list", device=None):
             continue
         frames.append(zf.frame_header(a.size) + zf.build_block(a.tobytes(), nb, sl, True))
     return crc, frames
+
+
+# ----------------------------------------------------- devplane probes
+# The names the live path looks up are bound to their devplane probes
+# (observability/devplane.py; each IS the function while RP_DEVPLANE is
+# unset). The sequences call the codecs' `*_raw` functions, so
+# one call counts once, under its own name.
+_fused = devplane.probe(_fused, "fused.crc_lz4")
+_fused_snappy = devplane.probe(_fused_snappy, "fused.crc_snappy")
+_fused_zstd = devplane.probe(_fused_zstd, "fused.crc_zstd")

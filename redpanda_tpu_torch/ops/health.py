@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..models.consensus_state import SELF_SLOT, GroupState
+from ..observability import devplane
 from . import _build
 from . import quorum as q
 
@@ -263,10 +264,10 @@ def tick_frame_health(
             state, (group_idx, replica_slot, last_dirty, last_flushed, seq), hb_idx,
             leader_known, active,
         )
-    state, hb = q.tick_frame(
+    state, hb = q.tick_frame_raw(
         state, group_idx, replica_slot, last_dirty, last_flushed, seq, hb_idx
     )
-    health = health_reduce(
+    health = health_reduce_raw(
         state.match_index,
         state.commit_index,
         state.is_voter,
@@ -276,3 +277,13 @@ def tick_frame_health(
         active,
     )
     return state, hb, health
+
+
+# ----------------------------------------------------- devplane probes
+# The names the live path looks up are bound to their devplane probes
+# (observability/devplane.py; each IS the function while RP_DEVPLANE is
+# unset). Composites call the `*_raw` functions, so one call counts
+# once, under its own name.
+health_reduce_raw = health_reduce
+health_reduce = devplane.probe(health_reduce_raw, "health.reduce")
+tick_frame_health = devplane.probe(tick_frame_health, "health.tick_frame")

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..models.consensus_state import check_device
+from ..observability import devplane
 from . import _build
 from . import cellparse as cp
 from .cellparse import CELL
@@ -209,3 +210,12 @@ def compress_chunks(chunks: "list[bytes | np.ndarray]", device=None) -> "list[by
     out, out_len = out.cpu().numpy(), out_len.cpu().numpy()
     assert int(out_len.max()) <= out_bound(n), "lz4 out_bound violated"
     return [out[i, : out_len[i]].tobytes() for i in range(len(chunks))]
+
+
+# ----------------------------------------------------- devplane probes
+# The names the live path looks up are bound to their devplane probes
+# (observability/devplane.py; each IS the function while RP_DEVPLANE is
+# unset). The fused sequence calls `_compress_chunks_raw`, so
+# one call counts once, under its own name.
+_compress_chunks_raw = _compress_chunks
+_compress_chunks = devplane.probe(_compress_chunks_raw, "lz4.compress_chunks")

@@ -59,6 +59,7 @@ import ctypes
 import torch
 
 from ..models.consensus_state import SELF_SLOT, GroupState
+from ..observability import devplane
 from . import _build
 
 I64_MIN = -(2**63)
@@ -464,8 +465,8 @@ def heartbeat_tick(
     """One leader tick: fold a reply batch, then advance commit indices
     for all groups — the complete 50k-partition sweep as one launch
     sequence on one stream."""
-    state = fold_replies(state, group_idx, replica_slot, last_dirty, last_flushed, seq)
-    return quorum_commit_step(state)
+    state = fold_replies_raw(state, group_idx, replica_slot, last_dirty, last_flushed, seq)
+    return quorum_commit_step_raw(state)
 
 
 def tick_frame(
@@ -488,9 +489,9 @@ def tick_frame(
             state, (group_idx, replica_slot, last_dirty, last_flushed, seq), hb_idx
         )
         return state, hb
-    state = fold_replies(state, group_idx, replica_slot, last_dirty, last_flushed, seq)
-    state = quorum_commit_step(state)
-    return state, build_heartbeats(state, hb_idx)
+    state = fold_replies_raw(state, group_idx, replica_slot, last_dirty, last_flushed, seq)
+    state = quorum_commit_step_raw(state)
+    return state, build_heartbeats_raw(state, hb_idx)
 
 
 def frame_grid(m: int, g: int, r: int, h: int, aligned: bool = True) -> tuple[int, int, int]:
@@ -616,7 +617,7 @@ def launch_mesh_frame(
         raise ValueError("launch_mesh_frame runs on CUDA tensors")
     for name, t in (("leader_known", leader_known), ("active", active)):
         check_tensor(t, torch.bool, (g,), dev, name)
-    fold_replies(state, *replies)  # checks the reply columns
+    fold_replies_raw(state, *replies)  # checks the reply columns
     health = _health_lanes(g, dev)
     if g == 0:
         return state, health, torch.zeros(N_TOTALS, dtype=torch.int64, device=dev)
@@ -635,3 +636,22 @@ def launch_mesh_frame(
     _build.check(lib, rc, "mesh_tick_frame")
     LAUNCHES["mesh_tick_frame"] += 1
     return state, health, totals
+
+
+# ----------------------------------------------------- devplane probes
+# The names the live path looks up are bound to their devplane probes
+# (observability/devplane.py; each IS the function while RP_DEVPLANE is
+# unset). Composites call the `*_raw` functions, so one call counts
+# once, under its own name.
+fold_replies_raw = fold_replies
+fold_replies = devplane.probe(fold_replies_raw, "quorum.fold_replies")
+quorum_commit_step_raw = quorum_commit_step
+quorum_commit_step = devplane.probe(quorum_commit_step_raw, "quorum.commit_step")
+build_heartbeats_raw = build_heartbeats
+build_heartbeats = devplane.probe(build_heartbeats_raw, "quorum.build_heartbeats")
+follower_commit_step = devplane.probe(follower_commit_step, "quorum.follower_commit_step")
+local_append_update = devplane.probe(local_append_update, "quorum.local_append_update")
+heartbeat_tick_raw = heartbeat_tick
+heartbeat_tick = devplane.probe(heartbeat_tick_raw, "quorum.heartbeat_tick")
+tick_frame_raw = tick_frame
+tick_frame = devplane.probe(tick_frame_raw, "quorum.tick_frame")

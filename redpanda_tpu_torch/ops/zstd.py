@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..models.consensus_state import check_device
+from ..observability import devplane
 from . import _build
 from .lz4 import as_arrays
 
@@ -509,3 +510,15 @@ def decode_streams(
     check_ends(end.cpu().numpy())
     out = out.cpu().numpy()
     return [out[i, : regens[i]].tobytes() for i in range(len(streams))]
+
+
+# ----------------------------------------------------- devplane probes
+# The names the live path looks up are bound to their devplane probes
+# (observability/devplane.py; each IS the function while RP_DEVPLANE is
+# unset). The fused sequence calls `_encode_chunks_raw`, so one
+# call counts once, under its own name. The decode's probe sits on
+# `decode_staged`, the launch both `decode_streams` (the live path) and
+# `_decode_streams` (the JAX signature) reach.
+_encode_chunks_raw = _encode_chunks
+_encode_chunks = devplane.probe(_encode_chunks_raw, "zstd.encode_chunks")
+decode_staged = devplane.probe(decode_staged, "zstd.decode_streams")

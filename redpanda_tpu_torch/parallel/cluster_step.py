@@ -41,6 +41,7 @@ import dataclasses
 import torch
 
 from ..models.consensus_state import GroupState, make_group_state
+from ..observability import devplane
 from ..ops import _build
 from ..ops import quorum as q
 from .mesh import Mesh
@@ -363,22 +364,24 @@ def _cluster_specs(mesh: Mesh) -> int:
 
 def cluster_tick_sharded(mesh: Mesh):
     """The cluster step bound to `mesh`: (state, new_dirty) ->
-    (state, total_committed, total_installs)."""
+    (state, total_committed, total_installs), through its devplane
+    probe "cluster.tick"."""
     n = _cluster_specs(mesh)
 
     def tick(state: ClusterState, new_dirty: torch.Tensor):
         return cluster_tick(state, new_dirty, n)
 
-    return tick
+    return devplane.probe(tick, "cluster.tick")
 
 
 def election_round_sharded(mesh: Mesh, candidate_hop: int = 1):
     """The election bound to `mesh` and `candidate_hop`: (state, mask)
-    -> (state, elected, terms)."""
+    -> (state, elected, terms), through its devplane probe
+    "cluster.election_round"."""
     _check_hop(candidate_hop)
     n = _cluster_specs(mesh)
 
     def elect(state: ClusterState, candidate_mask: torch.Tensor):
         return election_round(state, candidate_mask, candidate_hop, n)
 
-    return elect
+    return devplane.probe(elect, "cluster.election_round")

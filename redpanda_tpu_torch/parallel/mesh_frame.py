@@ -91,7 +91,7 @@ def mesh_tick_frame(
         )
         return state, health, _totals(totals, health_ops.TOTALS)
     before = state.commit_index.clone()
-    state = q.heartbeat_tick(state, group_idx, replica_slot, last_dirty, last_flushed, seq)
+    state = q.heartbeat_tick_raw(state, group_idx, replica_slot, last_dirty, last_flushed, seq)
     health, totals = health_ops.health_totals(
         state.match_index,
         state.commit_index,
@@ -131,12 +131,16 @@ class MeshFrame:
     plane writes are numpy), so each full frame places fresh — the
     steady path never reaches the card at all (incremental chip-local
     sweep, see shard_state._mesh_tick). `device` is the shard's device;
-    a CUDA device raises here on a machine without one."""
+    a CUDA device raises here on a machine without one. The frame and
+    health programs are bound through their devplane probes, as the
+    reference binds its compiled programs."""
 
     def __init__(self, n_devices: int | None = None, device="cuda"):
         n = n_devices if n_devices is not None else mesh_device_count()
         self.mesh = make_mesh(n, device)
         self.n_devices = self.mesh.n_devices
+        self._frame = devplane.probe(mesh_tick_frame, "mesh_frame.tick_frame")
+        self._health = devplane.probe(mesh_health, "mesh_frame.health")
 
     def _place(self, a: np.ndarray) -> torch.Tensor:
         """Pad the row axis to a multiple of the block count with neutral
@@ -194,7 +198,7 @@ class MeshFrame:
             known = self._place(arrays.leader_id >= 0)
             active = self._place(arrays.row_active)
             e1 = arrays._stamp()
-            new, health, totals = mesh_tick_frame(
+            new, health, totals = self._frame(
                 state, *replies, known, active, self.n_devices
             )
             e2 = arrays._stamp()
@@ -211,7 +215,8 @@ class MeshFrame:
             if devplane.ENABLED:
                 devplane.count_transfer(
                     sum(a.nbytes for a in out.values())
-                    + sum(a.nbytes for a in health_np.values()),
+                    + sum(a.nbytes for a in health_np.values())
+                    + 8 * len(totals),  # each total read back as one i64
                     "d2h",
                 )
         return out, health_np, totals
@@ -223,7 +228,7 @@ class MeshFrame:
             if devplane.ENABLED:
                 # same one-cross-chip-fold discipline as the tick frame
                 devplane.count_fold()
-            health, totals = mesh_health(
+            health, totals = self._health(
                 self._place(arrays.match_index),
                 self._place(arrays.commit_index),
                 self._place(arrays.is_voter),
@@ -234,6 +239,9 @@ class MeshFrame:
                 self.n_devices,
             )
             health_np = {k: v[:cap].cpu().numpy() for k, v in health.items()}
+            totals = {k: int(v) for k, v in totals.items()}
             if devplane.ENABLED:
-                devplane.count_transfer(sum(a.nbytes for a in health_np.values()), "d2h")
-        return health_np, {k: int(v) for k, v in totals.items()}
+                devplane.count_transfer(
+                    sum(a.nbytes for a in health_np.values()) + 8 * len(totals), "d2h"
+                )
+        return health_np, totals

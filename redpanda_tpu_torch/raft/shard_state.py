@@ -682,8 +682,10 @@ class ShardGroupArrays:
         sweep — chip-local BY CONSTRUCTION, since every changed row
         lives in exactly one chip block and the fold never mixes rows —
         while big/forced windows run the real mesh frame (one launch
-        sequence, one cross-chip totals fold). The devplane tick scope
-        is the off-state no-op (ROADMAP queue 1 step 10)."""
+        sequence, one cross-chip totals fold). The tick runs inside the
+        devplane's tick scope: with RP_DEVPLANE=1 any kernel dispatch or
+        transfer here outside the frame's own scope counts as a breach
+        (devplane_tick_transfers_total)."""
         from ..observability import devplane
 
         full = (

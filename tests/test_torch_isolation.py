@@ -44,9 +44,29 @@ def _forbidden(name: str) -> bool:
     return root in ("jax", "jaxlib", "redpanda_tpu")
 
 
+# modules every later check must reach (the device-plane telemetry and
+# the host modules it stands on)
+REQUIRED = (
+    "redpanda_tpu_torch.entry",
+    "redpanda_tpu_torch.metrics",
+    "redpanda_tpu_torch.utils.tasks",
+    "redpanda_tpu_torch.utils.serde",
+    "redpanda_tpu_torch.utils.locks",
+    "redpanda_tpu_torch.utils.compileguard",
+    "redpanda_tpu_torch.observability.trace",
+    "redpanda_tpu_torch.observability.load_ledger",
+    "redpanda_tpu_torch.observability.health",
+    "redpanda_tpu_torch.observability.fleet",
+    "redpanda_tpu_torch.observability.flightdata",
+    "redpanda_tpu_torch.observability.alerts",
+    "redpanda_tpu_torch.observability.devplane",
+)
+
+
 def test_every_module_imports_without_jax_or_reference():
     names = _modules()
     assert len(names) > 20
+    assert set(REQUIRED) <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"

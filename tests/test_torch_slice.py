@@ -94,3 +94,38 @@ def test_batch_crcs_match_jax(monkeypatch, seed):
     np.testing.assert_array_equal(got, [b.header.crc & 0xFFFFFFFF for b in tb])
     monkeypatch.setenv("RP_CRC_BACKEND", "host")
     np.testing.assert_array_equal(trecord.batch_crcs(tb), want)
+
+
+_ARMED = """\
+import json, sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+from redpanda_tpu_torch.ops import fused
+fused.DEFAULT_DEVICE = "cpu"
+out = chip_smoke.armed_run("cpu", 256, 10, 2048, 8, 4)
+print(json.dumps(out["kernels"]))
+"""
+
+
+@pytest.mark.parametrize("sample", ["16", "1"])
+def test_armed_run_checks_pass_on_cpu(tmp_path, sample):
+    """chip_smoke's armed phase at a small size on the CPU: every check
+    (sampled counts per probe, one fold a frame, no tick breach, the
+    mesh frames' transfer bytes, entry() against its plain chain, the
+    snapshot round trip) passes through the plain versions."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "armed.py"
+    script.write_text(_ARMED.format(repo=repo))
+    env = dict(os.environ, RP_DEVPLANE="1", RP_DEVPLANE_SAMPLE=sample)
+    run = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                         env=env, cwd=repo, timeout=600)
+    assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-4000:]
+    kernels = json.loads(run.stdout.strip().splitlines()[-1])
+    assert set(chip_smoke.ARMED_PATH) <= set(kernels)
+    if sample == "1":
+        assert all(d["samples"] == d["calls"] for d in kernels.values())
