@@ -127,11 +127,30 @@ Phases, each raising on any mismatch:
      outside a frame, the transfer bytes equal to what the mesh frames
      must move, and merged_status of an encoded snapshot equal to
      status(); it prints the armed tick p50 / p99 beside phase 3's and
-     each probe's sampled dispatch->ready p50.
+     each probe's sampled dispatch->ready p50;
+  12. the port's Raft layer live through its entry points: three
+     raft.GroupManagers on the card (device="cuda", the default quorum
+     backend) over rpc.LoopbackNetwork, 5,000 groups at RF=3 with node 0
+     forced leader (bench.py:133 _live_tick_async at BENCH_LIVE_GROUPS'
+     default), ticks driven by hand (3,600 s timeouts); after catch-up,
+     20 rounds of one acks=-1 batch (16 x 1 KiB records) on a seeded
+     500 groups, every ack awaited, then one heartbeat tick on node 0;
+     20 idle ticks and one health_report. Every device_tick of node 0
+     (a frame flush: fold_replies + quorum_commit_step) is held against
+     the numpy host leg on a copy of the lanes taken just before it
+     (advanced rows and the five lanes, exact); the same scenario under
+     RP_QUORUM_BACKEND=host must end equal (every ack's offsets, commit
+     / visible / term of every group on every node, node 0's match and
+     flushed rows, the records read back from both followers, which
+     must also be those sent, and health_report); prints setup and
+     catch-up seconds, round and tick p50 / p99, the launches at warm-up
+     (prewarm's tick_frame_health) and around the traffic, and
+     tick_frame.flushes.
 The launch counters are zeroed just before each main-path phase (3, 4,
-6, 8, 8b, 9 and 10) and read just after; every kernel must have
-launched there, except those in OFF_PATH (follower_commit_step,
-local_append_update, build_heartbeats, fused_snappy, fused_zstd).
+6, 8, 8b, 9, 10 and 12's traffic) and read just after; every kernel
+must have launched there, except those in OFF_PATH
+(follower_commit_step, local_append_update, build_heartbeats,
+fused_snappy, fused_zstd).
 
 Output: progress lines, the card line, one JSON line of per-kernel
 numbers, and last `{"ok": true, "device": {...}}`. Without a CUDA card
@@ -143,6 +162,7 @@ tests/test_torch_slice.py on the CPU (device="cpu").
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import json
 import os
@@ -3167,6 +3187,372 @@ def phase_armed(off_tick_s) -> dict:
     return armed
 
 
+# ------------------------------------------------------- live raft layer
+# bench.py:133 _live_tick_async at BENCH_LIVE_GROUPS' default (bench.py:327):
+# 5,000 groups, here at RF=3 on three GroupManagers over loopback, node 0
+# forced leader of all of them; each round one acks=-1 batch of 16 x 1 KiB
+# records (PERF.md §4's batch, Kafka's batch.size) on a seeded tenth of the
+# groups, then one heartbeat tick on node 0
+LIVE_GROUPS, LIVE_ROUNDS, LIVE_PER_ROUND, LIVE_NODES = 5_000, 20, 500, 3
+LIVE_STEADY_TICKS = 20
+# the kernels the live layer must launch between its traffic and its
+# health report (a frame flush without heartbeat rows: fold + commit; the
+# report: health_reduce); the frame kernel (tick_frame_health) runs only
+# in prewarm
+LIVE_PATH = ("fold_replies", "quorum_commit_step", "health_reduce")
+
+
+def port_raft():
+    """The port's Raft entry points, as LiveRaft takes them."""
+    from types import SimpleNamespace
+
+    from redpanda_tpu_torch.models.record import RecordBatchBuilder, RecordBatchType
+    from redpanda_tpu_torch.raft.group_manager import GroupManager
+    from redpanda_tpu_torch.rpc.loopback import LoopbackNetwork, LoopbackTransport
+
+    return SimpleNamespace(GroupManager=GroupManager, LoopbackNetwork=LoopbackNetwork,
+                           LoopbackTransport=LoopbackTransport, RecordBatchBuilder=RecordBatchBuilder,
+                           RecordBatchType=RecordBatchType)
+
+
+def shadow_arrays(arrays):
+    """A copy of a ShardGroupArrays whose lanes are its own: the numpy
+    host leg can step it without touching the original."""
+    import copy
+
+    shadow = copy.copy(arrays)
+    for k, v in vars(arrays).items():
+        if isinstance(v, np.ndarray):
+            setattr(shadow, k, v.copy())
+    return shadow
+
+
+def hold_device_ticks(arrays) -> dict:
+    """Hold every device_tick call on `arrays` against the numpy host
+    leg (host_tick) run on a copy of the lanes taken just before the
+    call: the advanced rows and LANES must be equal, exact. A call that
+    differs raises, and since a frame flush runs in an event-loop
+    callback, where asyncio only logs what it raises, the error is also
+    kept: check_held raises the first. Returns {"calls": the reply
+    count of each held call, "errors": the mismatches}."""
+    held = {"calls": [], "errors": []}
+    device_tick = arrays.device_tick
+
+    def checked(*args, **kwargs):
+        shadow = shadow_arrays(arrays)
+        got = device_tick(*args, **kwargs)
+        want = shadow.host_tick(*args, **kwargs)
+        n = len(held["calls"])
+        held["calls"].append(len(args[0]))
+        try:
+            assert_equal(np.sort(got), np.sort(want), f"device_tick call {n}: advanced rows")
+            for lane in LANES:
+                assert_equal(getattr(arrays, lane), getattr(shadow, lane), f"device_tick call {n}: {lane}")
+        except AssertionError as e:
+            held["errors"].append(e)
+            raise
+        return got
+
+    arrays.device_tick = checked
+    return held
+
+
+def check_held(held: dict) -> None:
+    if held["errors"]:
+        raise held["errors"][0]
+    if not held["calls"]:
+        raise AssertionError("no device_tick call was held")
+
+
+class LiveRaft:
+    """Three GroupManagers of one package (`pkg`: its GroupManager,
+    LoopbackNetwork, LoopbackTransport, RecordBatchBuilder and
+    RecordBatchType) over loopback, ticks driven by hand (3,600 s
+    timeouts, as bench.py's live tick), `groups` raft groups of the
+    three voters with node 0 forced leader of all of them."""
+
+    def __init__(self, pkg, data_dir: str, groups: int, **gm_kw):
+        self.pkg, self.data_dir, self.groups, self.gm_kw = pkg, data_dir, groups, gm_kw
+        self.gms: list = []
+        self.net = None
+
+    def _sender(self, src):
+        async def send(dst, method_id, payload, timeout):
+            return await self.pkg.LoopbackTransport(self.net, src, dst).call(method_id, payload, timeout)
+
+        return send
+
+    async def start(self, hold=None) -> None:
+        """Start the nodes and create every group on each; `hold(gm)`
+        runs on node 0 before its start (its prewarm included)."""
+        self.net = self.pkg.LoopbackNetwork()
+        for nid in range(LIVE_NODES):
+            gm = self.pkg.GroupManager(
+                node_id=nid, data_dir=os.path.join(self.data_dir, f"node_{nid}"), send=self._sender(nid),
+                election_timeout_s=3600.0, heartbeat_interval_s=3600.0, **self.gm_kw,
+            )
+            if nid == 0 and hold is not None:
+                hold(gm)
+            self.net.register(nid, gm.service)
+            self.gms.append(gm)
+            await gm.start()
+        voters = list(range(LIVE_NODES))
+        for gid in range(1, self.groups + 1):
+            for gm in self.gms:
+                await gm.create_group(gid, voters)
+
+    def leader(self, gid: int):
+        return self.gms[0].get(gid)
+
+    async def lead(self, terms=0) -> float:
+        """Force node 0 leader of every group, then tick until every
+        leader's commit_index >= term_start. A fresh group leads at
+        `terms` (one int, or one a group; 0 as bench.py:168-175), a
+        restarted one (terms=None) at its recovered term. Returns the
+        catch-up seconds."""
+        leaders = []
+        if terms is not None:
+            terms = np.broadcast_to(terms, self.groups)
+        for gid in range(1, self.groups + 1):
+            c = self.leader(gid)
+            if terms is not None:
+                c.arrays.term[c.row] = int(terms[gid - 1])
+            c._become_leader()
+            leaders.append(c)
+        hb = self.gms[0].heartbeat_manager
+        t0 = time.perf_counter()
+        # each follower's catch-up append is fsync-bound: 37-41 s at 5,000
+        # groups on the disk of an H100 host (PERF.md §5)
+        deadline = time.monotonic() + max(120.0, self.groups / 25.0)
+        pending = leaders
+        while True:
+            while pending and pending[-1].commit_index >= pending[-1].term_start:
+                pending.pop()
+            if not pending:
+                return time.perf_counter() - t0
+            await hb.tick()
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"followers never caught up ({len(pending)} groups behind)")
+            await asyncio.sleep(0)
+
+    async def traffic(self, rounds: int, per_round: int, seed: int) -> dict:
+        """`rounds` rounds: one acks=-1 batch of RECORDS x RECORD_BYTES
+        records on `per_round` seeded groups, every ack awaited, then one
+        heartbeat tick on node 0. Returns the acks [(group, base,
+        last)], the blake2b digest of the records each group was sent
+        (offset, key, value) and the round and tick seconds."""
+        import hashlib
+
+        pkg, rng = self.pkg, np.random.default_rng(seed)
+        hb = self.gms[0].heartbeat_manager
+        sent = {gid: hashlib.blake2b() for gid in range(1, self.groups + 1)}
+        acks, round_s, tick_s = [], [], []
+        for k in range(rounds):
+            picks = [int(g) + 1 for g in rng.choice(self.groups, per_round, replace=False)]
+            blobs = [rng.bytes(RECORDS * RECORD_BYTES) for _ in picks]
+            builders = []
+            for gid, blob in zip(picks, blobs):
+                b = pkg.RecordBatchBuilder(pkg.RecordBatchType.raft_data, timestamp_ms=1_700_000_000_000 + k)
+                for i in range(RECORDS):
+                    b.add(value=blob[i * RECORD_BYTES:(i + 1) * RECORD_BYTES], key=b"k%d" % i)
+                builders.append(b)
+            t0 = time.perf_counter()
+            got = await asyncio.gather(*(self.leader(gid).replicate(b, acks=-1) for gid, b in zip(picks, builders)))
+            t1 = time.perf_counter()
+            await hb.tick()
+            t2 = time.perf_counter()
+            round_s.append(t2 - t0)
+            tick_s.append(t2 - t1)
+            for gid, blob, (base, last) in zip(picks, blobs, got):
+                if last - base + 1 != RECORDS:
+                    raise AssertionError(f"g{gid}: ack ({base}, {last}) does not cover {RECORDS} records")
+                for i in range(RECORDS):
+                    record_digest(sent[gid], base + i, b"k%d" % i, blob[i * RECORD_BYTES:(i + 1) * RECORD_BYTES])
+                acks.append((gid, int(base), int(last)))
+        return {"acks": acks, "sent": {g: d.hexdigest() for g, d in sent.items()},
+                "round_s": round_s, "tick_s": tick_s}
+
+    async def steady(self, ticks: int) -> list:
+        """`ticks` heartbeat ticks on node 0 with no traffic; seconds each."""
+        hb, out = self.gms[0].heartbeat_manager, []
+        for _ in range(ticks):
+            t0 = time.perf_counter()
+            await hb.tick()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    def state(self) -> dict:
+        """Per node and group: commit_index, last_visible, term; node
+        0's match_index and flushed_index rows."""
+        out = {}
+        for nid, gm in enumerate(self.gms):
+            cs = [gm.get(gid) for gid in range(1, self.groups + 1)]
+            out[f"commit_index@{nid}"] = np.array([c.commit_index for c in cs], np.int64)
+            out[f"last_visible@{nid}"] = np.array([c.last_visible_index for c in cs], np.int64)
+            out[f"term@{nid}"] = np.array([c.term for c in cs], np.int64)
+        a, rows = self.gms[0].arrays, [self.leader(gid).row for gid in range(1, self.groups + 1)]
+        out["match_index@0"] = a.match_index[rows].copy()
+        out["flushed_index@0"] = a.flushed_index[rows].copy()
+        return out
+
+    def records(self, nodes) -> dict:
+        """The blake2b digest of the data records each group's log holds
+        on each of `nodes` (offset, key, value), and each batch's
+        (base, last, term, type) on node nodes[0]."""
+        import hashlib
+
+        out = {}
+        for nid in nodes:
+            for gid in range(1, self.groups + 1):
+                log_ = self.gms[nid].get(gid).log
+                d, batches = hashlib.blake2b(), []
+                for batch in log_.read(0, max_bytes=1 << 62):
+                    h = batch.header
+                    batches.append((int(h.base_offset), int(h.last_offset), int(h.term), int(h.type)))
+                    if h.type != self.pkg.RecordBatchType.raft_data:
+                        continue
+                    for r in batch.records():
+                        record_digest(d, h.base_offset + r.offset_delta, r.key, r.value)
+                out[(nid, gid)] = d.hexdigest()
+                if nid == nodes[0]:
+                    out[("batches", gid)] = batches
+        return out
+
+    async def stop(self) -> None:
+        for gm in self.gms:
+            await gm.stop()
+        self.gms = []
+
+
+def record_digest(d, offset: int, key: bytes, value: bytes) -> None:
+    d.update(int(offset).to_bytes(8, "little", signed=True))
+    d.update(len(key).to_bytes(4, "little") + key + len(value).to_bytes(4, "little") + value)
+
+
+def check_records(got: dict, sent: dict, nodes, groups: int) -> None:
+    """Every node in `nodes` holds exactly the records each group was sent."""
+    bad = [(nid, gid) for nid in nodes for gid in range(1, groups + 1) if got[(nid, gid)] != sent[gid]]
+    if bad:
+        raise AssertionError(f"records read back differ from those sent at (node, group) {bad[:5]}")
+
+
+async def live_scenario(pkg, data_dir: str, groups: int, rounds: int, per_round: int, seed: int,
+                        steady: int = 0, hold=None, on_traffic=None, terms=0, **gm_kw) -> dict:
+    """The live Raft layer end to end: start, lead, `rounds` rounds of
+    traffic, `steady` idle ticks, one health_report on node 0, the end
+    state and the records read back from both followers (checked
+    against those sent). Node 0 leads at `terms` (LiveRaft.lead).
+    `on_traffic(phase)` is called with "start" just before the traffic
+    and "end" just after the health report."""
+    live = LiveRaft(pkg, data_dir, groups, **gm_kw)
+    t0 = time.perf_counter()
+    await live.start(hold)
+    setup_s = time.perf_counter() - t0
+    catchup_s = await live.lead(terms)
+    if on_traffic:
+        on_traffic("start")
+    out = await live.traffic(rounds, per_round, seed)
+    out["steady_s"] = await live.steady(steady)
+    out["health"] = live.gms[0].health_report()
+    if on_traffic:
+        on_traffic("end")
+    out["state"] = live.state()
+    followers = list(range(1, LIVE_NODES))
+    out["records"] = live.records(followers)
+    check_records(out["records"], out["sent"], followers, groups)
+    out["flushes"] = live.gms[0].tick_frame.flushes
+    out["setup_s"], out["catchup_s"] = setup_s, catchup_s
+    await live.stop()
+    return out
+
+
+def health_totals(report: dict) -> dict:
+    return {k: report[k] for k in ("max_follower_lag", "under_replicated", "leaderless", "active")}
+
+
+def same_live(a: dict, b: dict, what: str) -> None:
+    """Two runs of live_scenario ended in the same state: acks, every
+    lane of `state`, the records read back and health_report."""
+    if a["acks"] != b["acks"]:
+        raise AssertionError(f"{what}: acks differ")
+    for k in a["state"]:
+        assert_equal(a["state"][k], b["state"][k], f"{what}: {k}")
+    if a["records"] != b["records"]:
+        raise AssertionError(f"{what}: records read back differ")
+    if a["health"] != b["health"]:
+        raise AssertionError(f"{what}: health_report {a['health']} != {b['health']}")
+
+
+def run_live_raft(device: str, groups: int = LIVE_GROUPS, rounds: int = LIVE_ROUNDS,
+                  per_round: int = LIVE_PER_ROUND, steady: int = LIVE_STEADY_TICKS, seed: int = SEED + 12) -> dict:
+    """Phase 12's runs: the port's live Raft layer on `device` with the
+    default quorum backend, every device_tick of node 0 held against the
+    host leg and the launches counted around the traffic; then the same
+    scenario under RP_QUORUM_BACKEND=host, whose end state must be
+    equal. Returns the device run with its launches and held calls."""
+    import shutil
+    import tempfile
+
+    pkg = port_raft()
+    held: list = []
+    launches: dict = {}
+
+    def hold(gm):
+        held.append(hold_device_ticks(gm.arrays))
+
+    def count(phase):
+        if phase == "start":
+            launches["warm"] = {k: KERNELS[k][2][k] for k in ("tick_frame",) + LIVE_PATH}
+            reset_launches()
+        else:
+            launches["path"] = {k: KERNELS[k][2][k] for k in LIVE_PATH + ("tick_frame",)}
+
+    env = {k: os.environ.pop(k) for k in ("RP_QUORUM_BACKEND",) if k in os.environ}
+    tmp = tempfile.mkdtemp(prefix="rp_live_")
+    try:
+        reset_launches()
+        dev = asyncio.run(live_scenario(pkg, os.path.join(tmp, "device"), groups, rounds, per_round, seed,
+                                        steady, hold=hold, on_traffic=count, device=device))
+        with quorum_backend("host"):
+            host = asyncio.run(live_scenario(pkg, os.path.join(tmp, "host"), groups, rounds, per_round, seed,
+                                             steady, device=device))
+    finally:
+        os.environ.update(env)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_held(held[0])
+    same_live(dev, host, "device leg vs host leg")
+    dev["launches"], dev["held"], dev["host"] = launches, held[0]["calls"], host
+    return dev
+
+
+def phase_live_raft() -> dict:
+    """Phase 12: the port's Raft layer live on the card (run_live_raft
+    at LIVE_GROUPS), its numbers logged."""
+    t0 = time.perf_counter()
+    r = run_live_raft("cuda")
+    h = r["host"]
+    idle = [k for k in LIVE_PATH if r["launches"]["path"][k] <= 0]
+    if idle:
+        raise AssertionError(f"the live Raft layer never launched {idle}: {r['launches']['path']}")
+    log(f"[raft] {LIVE_GROUPS} groups at RF={LIVE_NODES} on three GroupManagers (cuda, default backend): "
+        f"setup {r['setup_s']:.3f} s, catch-up {r['catchup_s']:.3f} s; {LIVE_ROUNDS} rounds of {LIVE_PER_ROUND} "
+        f"acks=-1 batches ({RECORDS} x {RECORD_BYTES} B): round p50 {pct(r['round_s'], 50) * 1e3:.3f} ms "
+        f"p99 {pct(r['round_s'], 99) * 1e3:.3f} ms, the round's tick p50 {pct(r['tick_s'], 50) * 1e3:.3f} ms "
+        f"p99 {pct(r['tick_s'], 99) * 1e3:.3f} ms; steady tick ({LIVE_STEADY_TICKS}) p50 "
+        f"{pct(r['steady_s'], 50) * 1e3:.3f} ms p99 {pct(r['steady_s'], 99) * 1e3:.3f} ms; "
+        f"tick_frame.flushes {r['flushes']}")
+    log(f"[raft] host leg (RP_QUORUM_BACKEND=host): setup {h['setup_s']:.3f} s, catch-up {h['catchup_s']:.3f} s, "
+        f"round p50 {pct(h['round_s'], 50) * 1e3:.3f} ms p99 {pct(h['round_s'], 99) * 1e3:.3f} ms, steady tick "
+        f"p50 {pct(h['steady_s'], 50) * 1e3:.3f} ms p99 {pct(h['steady_s'], 99) * 1e3:.3f} ms, "
+        f"tick_frame.flushes {h['flushes']}")
+    log(f"[raft] {len(r['held'])} device_tick calls of node 0 ({sum(r['held'])} replies) each equal to the host "
+        f"leg, exact; end state equal to the host leg's ({len(r['acks'])} acks, commit / visible / term on 3 "
+        f"nodes, node 0's match / flushed, records on both followers, health_report {health_totals(r['health'])}); "
+        f"launches at warm-up {r['launches']['warm']}, around the traffic {r['launches']['path']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return r
+
+
 def nvidia_smi() -> str:
     try:
         return subprocess.run(
@@ -3246,7 +3632,9 @@ def main() -> int:
     results.update(mesh["kernels"])
     results.update(cluster["kernels"])
     phase_armed(s["tick_s"])
-    for launches in (seg["launches"], zr["launches"], mesh["launches"], cluster["launches"]):
+    live = phase_live_raft()
+    for launches in (seg["launches"], zr["launches"], mesh["launches"], cluster["launches"],
+                     live["launches"]["path"]):
         for name, count in launches.items():
             path_launches[name] = path_launches.get(name, 0) + count
     missing = [k for k in KERNELS if k not in OFF_PATH and path_launches.get(k, 0) <= 0]
@@ -3254,7 +3642,7 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     log(f"[launches] main path (batch CRCs: crc32c_device {rb['launches']}; codec path: {rc['launches']}; "
         f"segment path: {seg['launches']}; zstd batches: {zr['launches']}; mesh: {mesh['launches']}; "
-        f"cluster: {cluster['launches']}; no main-path caller: {', '.join(OFF_PATH)}): {path_launches}")
+        f"cluster: {cluster['launches']}; live raft: {live['launches']['path']}; no main-path caller: {', '.join(OFF_PATH)}): {path_launches}")
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():

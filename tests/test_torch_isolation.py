@@ -45,8 +45,20 @@ def _forbidden(name: str) -> bool:
 
 
 # modules every later check must reach (the device-plane telemetry and
-# the host modules it stands on)
-REQUIRED = (
+# the host modules it stands on; the Raft layer: storage, rpc, the
+# consensus, heartbeat and group managers and the utils they import)
+RAFT_LAYER = (
+    *(f"redpanda_tpu_torch.utils.{m}" for m in ("rpsan", "spans", "hbadger", "retry_chain", "token_bucket")),
+    *(f"redpanda_tpu_torch.storage{m}" for m in (
+        "", ".dirsync", ".iofaults", ".file_sanitizer", ".flush_coalescer", ".probe", ".snapshot", ".kvstore",
+        ".batch_cache", ".segment", ".compaction", ".log", ".log_manager")),
+    *(f"redpanda_tpu_torch.rpc{m}" for m in (
+        "", ".types", ".tracectx", ".transport", ".connection_cache", ".server", ".loopback")),
+    *(f"redpanda_tpu_torch.raft.{m}" for m in (
+        "types", "configuration", "snapshot", "probe", "offset_translator", "recovery", "state_machine",
+        "append_aggregator", "consensus", "replicate_batcher", "heartbeat_manager", "service", "group_manager")),
+)
+REQUIRED = RAFT_LAYER + (
     "redpanda_tpu_torch.entry",
     "redpanda_tpu_torch.metrics",
     "redpanda_tpu_torch.utils.tasks",
@@ -115,6 +127,33 @@ def test_default_device_tick_raises_without_cuda(monkeypatch):
         arrays.device_tick(empty, empty, empty, empty, empty)
     with pytest.raises(RuntimeError, match="CUDA"):
         arrays.health_refresh()
+
+
+def test_group_manager_on_cuda_raises_without_cuda(monkeypatch, tmp_path):
+    """A GroupManager on the default device (the card) raises at its
+    first device call, the prewarm tick in start(), instead of running
+    the plain versions on the CPU; so do a tick and a health report."""
+    _require_no_cuda()
+    import asyncio
+
+    from redpanda_tpu_torch.raft import GroupManager
+
+    async def no_send(dst, method_id, payload, timeout):
+        raise RuntimeError("single node: no peers")
+
+    monkeypatch.delenv("RP_QUORUM_BACKEND", raising=False)
+    gm = GroupManager(node_id=1, data_dir=str(tmp_path / "n1"), send=no_send)
+    try:
+        assert gm.arrays.device == "cuda" and gm.arrays._backend() == "device"
+        with pytest.raises(RuntimeError, match="CUDA"):
+            asyncio.run(gm.start())
+        empty = np.empty(0, np.int64)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            gm.arrays.device_tick(empty, empty, empty, empty, empty)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            gm.health_report()
+    finally:
+        gm.kvstore.close()
 
 
 def test_default_crc_device_raises_without_cuda(monkeypatch):

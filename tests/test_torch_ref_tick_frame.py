@@ -1,8 +1,10 @@
-"""tests/test_tick_frame.py's `TestDifferential` and `TestTickFrame`
-run on the port: the batched tick frame's commit decision against
-quorum_scalar (>= 10k randomized rows), host vs device frame parity,
-and the TickFrame mechanics (enqueue, loop-soon flush, fold merging,
-freed-row masking, column growth, close).
+"""tests/test_tick_frame.py's `TestDifferential`, `TestTickFrame`,
+`TestLiveIntegration` and `TestAppendAggregatorFrameCap` run on the
+port: the batched tick frame's commit decision against quorum_scalar
+(>= 10k randomized rows), host vs device frame parity, the TickFrame
+mechanics (enqueue, loop-soon flush, fold merging, freed-row masking,
+column growth, close), an acks=-1 replicate resolved through the frame
+of a live `GroupManager`, and the append aggregator's frame cap.
 
 The reference cases are copied with their imports pointed at
 redpanda_tpu_torch. `ShardGroupArrays` is the port's on the CPU
@@ -14,9 +16,9 @@ Left out:
   (`heartbeat_tick_jit._cache_size`); the port compiles nothing at run
   time (each CUDA library is built once by nvcc), so there is no cache
   to hold to it.
-* `TestLiveIntegration` and `TestAppendAggregatorFrameCap` — they need
-  `raft.group_manager` / `raft.append_aggregator`, which wait for
-  ROADMAP queue 1 step 4.
+
+The live case builds its `GroupManager` on the CPU and runs the
+port's default quorum backend, the device leg.
 """
 
 import asyncio
@@ -344,3 +346,126 @@ class TestTickFrame:
         frame.close()
         assert frame.pending == 0
         assert frame.flush() is not None  # no-op, no raise
+
+
+class TestLiveIntegration:
+    @pytest.fixture(autouse=True)
+    def _default_leg(self, monkeypatch):
+        # the live case runs the port's default quorum backend, the
+        # device leg (the kernels' plain versions on the CPU)
+        monkeypatch.delenv("RP_QUORUM_BACKEND", raising=False)
+
+    def test_single_node_quorum_resolves_through_frame(self, tmp_path):
+        """GroupManager wiring end-to-end: acks=-1 replicate resolves
+        via the tick frame (deferred quorum), not the scalar path."""
+        from redpanda_tpu_torch.raft.group_manager import GroupManager
+
+        async def main():
+            async def no_send(dst, method_id, payload, timeout):
+                raise RuntimeError("single node: no peers")
+
+            gm = GroupManager(
+                node_id=1,
+                data_dir=str(tmp_path / "n1"),
+                send=no_send,
+                election_timeout_s=0.1,
+                heartbeat_interval_s=0.02,
+                device="cpu",
+            )
+            await gm.start()
+            c = await gm.create_group(1, [1])
+            deadline = asyncio.get_event_loop().time() + 5.0
+            while c.role.name != "LEADER":
+                if asyncio.get_event_loop().time() > deadline:
+                    raise TimeoutError("no leader")
+                await asyncio.sleep(0.02)
+            from redpanda_tpu_torch.models.record import (
+                RecordBatchBuilder,
+                RecordBatchType,
+            )
+
+            b = RecordBatchBuilder(batch_type=RecordBatchType.raft_data)
+            b.add(value=b"v", key=b"k")
+            base, last = await c.replicate(b, acks=-1)
+            assert c.commit_index >= last
+            assert gm.tick_frame.flushes > 0
+            await gm.stop()
+
+        run(main())
+
+
+class TestAppendAggregatorFrameCap:
+    """A mass catch-up herd must drain as bounded frames, not one
+    jumbo APPEND_ENTRIES_BATCH whose service time exceeds the RPC
+    timeout (the lockstep livelock the frame cap exists to prevent)."""
+
+    def test_herd_drains_in_capped_frames(self):
+        from redpanda_tpu_torch.raft import append_aggregator as agg_mod
+        from redpanda_tpu_torch.raft import types as rt
+        from redpanda_tpu_torch.raft.append_aggregator import AppendAggregator
+
+        calls = []
+
+        async def raw_send(peer, method_id, payload, timeout):
+            # suspend like a real transport so concurrent dispatches
+            # pile into the aggregator queue instead of each winning
+            # the uncontended fast path
+            await asyncio.sleep(0)
+            if method_id == rt.APPEND_ENTRIES_BATCH:
+                subs = rt.decode_multi(payload)
+                calls.append(len(subs))
+                return rt.encode_multi([b"r:" + p for p in subs])
+            calls.append(1)
+            return b"r:" + payload
+
+        async def main():
+            agg = AppendAggregator(raw_send)
+            n = int(agg_mod._FRAME_CAP * 2.5) + 7
+            sends = [
+                agg.send(1, rt.APPEND_ENTRIES, b"p%d" % i, 5.0)
+                for i in range(n)
+            ]
+            replies = await asyncio.gather(*sends)
+            # every waiter got ITS OWN reply, in order
+            assert replies == [b"r:p%d" % i for i in range(n)]
+            # no wire frame carried more than the cap
+            assert max(calls) <= agg_mod._FRAME_CAP
+            # and the queue really was multiplexed, not sent 1:1
+            assert len(calls) < n
+            assert sum(calls) == n
+
+        run(main())
+
+    def test_failure_isolated_to_one_frame(self):
+        from redpanda_tpu_torch.raft import append_aggregator as agg_mod
+        from redpanda_tpu_torch.raft import types as rt
+        from redpanda_tpu_torch.raft.append_aggregator import AppendAggregator
+
+        boom = {"armed": 0}
+
+        async def raw_send(peer, method_id, payload, timeout):
+            await asyncio.sleep(0)
+            if method_id == rt.APPEND_ENTRIES_BATCH:
+                boom["armed"] += 1
+                if boom["armed"] == 1:
+                    raise ConnectionError("first frame dies")
+                subs = rt.decode_multi(payload)
+                return rt.encode_multi([b"r:" + p for p in subs])
+            return b"r:" + payload
+
+        async def main():
+            agg = AppendAggregator(raw_send)
+            n = agg_mod._FRAME_CAP + 50
+            sends = [
+                agg.send(1, rt.APPEND_ENTRIES, b"p%d" % i, 5.0)
+                for i in range(n)
+            ]
+            results = await asyncio.gather(*sends, return_exceptions=True)
+            failed = [r for r in results if isinstance(r, Exception)]
+            ok = [r for r in results if not isinstance(r, Exception)]
+            # ONE frame's waiters failed; the rest of the herd still
+            # completed on later frames (no all-or-nothing collapse)
+            assert failed and ok
+            assert len(failed) <= agg_mod._FRAME_CAP
+
+        run(main())
