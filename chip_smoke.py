@@ -145,9 +145,35 @@ Phases, each raising on any mismatch:
      must also be those sent, and health_report); prints setup and
      catch-up seconds, round and tick p50 / p99, the launches at warm-up
      (prewarm's tick_frame_health) and around the traffic, and
-     tick_frame.flushes.
+     tick_frame.flushes;
+  13. (run before 12) the Kafka broker through its entry points: three
+     app.Brokers in one process, each on the card
+     (BrokerConfig(device="cuda")), over
+     loopback internal RPC with their real Kafka TCP listeners and one
+     kafka.client.KafkaClient, at OMB's
+     workloads/1-topic-100-partitions-1kb.yaml size: one topic of 100
+     partitions at RF=3, compression.type=lz4, every leader moved to a
+     fixed node; 1,024 acks=all produce requests of one 16 x 1 KiB batch
+     (Kafka's default batch.size, 16,384 B; half JSON-like, half random),
+     the batches of a partition in order and every partition in flight
+     at once, then every partition fetched back to its high watermark,
+     then node 0's health report, under RP_CODEC_BACKEND=device (the
+     broker recompresses each batch in one rp_fused_lz4 launch) and
+     RP_FETCH_VERIFY=1 (one crc32c_device launch a fetch response with
+     records); the same traffic again on the host leg
+     (RP_QUORUM_BACKEND=host, RP_CRC_BACKEND=host, RP_CODEC_BACKEND unset,
+     RP_FETCH_VERIFY=0). On both legs every batch must be acknowledged at
+     the next offsets of its partition and every record fetched back
+     equal, with equal high watermarks and no KAFKA_STORAGE_ERROR; on the
+     device leg fused_lz4 must launch once a produced batch, crc32c_device
+     once a fetch response that carried records, and fold_replies,
+     quorum_commit_step and health_reduce at least once; leaders that
+     moved during the produce lead as created again before the fetch;
+     prints the setup, the produce wall time and per-batch p50 / p99, the
+     fetch MB/s and per-call p50 / p99 of both legs, the launches, the
+     leaders moved and the event loop's longest stall.
 The launch counters are zeroed just before each main-path phase (3, 4,
-6, 8, 8b, 9, 10 and 12's traffic) and read just after; every kernel
+6, 8, 8b, 9, 10, 12's traffic and 13's produce) and read just after; every kernel
 must have launched there, except those in OFF_PATH
 (follower_commit_step, local_append_update, build_heartbeats,
 fused_snappy, fused_zstd).
@@ -347,16 +373,26 @@ HEALTH_LANES = ("health_max_lag", "health_under", "health_leaderless")
 
 
 @contextlib.contextmanager
-def env_backend(var: str, name: str):
-    old = os.environ.get(var)
-    os.environ[var] = name
+def environ(values: dict):
+    """Set (a str) or unset (None) each variable; restore on exit."""
+    old = {k: os.environ.get(k) for k in values}
     try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         yield
     finally:
-        if old is None:
-            del os.environ[var]
-        else:
-            os.environ[var] = old
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def env_backend(var: str, name: str):
+    return environ({var: name})
 
 
 def quorum_backend(name: str):
@@ -3553,6 +3589,392 @@ def phase_live_raft() -> dict:
     return r
 
 
+# ------------------------------------------------------------ Kafka broker
+# OMB's workloads/1-topic-100-partitions-1kb.yaml: one topic of 100
+# partitions and 1 KiB messages, here at RF=3 on three brokers with
+# acks=all; Kafka's default batch.size (16,384 B) makes 16 records a batch
+BROKER_TOPIC, BROKER_PARTITIONS, BROKER_BATCHES, BROKER_NODES = "omb-1kb", 100, 1024, 3
+# the kernels the broker's produce, fetch, replication and health seams
+# launch (the frame kernel runs in each GroupManager's prewarm)
+BROKER_PATH = ("fused_lz4", "crc32c_device", "fold_replies", "quorum_commit_step", "health_reduce")
+# the two legs' environments: the card's seams, then the host's
+BROKER_DEVICE_ENV = {"RP_CODEC_BACKEND": "device", "RP_FETCH_VERIFY": "1",
+                     "RP_QUORUM_BACKEND": None, "RP_CRC_BACKEND": None}
+BROKER_HOST_ENV = {"RP_CODEC_BACKEND": None, "RP_FETCH_VERIFY": "0",
+                   "RP_QUORUM_BACKEND": "host", "RP_CRC_BACKEND": "host"}
+KAFKA_STORAGE_ERROR, NOT_LEADER_FOR_PARTITION = 56, 6
+
+
+def port_broker():
+    """The port's Kafka entry points, as KafkaCluster takes them."""
+    from types import SimpleNamespace
+
+    from redpanda_tpu_torch.app import Broker, BrokerConfig
+    from redpanda_tpu_torch.kafka.client import KafkaClient, KafkaClientError
+    from redpanda_tpu_torch.models.fundamental import kafka_ntp
+    from redpanda_tpu_torch.raft.consensus import NotLeaderError
+    from redpanda_tpu_torch.rpc.loopback import LoopbackNetwork
+
+    return SimpleNamespace(Broker=Broker, BrokerConfig=BrokerConfig, KafkaClient=KafkaClient,
+                           KafkaClientError=KafkaClientError, LoopbackNetwork=LoopbackNetwork,
+                           kafka_ntp=kafka_ntp, NotLeaderError=NotLeaderError)
+
+
+def broker_batches(seed: int, topics, count: int) -> list:
+    """`count` produce requests of one batch each, as a client would
+    send them: RECORDS x RECORD_BYTES records, batch i to topics[i % T]
+    and partition (i // T) % partitions, JSON-like text where i // T is
+    even and random bytes where it is odd (phase 6's corpus). Built once with
+    the port's RecordBatchBuilder at fixed timestamps, so two clusters
+    get the same wire bytes. Returns [(topic, partition, wire,
+    [(key, value)])]."""
+    from redpanda_tpu_torch.models.record import RecordBatchBuilder
+
+    rng = np.random.default_rng(seed)
+    n_json = sum(1 for i in range(count) if (i // len(topics)) % 2 == 0)
+    json_vals = iter(json_values(rng, n_json * RECORDS))
+    out = []
+    for i in range(count):
+        name, parts = topics[i % len(topics)]
+        part = (i // len(topics)) % parts
+        b = RecordBatchBuilder(timestamp_ms=1_700_000_000_000 + i)
+        records = []
+        for r in range(RECORDS):
+            value = next(json_vals) if (i // len(topics)) % 2 == 0 else rng.bytes(RECORD_BYTES)
+            records.append((b"key-%d-%d" % (i, r), value))
+            b.add(value, key=records[-1][0])
+        out.append((name, part, b.build().to_kafka_wire(), records))
+    return out
+
+
+class KafkaCluster:
+    """`nodes` Brokers of one package (`pkg`: its Broker, BrokerConfig,
+    KafkaClient, KafkaClientError, LoopbackNetwork, kafka_ntp and
+    NotLeaderError) in one process over loopback internal RPC, each with
+    its real Kafka TCP listener, and one KafkaClient over them. `cfg`
+    goes to every BrokerConfig (the port's takes device=)."""
+
+    def __init__(self, pkg, data_dir: str, nodes: int = BROKER_NODES, **cfg):
+        self.pkg, self.data_dir, self.nodes, self.cfg = pkg, data_dir, nodes, cfg
+        self.brokers: list = []
+        self.client = None
+
+    async def start(self) -> None:
+        net = self.pkg.LoopbackNetwork()
+        members = list(range(self.nodes))
+        for i in members:
+            cfg = self.pkg.BrokerConfig(node_id=i, data_dir=os.path.join(self.data_dir, f"node{i}"),
+                                        members=members, **self.cfg)
+            self.brokers.append(self.pkg.Broker(cfg, loopback=net))
+        for b in self.brokers:
+            await b.start()
+        addrs = {b.node_id: b.kafka_advertised for b in self.brokers}
+        for b in self.brokers:
+            b.config.peer_kafka_addresses = addrs
+        await self.brokers[0].wait_controller_leader(timeout=60.0)
+        self.client = self.pkg.KafkaClient([b.kafka_advertised for b in self.brokers])
+
+    def replicas(self, what) -> list:
+        """Each node's replica of `what`, "controller" or (topic,
+        partition); None where the node has none yet."""
+        if what == "controller":
+            return [b.controller for b in self.brokers]
+        return [b.partition_manager.get(self.pkg.kafka_ntp(*what)) for b in self.brokers]
+
+    async def create(self, topics, rf: int = BROKER_NODES) -> None:
+        """Create each (name, partitions, configs) at `rf`, then move
+        every leader to a fixed node: the controller to node 0, partition
+        p of the k-th topic to node (p + k) % nodes (transfer_leadership,
+        as the admin API's), so two runs lead alike."""
+        for name, parts, configs in topics:
+            await self.client.create_topic(name, partitions=parts, replication_factor=rf, configs=configs)
+        await self.place(topics)
+
+    async def place(self, topics) -> int:
+        """Move the leaders as `create` does, once every replica exists.
+        Returns how many partitions had another leader."""
+        moved = await self.lead("controller", 0)
+        for k, (name, parts, _) in enumerate(topics):
+            for p in range(parts):
+                moved += await self.lead((name, p), (p + k) % self.nodes)
+        await self.client.metadata([name for name, _, _ in topics])
+        return moved
+
+    async def lead(self, what, target: int, timeout: float = 60.0) -> int:
+        """Make node `target` the leader of `what` (see replicas);
+        returns 1 if another node led it, else 0."""
+        deadline, moved = time.monotonic() + timeout, 0
+        while True:
+            reps = self.replicas(what)
+            if all(r is not None for r in reps):
+                if reps[target].is_leader:
+                    return moved
+                moved = 1
+                leader = next((r for r in reps if r.is_leader), None)
+                if leader is not None:
+                    # lost leadership or a target still catching up: retry
+                    with contextlib.suppress(self.pkg.NotLeaderError, TimeoutError):
+                        await leader.consensus.transfer_leadership(target)
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{what}: node {target} never became leader")
+            await asyncio.sleep(0.02)
+
+    async def produce(self, batches, acks: int = -1) -> dict:
+        """Send every batch with acks=`acks`: the batches of a partition
+        one after another in order, all partitions at once (a request in
+        flight for each). Returns the base offset of each batch, each
+        request's seconds and the wall seconds."""
+        by_part: dict = {}
+        for i, (name, part, _, _) in enumerate(batches):
+            by_part.setdefault((name, part), []).append(i)
+        bases, lat = [None] * len(batches), [0.0] * len(batches)
+
+        async def one_partition(idx):
+            for i in idx:
+                name, part, wire, _ = batches[i]
+                t0 = time.perf_counter()
+                bases[i] = await self.client.produce_wire(name, part, wire, acks=acks)
+                lat[i] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(one_partition(idx) for idx in by_part.values()))
+        return {"bases": bases, "lat_s": lat, "wall_s": time.perf_counter() - t0}
+
+    async def fetch_all(self, topics) -> dict:
+        """Read every partition of `topics` back from offset 0 to its
+        high watermark through the client, all partitions at once.
+        Returns {(topic, partition): [(offset, key, value)]}, the high
+        watermarks, the fetch responses that carried records, the record
+        bytes, each fetch call's seconds and the wall seconds. A
+        KAFKA_STORAGE_ERROR raises."""
+        got, hwm, counts, lat = {}, {}, {"responses": 0, "bytes": 0}, []
+
+        async def one_partition(name, part):
+            hwm[(name, part)] = end = await self.high_watermark(name, part)
+            rows, offset = [], 0
+            while offset < end:
+                t0 = time.perf_counter()
+                try:
+                    recs = await self.client.fetch(name, part, offset, max_wait_ms=100)
+                    lat.append(time.perf_counter() - t0)
+                except self.pkg.KafkaClientError as e:
+                    if e.code == KAFKA_STORAGE_ERROR:
+                        raise AssertionError(f"fetch {name}/{part}@{offset}: KAFKA_STORAGE_ERROR") from e
+                    raise
+                if recs:
+                    counts["responses"] += 1
+                    counts["bytes"] += sum(len(k or b"") + len(v or b"") for _, k, v in recs)
+                    rows.extend(recs)
+                    offset = recs[-1][0] + 1
+            got[(name, part)] = rows
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(one_partition(name, p) for name, parts, _ in topics for p in range(parts)))
+        return {"records": got, "hwm": hwm, "lat_s": lat, "wall_s": time.perf_counter() - t0, **counts}
+
+    async def high_watermark(self, name: str, part: int, timeout: float = 30.0) -> int:
+        """list_offset(latest), asked again of the new leader when the
+        client's cached one answers NOT_LEADER_FOR_PARTITION."""
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                return await self.client.list_offset(name, part, -1)
+            except self.pkg.KafkaClientError as e:
+                if e.code != NOT_LEADER_FOR_PARTITION or time.monotonic() > deadline:
+                    raise
+            await asyncio.sleep(0.05)
+            await self.client.metadata([name])
+
+    async def settle(self, timeout: float = 60.0) -> dict:
+        """Wait until node 0's health report shows every follower caught
+        up; returns that report (the HealthSampler's build, fresh)."""
+        sampler = self.brokers[0].health_sampler
+        deadline = time.monotonic() + timeout
+        while True:
+            rep = sampler.report(fresh=True)
+            if rep["max_follower_lag"] == 0 and rep["under_replicated"] == 0 and rep["leaderless"] == 0:
+                return rep
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"followers never caught up: {health_totals(rep)}")
+            await asyncio.sleep(0.05)
+
+    def stored(self, topic: str, parts: int) -> dict:
+        """Each partition's stored data batches on its leader: [(codec,
+        records body bytes)]."""
+        out = {}
+        for p in range(parts):
+            leader = next(r for r in self.replicas((topic, p)) if r.is_leader)
+            out[(topic, p)] = [(int(b.header.compression), bytes(b.body))
+                               for b in leader.log.read(0, max_bytes=1 << 62)
+                               if b.header.type.name == "raft_data"]
+        return out
+
+    async def stop(self) -> None:
+        if self.client is not None:
+            await self.client.close()
+            self.client = None
+        for b in self.brokers:
+            await b.stop()
+        self.brokers = []
+
+
+def check_broker_run(run: dict, batches, topics) -> None:
+    """Every batch acknowledged at the next offsets of its partition,
+    high watermarks at the end of what was sent, and every record read
+    back equal at its offset."""
+    want: dict = {}
+    for i, (name, part, _, records) in enumerate(batches):
+        rows = want.setdefault((name, part), [])
+        base = len(rows)
+        if run["bases"][i] != base:
+            raise AssertionError(f"batch {i} ({name}/{part}) acked at {run['bases'][i]}, expected {base}")
+        rows.extend((base + r, k, v) for r, (k, v) in enumerate(records))
+    for name, parts, _ in topics:
+        for p in range(parts):
+            rows = want.get((name, p), [])
+            if run["hwm"][(name, p)] != len(rows):
+                raise AssertionError(f"{name}/{p}: high watermark {run['hwm'][(name, p)]}, sent {len(rows)}")
+            if run["records"][(name, p)] != rows:
+                raise AssertionError(f"{name}/{p}: records fetched back differ from those sent")
+
+
+async def loop_stalls(out: list, period: float = 0.01) -> None:
+    """Append how late each `period` sleep of the event loop woke: the
+    brokers share the loop, so a stall over the election timeout lets
+    a follower's timer fire before its leader's heartbeat lands."""
+    loop = asyncio.get_running_loop()
+    while True:
+        t0 = loop.time()
+        await asyncio.sleep(period)
+        out.append(loop.time() - t0 - period)
+
+
+async def broker_scenario(pkg, data_dir: str, topics, batches, on_phase=None, stored=(), **cfg) -> dict:
+    """One cluster end to end: start, create `topics`, produce `batches`
+    (acks=-1), lead as created, fetch everything back, lead as created,
+    settle, node 0's health report
+    (health_sampler, fresh) and group_manager.health_report(). Checked
+    by check_broker_run. `on_phase(name)` is called with "produce" just
+    before the traffic, "fetch" between produce and fetch and "end"
+    after the health report; `stored` names (topic, partitions) whose
+    stored batches are returned."""
+    cluster = KafkaCluster(pkg, data_dir, **cfg)
+    t0 = time.perf_counter()
+    try:
+        await cluster.start()
+        await cluster.create(topics)
+        setup_s = time.perf_counter() - t0
+        if on_phase:
+            on_phase("produce")
+        stalls: list = []
+        watch = asyncio.ensure_future(loop_stalls(stalls))
+        run = await cluster.produce(batches)
+        run["produce_stall_s"] = max(stalls, default=0.0)
+        # leaders that moved during the produce (an election after an
+        # event-loop stall) lead as created again
+        run["moved"] = await cluster.place(topics)
+        if on_phase:
+            on_phase("fetch")
+        stalls.clear()
+        run.update({f"fetch_{k}": v for k, v in (await cluster.fetch_all(topics)).items()})
+        run["fetch_stall_s"] = max(stalls, default=0.0)
+        watch.cancel()
+        run["records"], run["hwm"] = run.pop("fetch_records"), run.pop("fetch_hwm")
+        # a stalled event loop (a first compile, a long fsync) can move a
+        # leader during the traffic: lead as created again, then report
+        await cluster.place(topics)
+        run["sampler"] = await cluster.settle()
+        run["health"] = cluster.brokers[0].group_manager.health_report()
+        if on_phase:
+            on_phase("end")
+        run["stored"] = {}
+        for name, parts in stored:
+            run["stored"].update(cluster.stored(name, parts))
+        run["setup_s"] = setup_s
+    finally:
+        await cluster.stop()
+    check_broker_run(run, batches, topics)
+    return run
+
+
+def run_broker(device: str, partitions: int = BROKER_PARTITIONS, count: int = BROKER_BATCHES,
+               seed: int = SEED + 13) -> dict:
+    """Phase 13's two legs on the port: the card's seams
+    (BROKER_DEVICE_ENV, brokers on `device`) with the launches counted
+    around the produce and the fetch, then the host's
+    (BROKER_HOST_ENV) on the same batches. Returns both runs."""
+    import shutil
+    import tempfile
+
+    pkg = port_broker()
+    topics = [(BROKER_TOPIC, partitions, {"compression.type": "lz4"})]
+    batches = broker_batches(seed, [(BROKER_TOPIC, partitions)], count)
+    marks: dict = {}
+
+    def mark(phase):
+        marks[phase] = {k: KERNELS[k][2][k] for k in BROKER_PATH + ("tick_frame",)}
+        if phase == "produce":
+            reset_launches()
+            marks[phase] = {k: 0 for k in marks[phase]}
+
+    tmp = tempfile.mkdtemp(prefix="rp_broker_")
+    try:
+        with environ(BROKER_DEVICE_ENV):
+            dev = asyncio.run(broker_scenario(pkg, os.path.join(tmp, "device"), topics, batches,
+                                              on_phase=mark, device=device))
+        with environ(BROKER_HOST_ENV):
+            host = asyncio.run(broker_scenario(pkg, os.path.join(tmp, "host"), topics, batches, device=device))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dev["launches"] = {k: marks["end"][k] for k in marks["end"]}
+    dev["produce_launches"] = {k: marks["fetch"][k] - marks["produce"][k] for k in marks["end"]}
+    dev["fetch_launches"] = {k: marks["end"][k] - marks["fetch"][k] for k in marks["end"]}
+    dev["host"], dev["batches"] = host, len(batches)
+    return dev
+
+
+def phase_broker() -> dict:
+    """Phase 13: the Kafka broker on the card (run_broker at OMB's
+    1-topic-100-partitions-1kb size), its checks and numbers."""
+    t0 = time.perf_counter()
+    r = run_broker("cuda")
+    h = r["host"]
+    if r["produce_launches"]["fused_lz4"] != r["batches"]:
+        raise AssertionError(f"fused_lz4 launched {r['produce_launches']['fused_lz4']} times for "
+                             f"{r['batches']} produced batches")
+    # the health report's fresh builds launch no CRC; every fetch response
+    # that carried records was verified in one crc32c launch
+    if r["fetch_launches"]["crc32c_device"] != r["fetch_responses"]:
+        raise AssertionError(f"crc32c_device launched {r['fetch_launches']['crc32c_device']} times for "
+                             f"{r['fetch_responses']} fetch responses with records")
+    idle = [k for k in BROKER_PATH if r["launches"][k] <= 0]
+    if idle:
+        raise AssertionError(f"the broker path never launched {idle}: {r['launches']}")
+    if r["records"] != h["records"] or r["hwm"] != h["hwm"] or r["bases"] != h["bases"]:
+        raise AssertionError("device leg and host leg differ in offsets, watermarks or records")
+
+    def line(x, tag):
+        lat = np.asarray(x["lat_s"]) * 1e3
+        flat = np.asarray(x["fetch_lat_s"]) * 1e3
+        return (f"{tag}: setup {x['setup_s']:.3f} s; produce {len(lat)} batches in {x['wall_s']:.3f} s "
+                f"(per batch p50 {pct(lat, 50):.3f} ms p99 {pct(lat, 99):.3f} ms); fetch "
+                f"{x['fetch_bytes']} B of records in {x['fetch_responses']} responses, {x['fetch_wall_s']:.3f} s "
+                f"= {x['fetch_bytes'] / x['fetch_wall_s'] / 1e6:.1f} MB/s (per fetch call, {len(flat)}: "
+                f"p50 {pct(flat, 50):.3f} ms p99 {pct(flat, 99):.3f} ms)")
+
+    log(f"[broker] {BROKER_NODES} brokers (cuda), topic {BROKER_TOPIC} {BROKER_PARTITIONS} partitions RF=3 "
+        f"compression.type=lz4, {r['batches']} acks=all batches of {RECORDS} x {RECORD_BYTES} B; "
+        + line(r, "device leg (RP_CODEC_BACKEND=device RP_FETCH_VERIFY=1)"))
+    log("[broker] " + line(h, "host leg (RP_QUORUM_BACKEND=host RP_CRC_BACKEND=host RP_FETCH_VERIFY=0)"))
+    log(f"[broker] every record fetched back equal on both legs at the same offsets and high watermarks; "
+        f"launches during produce {r['produce_launches']}, during fetch + health {r['fetch_launches']}; "
+        f"health {health_totals(r['health'])}; leaders moved during the produce {r['moved']} / "
+        f"{h['moved']} (device / host leg), the event loop's longest stall in the produce "
+        f"{r['produce_stall_s'] * 1e3:.1f} / {h['produce_stall_s'] * 1e3:.1f} ms, in the fetch "
+        f"{r['fetch_stall_s'] * 1e3:.1f} / {h['fetch_stall_s'] * 1e3:.1f} ms; {time.perf_counter() - t0:.1f} s")
+    return r
+
+
 def nvidia_smi() -> str:
     try:
         return subprocess.run(
@@ -3632,9 +4054,13 @@ def main() -> int:
     results.update(mesh["kernels"])
     results.update(cluster["kernels"])
     phase_armed(s["tick_s"])
+    # the broker phase runs before the Raft layer's: its brokers keep
+    # election timers (1.5 s), and phase 12's fsync'd logs leave the disk
+    # writing back behind it
+    broker = phase_broker()
     live = phase_live_raft()
     for launches in (seg["launches"], zr["launches"], mesh["launches"], cluster["launches"],
-                     live["launches"]["path"]):
+                     live["launches"]["path"], broker["launches"]):
         for name, count in launches.items():
             path_launches[name] = path_launches.get(name, 0) + count
     missing = [k for k in KERNELS if k not in OFF_PATH and path_launches.get(k, 0) <= 0]
@@ -3642,7 +4068,8 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     log(f"[launches] main path (batch CRCs: crc32c_device {rb['launches']}; codec path: {rc['launches']}; "
         f"segment path: {seg['launches']}; zstd batches: {zr['launches']}; mesh: {mesh['launches']}; "
-        f"cluster: {cluster['launches']}; live raft: {live['launches']['path']}; no main-path caller: {', '.join(OFF_PATH)}): {path_launches}")
+        f"cluster: {cluster['launches']}; live raft: {live['launches']['path']}; "
+        f"broker: {broker['launches']}; no main-path caller: {', '.join(OFF_PATH)}): {path_launches}")
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():

@@ -33,6 +33,9 @@ from ..observability import devplane
 from ..utils.crc import _TABLE as _BYTE_TABLE
 from . import _build
 
+# crc32c_batch_device(device=None) runs here; the CPU tests set it to "cpu"
+DEFAULT_DEVICE = "cuda"
+
 LAUNCHES = {"crc32c_device": 0}
 
 # csrc/crc32c.cu's two shapes, (warps a team, bytes a lane folds per
@@ -236,10 +239,10 @@ def crc32c_rows(data: torch.Tensor, lens: torch.Tensor, add: int = 0) -> torch.T
     return out
 
 
-def crc32c_batch_device(bufs: np.ndarray, lens: np.ndarray, device="cuda") -> np.ndarray:
+def crc32c_batch_device(bufs: np.ndarray, lens: np.ndarray, device=None) -> np.ndarray:
     """Drop-in device counterpart of utils.crc.crc32c_batch (same padded
     [n, stride] layout produced by models.record.batch_crcs)."""
-    dev = check_device(device)
+    dev = check_device(device or DEFAULT_DEVICE)
     bufs = np.ascontiguousarray(bufs, dtype=np.uint8)
     lens = np.asarray(lens, dtype=np.int64)
     if lens.size and int(lens.max()) > bufs.shape[1]:

@@ -4,9 +4,11 @@
   of redpanda_tpu: checked in a fresh interpreter (this process has
   jax loaded by tests/conftest.py) and by an AST scan of the sources.
 * Without a CUDA device, the default device path raises instead of
-  running the plain versions on the CPU (the mesh backend and the ring
-  cluster step included), and chip_smoke.py exits non-zero without
-  printing a result.
+  running the plain versions on the CPU (the mesh backend, the ring
+  cluster step, a GroupManager and a Kafka Broker included), and
+  chip_smoke.py exits non-zero without printing a result.
+* ops.crc32c.DEFAULT_DEVICE reaches the callers that pass no device: the
+  broker's fetch verify and models/record.batch_crcs.
 * No kernel wrapper holds a try statement that could route a CUDA
   tensor to its plain version.
 * The zstd leg's punt to the host codec sees only the host walk's
@@ -58,7 +60,30 @@ RAFT_LAYER = (
         "types", "configuration", "snapshot", "probe", "offset_translator", "recovery", "state_machine",
         "append_aggregator", "consensus", "replicate_batcher", "heartbeat_manager", "service", "group_manager")),
 )
-REQUIRED = RAFT_LAYER + (
+# the Kafka broker: app.Broker with cluster/, kafka/, cloud/, placement/,
+# ssx/ and the host leaves they import
+BROKER = tuple(f"redpanda_tpu_torch.{m}" for m in (
+    "config", "config.properties", "security", "security.acl", "security.scram", "security.license",
+    "utils.hdr_hist", "resource_mgmt", "syschecks", "observability.profiler", "httpd",
+    "placement", "placement.envelopes", "placement.table", "placement.host", "placement.mover",
+    "placement.rebalancer",
+    "kafka", "kafka.protocol", "kafka.protocol.wire", "kafka.protocol.schema", "kafka.protocol.apis",
+    "kafka.protocol.headers", "kafka.protocol.admin_apis", "kafka.protocol.group_apis",
+    "kafka.protocol.tx_apis", "kafka.protocol.produce_fast", "kafka.framing", "kafka.probe", "kafka.quotas",
+    "kafka.fetch_session",
+    "ssx", "ssx.procnemesis", "ssx.shards",
+    "cloud", "cloud.object_store", "cloud.nemesis", "cloud.cache_service", "cloud.cstore", "cloud.manifest",
+    "cloud.archiver", "cloud.remote_partition",
+    "cluster", *(f"cluster.{m}" for m in (
+        "allocator", "archival_stm", "commands", "controller", "controller_snapshot", "feature_barrier",
+        "features", "health_monitor", "members", "metadata_cache", "metadata_dissemination", "migrations",
+        "node_status", "partition", "partition_manager", "producer_state", "self_test", "shard_table",
+        "stats_reporter", "topic_table", "tx_coordinator", "tx_state")),
+    "kafka.server", "kafka.server_admin", "kafka.server_groups", "kafka.server_tx", "kafka.coordinator",
+    "kafka.coordinator.group", "kafka.coordinator.group_manager", "kafka.client",
+    "admin", "admin.server", "transforms", "app",
+))
+REQUIRED = RAFT_LAYER + BROKER + (
     "redpanda_tpu_torch.entry",
     "redpanda_tpu_torch.metrics",
     "redpanda_tpu_torch.utils.tasks",
@@ -167,6 +192,73 @@ def test_default_crc_device_raises_without_cuda(monkeypatch):
     monkeypatch.delenv("RP_CRC_BACKEND", raising=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         batch_crcs([batch])
+
+
+def test_crc_default_device_reaches_the_broker_seams(monkeypatch):
+    """ops.crc32c.DEFAULT_DEVICE is what the callers without a device
+    argument run on: the fetch verify (kafka/server.py
+    _verify_fetch_response) and models/record.batch_crcs. Set to "cpu",
+    both run the plain version and agree with the host CRC; left at the
+    card, both raise on a machine without CUDA."""
+    _require_no_cuda()
+    from types import SimpleNamespace
+
+    from redpanda_tpu_torch.kafka.server import KafkaServer
+    from redpanda_tpu_torch.models.record import RecordBatchBuilder, batch_crcs
+    from redpanda_tpu_torch.ops import crc32c as crc_ops
+    from redpanda_tpu_torch.utils import crc as host_crc
+
+    monkeypatch.delenv("RP_CRC_BACKEND", raising=False)
+    batches = [RecordBatchBuilder(timestamp_ms=0).add(b"v%d" % i * 40, key=b"k").build() for i in range(3)]
+    wire = b"".join(b.to_kafka_wire() for b in batches)
+    row = SimpleNamespace(records=wire, error_code=0, partition_index=0)
+    response = [SimpleNamespace(topic="t", partitions=[row])]
+    assert crc_ops.DEFAULT_DEVICE == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batch_crcs(batches)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KafkaServer._verify_fetch_response(None, response)
+
+    seen = []
+    plain = crc_ops.crc32c_device
+
+    def spy(data, lens):
+        seen.append(data.device.type)
+        return plain(data, lens)
+
+    monkeypatch.setattr(crc_ops, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(crc_ops, "crc32c_device", spy)
+    want = [host_crc.crc32c(b.body, host_crc.crc32c(b.header.crc_prefix())) for b in batches]
+    assert [int(c) for c in batch_crcs(batches)] == want
+    KafkaServer._verify_fetch_response(None, response)
+    assert row.error_code == 0 and row.records == wire
+    assert seen == ["cpu", "cpu"]
+
+
+def test_default_device_broker_raises_without_cuda(tmp_path):
+    """A Broker on the default device (the card) raises at start on a
+    machine without CUDA instead of running on the CPU."""
+    _require_no_cuda()
+    import asyncio
+    import contextlib
+
+    from redpanda_tpu_torch.app import Broker, BrokerConfig
+    from redpanda_tpu_torch.rpc.loopback import LoopbackNetwork
+
+    cfg = BrokerConfig(node_id=0, data_dir=str(tmp_path / "n0"), members=[0])
+    assert cfg.device == "cuda"
+
+    async def run():
+        broker = Broker(cfg, loopback=LoopbackNetwork())
+        assert broker.group_manager.arrays.device == "cuda"
+        try:
+            await broker.start()
+        finally:
+            with contextlib.suppress(Exception):
+                await broker.stop()
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        asyncio.run(run())
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
