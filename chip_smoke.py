@@ -171,9 +171,40 @@ Phases, each raising on any mismatch:
      moved during the produce lead as created again before the fetch;
      prints the setup, the produce wall time and per-batch p50 / p99, the
      fetch MB/s and per-call p50 / p99 of both legs, the launches, the
-     leaders moved and the event loop's longest stall.
+     leaders moved and the event loop's longest stall;
+  14. (run before 12) the port as users start it. Part A: three OS
+     processes `python -m redpanda_tpu_torch --device cuda --shards 2`
+     (shard 0 and one worker shard each; RP_DEVPLANE=1
+     RP_DEVPLANE_SAMPLE=1 RP_CODEC_BACKEND=device RP_FETCH_VERIFY=1), the
+     topic created with the port's CLI at phase 13's shape, phase 13's
+     1,024 acks=all batches and every partition fetched back; then node
+     0's worker shard SIGKILLed (its pid from GET /v1/shards), its
+     restart awaited (forked by the shard runtime's fork server after
+     shard 0 had initialised CUDA), 256 more batches to the partitions it
+     owns and everything fetched back again. Checked: every record back
+     equal at its offset; /v1/shards on every node sharded with exactly
+     the one restart; the restarted worker's own registry
+     (/v1/shards/1/metrics) with samples of quorum.heartbeat_tick (the
+     fold_replies + quorum_commit_step launches); node 0's /v1/devplane
+     with fused.crc_lz4 and crc32c.device samples. The probe calls of
+     every process (each call sampled) are the part's launches. Part B:
+     three Brokers on the card sharing one bucket directory
+     (RP_ARCHIVE_COMPRESSION=zstd RP_ZSTD_BACKEND=tpu), one partition at
+     RF=3 with remote write / read and segment.bytes =
+     retention.local.target.bytes = 16 MiB; 48 MiB of phase 13's records
+     produced acks=all, 16 batches a request; archival.run_once() and
+     housekeeping() on every broker; the partition fetched from offset
+     0, below the local start. Checked: every record back equal,
+     hydrations, zstd_encode and zstd_decode launched, every stored
+     object decoding with the host codec to its local segment's bytes,
+     and the host leg (RP_ZSTD_BACKEND=host) equal in records and
+     offsets. Prints produce / fetch p50 / p99 and MB/s on the host
+     clock beside the card's name and power limit, and
+     `nvidia-smi --query-compute-apps` (one line per process on the
+     card).
 The launch counters are zeroed just before each main-path phase (3, 4,
-6, 8, 8b, 9, 10, 12's traffic and 13's produce) and read just after; every kernel
+6, 8, 8b, 9, 10, 12's traffic, 13's produce and 14's part B) and read
+just after (14's part A reads the node processes' probe calls); every kernel
 must have launched there, except those in OFF_PATH
 (follower_commit_step, local_append_update, build_heartbeats,
 fused_snappy, fused_zstd).
@@ -192,6 +223,7 @@ import asyncio
 import contextlib
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -3228,8 +3260,9 @@ def phase_armed(off_tick_s) -> dict:
 # 5,000 groups, here at RF=3 on three GroupManagers over loopback, node 0
 # forced leader of all of them; each round one acks=-1 batch of 16 x 1 KiB
 # records (PERF.md §4's batch, Kafka's batch.size) on a seeded tenth of the
-# groups, then one heartbeat tick on node 0
-LIVE_GROUPS, LIVE_ROUNDS, LIVE_PER_ROUND, LIVE_NODES = 5_000, 20, 500, 3
+# groups, then one heartbeat tick on node 0; 10 rounds, so the whole run
+# with phase 14 in it stays under ~650 s
+LIVE_GROUPS, LIVE_ROUNDS, LIVE_PER_ROUND, LIVE_NODES = 5_000, 10, 500, 3
 LIVE_STEADY_TICKS = 20
 # the kernels the live layer must launch between its traffic and its
 # health report (a frame flush without heartbeat rows: fold + commit; the
@@ -3667,6 +3700,10 @@ class KafkaCluster:
                                         members=members, **self.cfg)
             self.brokers.append(self.pkg.Broker(cfg, loopback=net))
         for b in self.brokers:
+            # the scenario places every leader itself (`create`); the
+            # controller's leader balancer would move one mid-traffic,
+            # and a produce it interrupts is retried on the new leader
+            b.controller.leader_balancer_enabled = False
             await b.start()
         addrs = {b.node_id: b.kafka_advertised for b in self.brokers}
         for b in self.brokers:
@@ -3975,6 +4012,700 @@ def phase_broker() -> dict:
     return r
 
 
+# -------------------------------------------------- the port as users start it
+# Phase 14, part A: a node is `python -m redpanda_tpu_torch --shards 2`,
+# shard 0 plus one worker process, at phase 13's OMB shape; part B: three
+# Brokers whose closed segments go to a shared bucket zstd-compressed
+PROC_NODES, PROC_SHARDS, PROC_RESTART_BATCHES = 3, 2, 256
+# RP_DEVPLANE_SAMPLE=1: every probe call is sampled, so a probe's sample
+# count is its call count in that process. RP_ALERTS=0: the default SLO
+# profile's produce alerts (40 ms p99) fire on a Python broker's latency,
+# and each firing makes the placement rebalancer move partitions between
+# shards mid-traffic, where a produce it interrupts is retried and can be
+# written twice
+PROC_ENV = {"RP_DEVPLANE": "1", "RP_DEVPLANE_SAMPLE": "1", "RP_CODEC_BACKEND": "device",
+            "RP_FETCH_VERIFY": "1", "RP_ALERTS": "0"}
+# a process's devplane families, by kernel label: the probes' samples and
+# the kernel wrappers' own launch counters (LAUNCHES)
+SAMPLES, LAUNCH_COUNTS = "devplane_kernel_seconds_count", "devplane_kernel_launches"
+# what the restarted worker must run while it leads: the heartbeat tick
+# (probe) and its two kernels (launch counters; none on the CPU, where
+# the plain versions run)
+WORKER_PROBES, WORKER_KERNELS = ("quorum.heartbeat_tick",), ("fold_replies", "quorum_commit_step")
+# each seam the run's environment arms, as (probe, kernel): its samples
+# in node 0's merged /v1/devplane, and on the card its kernel's launches
+# in the traffic (shard 0 runs both seams: a worker's produce path stores
+# the client's codec, and fetches are verified where shard 0 answers them)
+SEAM_PROBES = {("RP_CODEC_BACKEND", "device"): ("fused.crc_lz4", "fused_lz4"),
+               ("RP_FETCH_VERIFY", "1"): ("crc32c.device", "crc32c_device")}
+# Redpanda's log_segment_size is 128 MiB; cut to 16 MiB (three segments
+# of one partition in the run's time)
+TIERED_TOPIC, TIERED_SEGMENT, TIERED_BYTES, TIERED_PER_REQUEST = "tiered-1kb", 16 << 20, 48 << 20, 16
+TIERED_ENV = {"RP_ARCHIVE_COMPRESSION": "zstd", "RP_ZSTD_BACKEND": "tpu"}
+# the host leg: the same brokers with no zstd anywhere (archived
+# uncompressed; the card's machine has no host zstd encoder)
+HOST_LEG_ENV = {"RP_ARCHIVE_COMPRESSION": "none", "RP_ZSTD_BACKEND": "host"}
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def free_ports(n: int, low: int = 20000, high: int = 32768) -> list:
+    """`n` distinct ports in [low, high) that bind on 127.0.0.1 now.
+    The range lies under Linux's default ephemeral range (32768-60999),
+    so no outgoing connection can take one before a node binds it."""
+    import random
+    import socket
+
+    ports: list = []
+    for port in random.Random().sample(range(low, high), high - low):
+        with socket.socket() as sk:
+            try:
+                sk.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        ports.append(port)
+        if len(ports) == n:
+            return ports
+    raise RuntimeError(f"fewer than {n} free ports in [{low}, {high})")
+
+
+def http_json(port: int, path: str, method: str = "GET", timeout: float = 10.0):
+    """One admin API call on 127.0.0.1:`port`; the body as JSON, or as
+    text where it is not JSON."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method)
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = r.read().decode()
+    try:
+        return json.loads(body)
+    except ValueError:
+        return body
+
+
+def by_kernel(metrics_text: str, family: str) -> dict:
+    """{kernel label: value} of `family` in a Prometheus rendering of a
+    registry that adopted the devplane's families."""
+    out = {}
+    for line in metrics_text.splitlines():
+        if line.startswith("#") or f"{family}{{" not in line:
+            continue
+        head, _, value = line.rpartition(" ")
+        key = 'kernel="'
+        if key in head:
+            name = head.split(key, 1)[1].split('"', 1)[0]
+            out[name] = out.get(name, 0) + int(float(value))
+    return out
+
+
+def counts_since(now: dict, then: dict) -> dict:
+    """{family: {kernel: now - then}} for two ProcessCluster.counts."""
+    return {f: {k: v - then[f].get(k, 0) for k, v in now[f].items() if v != then[f].get(k, 0)}
+            for f in now}
+
+
+def add_counts(into: dict, more: dict) -> dict:
+    for f, table in more.items():
+        dst = into.setdefault(f, {})
+        for k, v in table.items():
+            dst[k] = dst.get(k, 0) + v
+    return into
+
+
+class ProcessCluster(KafkaCluster):
+    """`nodes` OS processes, each started as a user starts a node:
+    `python -m redpanda_tpu_torch --device D --shards S` (or `command`
+    in its place, before --shards) with the seeds, its own ports and
+    data dir, and `env` on top of this process's environment (None
+    removes a variable); one KafkaClient over them. `cli` runs the
+    port's CLI against node 0. A start where a node exits on a port
+    taken since free_ports probed it is made again on fresh ports."""
+
+    def __init__(self, data_dir: str, device: str, nodes: int = PROC_NODES, shards: int = PROC_SHARDS,
+                 env=None, command=None):
+        super().__init__(port_broker(), data_dir, nodes)
+        self.device, self.shards, self.env = device, shards, dict(env or {})
+        self.command = command or [sys.executable, "-m", "redpanda_tpu_torch", "--device", device]
+        self.procs, self.logs = [], []
+
+    async def start(self, timeout: float = 120.0, attempts: int = 3) -> None:
+        for attempt in range(attempts):
+            self.spawn(f".{attempt}" if attempt else "")
+            try:
+                await self.until(lambda: all(self.shards_view(i).get("sharded") for i in range(self.nodes)),
+                                 timeout, "every node's shard runtime up")
+                break
+            except AssertionError as e:  # a node exited
+                if attempt + 1 == attempts or "Address already in use" not in str(e):
+                    raise
+                await self.stop()
+        self.client = self.pkg.KafkaClient([("127.0.0.1", p) for p in self.kafka])
+
+    def spawn(self, suffix: str) -> None:
+        """Start the nodes on fresh ports, each in data dir n<i><suffix>
+        with its output in node<i><suffix>.log."""
+        n = self.nodes
+        ports = free_ports(3 * n)
+        self.rpc, self.kafka, self.admin = ports[:n], ports[n:2 * n], ports[2 * n:]
+        seeds = ",".join(f"127.0.0.1:{p}" for p in self.rpc)
+        env = dict(os.environ)
+        for k, v in self.env.items():
+            if v is None:
+                env.pop(k, None)
+            else:
+                env[k] = v
+        for i in range(n):
+            log = open(os.path.join(self.data_dir, f"node{i}{suffix}.log"), "w+")
+            self.logs.append(log)
+            self.procs.append(subprocess.Popen(
+                [*self.command, "--shards", str(self.shards), "--node-id", str(i),
+                 "--data-dir", os.path.join(self.data_dir, f"n{i}{suffix}"), "--seeds", seeds,
+                 "--kafka-host", "127.0.0.1", "--kafka-port", str(self.kafka[i]),
+                 "--rpc-port", str(self.rpc[i]), "--admin-port", str(self.admin[i])],
+                cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT, start_new_session=True))
+
+    def tail(self, i: int, size: int = 3000) -> str:
+        self.logs[i].flush()
+        self.logs[i].seek(0)
+        return self.logs[i].read()[-size:]
+
+    def check_alive(self) -> None:
+        for i, p in enumerate(self.procs):
+            if p.poll() is not None:
+                raise AssertionError(f"node {i} exited with {p.returncode}:\n{self.tail(i)}")
+
+    async def until(self, cond, timeout: float, what: str):
+        deadline = time.monotonic() + timeout
+        while True:
+            self.check_alive()
+            try:
+                got = cond()
+                if got:
+                    return got
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{what}: not within {timeout} s")
+            await asyncio.sleep(0.5)
+
+    def shards_view(self, i: int) -> dict:
+        return http_json(self.admin[i], "/v1/shards")
+
+    def counts(self, i: int, sid: int) -> dict:
+        """Node i's shard `sid`: its own registry's probe samples and
+        kernel launches, {SAMPLES: {...}, LAUNCH_COUNTS: {...}}."""
+        text = http_json(self.admin[i], f"/v1/shards/{sid}/metrics")
+        return {f: by_kernel(text, f) for f in (SAMPLES, LAUNCH_COUNTS)}
+
+    def led_by(self, i: int, sid: int) -> int:
+        """How many raft groups shard `sid` of node i leads, from its own
+        registry."""
+        for line in http_json(self.admin[i], f"/v1/shards/{sid}/metrics").splitlines():
+            if line.split(" ")[0].endswith("_shard_leaders"):
+                return int(float(line.split(" ")[1]))
+        return 0
+
+    async def place(self, topics, timeout: float = 60.0) -> int:
+        """Move the leaders as KafkaCluster.place does, partition p of the
+        k-th topic to node (p + k) % nodes, through the raft
+        TransferLeadership RPC (the controller's leader balancer sends the
+        same) to every other node, whichever leads the partition hands it
+        over; again until the metadata shows every one placed. Returns how
+        many partitions had another leader at first. The even spread
+        leaves the leader balancer, which moves one when two nodes' counts
+        differ by 2, nothing to move mid-traffic."""
+        from redpanda_tpu_torch.raft import types as rt
+        from redpanda_tpu_torch.rpc.transport import TcpTransport
+        from redpanda_tpu_torch.rpc.types import RpcError
+
+        plan = {(name, p): (p + k) % self.nodes for k, (name, parts, _) in enumerate(topics) for p in range(parts)}
+        groups = {key: http_json(self.admin[0], f"/v1/partitions/kafka/{key[0]}/{key[1]}")["group"]
+                  for key in plan}
+        conns: dict = {}
+
+        async def transfer(conn, group, target):
+            req = rt.TransferLeadershipRequest(group=group, target=target).encode()
+            # "not leader here" and a target still catching up are
+            # answered without success: asked again next round
+            with contextlib.suppress(RpcError, ConnectionError, OSError):
+                await conn.call(rt.TRANSFER_LEADERSHIP, req, 10.0)
+
+        deadline, moved = time.monotonic() + timeout, None
+        try:
+            while True:
+                led = {}
+                for name, _, _ in topics:
+                    md = await self.client.metadata([name])
+                    led.update({(name, p.partition_index): p.leader_id for p in md.topics[0].partitions})
+                todo = [key for key, node in plan.items() if led.get(key) != node]
+                if moved is None:
+                    moved = len(todo)
+                if not todo:
+                    return moved
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"leaders never placed: {todo}")
+                for i in range(self.nodes):
+                    if not (i in conns and conns[i].is_connected()):
+                        conns[i] = TcpTransport("127.0.0.1", self.rpc[i])
+                        await conns[i].connect()
+                await asyncio.gather(*(transfer(conns[i], groups[key], plan[key]) for key in todo
+                                       for i in range(self.nodes) if i != plan[key]))
+                await asyncio.sleep(0.5)
+        finally:
+            for c in conns.values():
+                await c.close()
+
+    def cli(self, *args, timeout: float = 60.0) -> subprocess.CompletedProcess:
+        return subprocess.run(
+            [sys.executable, "-m", "redpanda_tpu_torch.cli", "--brokers", f"127.0.0.1:{self.kafka[0]}",
+             "--admin", f"http://127.0.0.1:{self.admin[0]}", *args],
+            cwd=REPO, capture_output=True, text=True, timeout=timeout)
+
+    async def create(self, topics, rf: int = PROC_NODES, timeout: float = 60.0) -> None:
+        """Create each (name, partitions, configs) through the port's
+        CLI (retried while the controller elects), wait until every
+        partition has a leader, and place the leaders (`place`)."""
+        for name, parts, configs in topics:
+            args = ["topic", "create", name, "-p", str(parts), "-r", str(rf)]
+            for k, v in configs.items():
+                args += ["-c", f"{k}={v}"]
+            deadline = time.monotonic() + timeout
+            while True:
+                r = self.cli(*args)
+                if r.returncode == 0:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"topic create {name}: {r.stdout}{r.stderr}")
+                await asyncio.sleep(0.5)
+
+        async def led():
+            md = await self.client.metadata([name for name, _, _ in topics])
+            return all(len(t.partitions) == parts and all(p.leader_id >= 0 for p in t.partitions)
+                       for t, (_, parts, _) in zip(md.topics, topics))
+
+        deadline = time.monotonic() + timeout
+        while not await led():
+            self.check_alive()
+            if time.monotonic() > deadline:
+                raise TimeoutError("partitions without a leader")
+            await asyncio.sleep(0.2)
+        await self.place(topics)
+
+    async def stop(self) -> None:
+        if self.client is not None:
+            await self.client.close()
+            self.client = None
+        for p in self.procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in self.procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+            # the node's session holds its worker shards and fork server
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait(timeout=30)
+        for log in self.logs:
+            log.close()
+        self.procs, self.logs = [], []
+
+
+async def visible(cluster, ends: dict, timeout: float = 60.0) -> int:
+    """Wait until every (topic, partition)'s high watermark reaches
+    `ends` (what its acks covered): a leader elected during the traffic
+    reports its high watermark only once it has committed in its term.
+    Returns how many partitions read short at first."""
+    short = 0
+    for (name, part), end in ends.items():
+        deadline, first = time.monotonic() + timeout, True
+        while await cluster.high_watermark(name, part) < end:
+            short += first
+            first = False
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{name}/{part}: acked up to {end}, high watermark never reached it")
+            await asyncio.sleep(0.1)
+    return short
+
+
+def acked_ends(batches, bases) -> dict:
+    ends: dict = {}
+    for (name, part, _, records), base in zip(batches, bases):
+        ends[(name, part)] = max(ends.get((name, part), 0), base + len(records))
+    return ends
+
+
+async def fetched(cluster, run: dict, topics) -> dict:
+    """`run` (a produce's) with every partition of `topics` fetched
+    back: records and hwm as check_broker_run reads them, the rest of
+    fetch_all's keys prefixed "fetch_"."""
+    got = await cluster.fetch_all(topics)
+    run.update({f"fetch_{k}": v for k, v in got.items()})
+    run["records"], run["hwm"] = run.pop("fetch_records"), run.pop("fetch_hwm")
+    return run
+
+
+def remap_partitions(batches, parts: list) -> list:
+    """broker_batches made for len(parts) partitions, sent to `parts`."""
+    return [(name, parts[p], wire, records) for name, p, wire, records in batches]
+
+
+async def process_scenario(data_dir: str, device: str, partitions: int, count: int, restart_count: int,
+                           seed: int, env=None) -> dict:
+    """Part A: start the nodes, create the topic with the CLI and place
+    its leaders, produce `count` acks=all batches and fetch every
+    partition back; SIGKILL node 0's worker shard (its pid from GET
+    /v1/shards), wait for its restart, place the leaders again (the kill
+    moved those of the worker's partitions to other nodes), produce
+    `restart_count` more batches to the worker's partitions that node 0
+    leads and fetch everything back again.
+
+    Every process's probe samples and kernel launches (ProcessCluster
+    .counts) are read just before the first produce, of the worker just
+    before the kill and again once it leads, and of every process after
+    the last fetch: `path` is what the traffic ran (the killed worker's
+    up to the kill, the restarted one's since it leads), `worker` what
+    the restarted worker ran for the last `restart_count` batches.
+    Returns these, the runs, the nodes' shard views and node 0's merged
+    /v1/devplane. On a failure the tails of the nodes' logs are
+    printed."""
+    topics = [(BROKER_TOPIC, partitions, {"compression.type": "lz4"})]
+    batches = broker_batches(seed, [(BROKER_TOPIC, partitions)], count)
+    cluster = ProcessCluster(data_dir, device, env={**PROC_ENV, **(env or {})})
+    t0 = time.perf_counter()
+    try:
+        await cluster.start()
+        await cluster.create(topics)
+        out = {"setup_s": time.perf_counter() - t0}
+        procs = [(i, sid) for i in range(cluster.nodes) for sid in range(cluster.shards)]
+        zero = {p: cluster.counts(*p) for p in procs}
+        run = await cluster.produce(batches)
+        run["short"] = await visible(cluster, acked_ends(batches, run["bases"]))
+        run = await fetched(cluster, run, topics)
+        check_broker_run(run, batches, topics)
+        out["run"] = run
+        victim = int(cluster.shards_view(0)["liveness"]["alive"]["1"])
+        killed = cluster.counts(0, 1)
+        os.kill(victim, signal.SIGKILL)
+        t1 = time.perf_counter()
+
+        def restarted():
+            live = cluster.shards_view(0)["liveness"]
+            return (live["shard_restarts"].get("1") == 1 and live["alive"].get("1") not in (None, victim)
+                    and http_json(cluster.admin[0], "/v1/shards/1")["available"])
+
+        await cluster.until(restarted, 60.0, "node 0's worker restarted")
+        out["restart_s"] = time.perf_counter() - t1
+        owned = sorted(int(e["ntp"].rsplit("/", 1)[1]) for e in http_json(cluster.admin[0], "/v1/placement")["entries"]
+                       if e["shard"] == 1 and e["ntp"].startswith(f"kafka/{BROKER_TOPIC}/"))
+        # the kill moved the leaders of the worker's partitions to other
+        # nodes; placed again, node 0's worker leads those node 0 led
+        back = [p for p in owned if p % cluster.nodes == 0]
+        if not back:
+            raise AssertionError("node 0's worker owns no partition that node 0 leads")
+        t1 = time.perf_counter()
+        while True:
+            # the metadata can still show node 0 before the other nodes
+            # elect: placed until the worker's own count agrees
+            await cluster.place(topics)
+            if cluster.led_by(0, 1) >= len(back):
+                break
+            if time.perf_counter() - t1 > 60.0:
+                raise TimeoutError(f"node 0's worker never led {back}")
+            await asyncio.sleep(0.5)
+        out["lead_s"] = time.perf_counter() - t1
+        reborn = cluster.counts(0, 1)
+        more = remap_partitions(broker_batches(seed + 1, [(BROKER_TOPIC, len(back))], restart_count), back)
+        again = await cluster.produce(more)
+        again["short"] = await visible(cluster, acked_ends(batches + more, run["bases"] + again["bases"]))
+        again = await fetched(cluster, again, topics)
+        check_broker_run({**again, "bases": run["bases"] + again["bases"]}, batches + more, topics)
+        end = {p: cluster.counts(*p) for p in procs}
+        out.update(again=again, owned=owned, back=back, victim=victim)
+        out["worker"] = counts_since(end[(0, 1)], reborn)
+        path: dict = {}
+        for p in procs:
+            if p != (0, 1):
+                add_counts(path, counts_since(end[p], zero[p]))
+        add_counts(path, counts_since(killed, zero[(0, 1)]))
+        out["path"] = add_counts(path, out["worker"])
+        out["views"] = [cluster.shards_view(i) for i in range(cluster.nodes)]
+        out["devplane"] = http_json(cluster.admin[0], "/v1/devplane")
+        out["compute_apps"] = nvidia_smi_apps()
+    except BaseException:
+        for i in range(len(cluster.logs)):
+            print(f"--- node {i} log tail\n{cluster.tail(i)}", file=sys.stderr)
+        raise
+    finally:
+        await cluster.stop()
+    return out
+
+
+def check_processes(r: dict, env: dict, device: str) -> None:
+    """Part A's checks: one restart on node 0 (the kill) and none
+    anywhere else; the restarted worker ran the heartbeat tick for the
+    last batches (its samples, and on the card its kernels' launches);
+    each seam `env` arms has samples in node 0's /v1/devplane and, on the
+    card, launches in the traffic (records were checked by
+    process_scenario)."""
+    for i, view in enumerate(r["views"]):
+        live = view["liveness"]
+        want = {"1": 1} if i == 0 else {}
+        if not view["sharded"] or live["shard_restarts"] != want or live["restarts"] != len(want):
+            raise AssertionError(f"node {i}: restarts {live['shard_restarts']} (want {want}): {live}")
+        if live["gray_failures"] or live["failed"] or "1" not in live["alive"]:
+            raise AssertionError(f"node {i}: shard runtime not whole: {live}")
+    wanted = [(SAMPLES, name) for name in WORKER_PROBES]
+    if device == "cuda":
+        wanted += [(LAUNCH_COUNTS, name) for name in WORKER_KERNELS]
+    for family, name in wanted:
+        if r["worker"][family].get(name, 0) <= 0:
+            raise AssertionError(f"the restarted worker ran no {name} for the last batches: {r['worker']}")
+    kernels = r["devplane"].get("kernels", {})
+    for (var, value), (probe, kernel) in SEAM_PROBES.items():
+        if env.get(var) != value:
+            continue
+        if kernels.get(probe, {}).get("count", 0) <= 0:
+            raise AssertionError(f"node 0's /v1/devplane has no {probe} samples: {sorted(kernels)}")
+        if device == "cuda" and r["path"][LAUNCH_COUNTS].get(kernel, 0) <= 0:
+            raise AssertionError(f"the traffic launched no {kernel}: {r['path']}")
+
+
+def nvidia_smi_apps() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True,
+        ).stdout.strip().replace("\n", "; ")
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable ({e})"
+
+
+async def tiered_scenario(pkg, data_dir: str, batches, segment_bytes: int, per_request: int, **cfg) -> dict:
+    """Part B: three Brokers sharing one bucket directory, one topic of
+    one partition at RF=3 with remote write / read, `segment_bytes`
+    segments and as much local retention; `batches` produced acks=all,
+    `per_request` batches a request; then every broker's
+    archival.run_once() and housekeeping(), and the partition fetched
+    back from offset 0 (below the local start: hydrated from the
+    bucket). Returns the records, the bases of the requests, each stored
+    segment object beside the local segment it came from, and the
+    hydrations."""
+    cluster = KafkaCluster(pkg, data_dir, **cfg)
+    configs = {"compression.type": "none", "redpanda.remote.write": "true",
+               "redpanda.remote.read": "true", "segment.bytes": str(segment_bytes),
+               "retention.local.target.bytes": str(segment_bytes)}
+    topics = [(TIERED_TOPIC, 1, configs)]
+    t0 = time.perf_counter()
+    out: dict = {}
+    try:
+        await cluster.start()
+        await cluster.create(topics, rf=cluster.nodes)
+        out["setup_s"] = time.perf_counter() - t0
+        bases, lat = [], []
+        t1 = time.perf_counter()
+        for i in range(0, len(batches), per_request):
+            wire = b"".join(w for _, _, w, _ in batches[i:i + per_request])
+            t2 = time.perf_counter()
+            bases.append(await cluster.client.produce_wire(TIERED_TOPIC, 0, wire, acks=-1))
+            lat.append(time.perf_counter() - t2)
+        out.update(bases=bases, lat_s=lat, produce_s=time.perf_counter() - t1)
+        await cluster.place(topics)
+        leader = next(r for r in cluster.replicas((TIERED_TOPIC, 0)) if r.is_leader)
+        leader.log.flush()
+        local = {}
+        for seg in leader.log._segments[:-1]:
+            with open(seg._path, "rb") as f:
+                local[int(seg.base_offset)] = f.read()
+        t1 = time.perf_counter()
+        out["uploaded"] = sum([await b.archival.run_once() for b in cluster.brokers])
+        out["archive_s"] = time.perf_counter() - t1
+        for b in cluster.brokers:
+            b.storage.log_mgr.housekeeping()
+        out["local_start"] = int(leader.log.offsets().start_offset)
+        man = leader.archiver.manifest
+        out["objects"] = [(int(m.base_offset), await leader.archiver.store.get(man.segment_key(m)),
+                           int(m.size_bytes), int(m.size_compressed)) for m in man.segments]
+        out["local"] = local
+        end = await cluster.high_watermark(TIERED_TOPIC, 0)
+        rows, offset, t1 = [], 0, time.perf_counter()
+        while offset < end:
+            recs = await cluster.client.fetch(TIERED_TOPIC, 0, offset, max_bytes=8 << 20, max_wait_ms=100)
+            if recs:
+                rows.extend(recs)
+                offset = recs[-1][0] + 1
+        out.update(records=rows, hwm=end, fetch_s=time.perf_counter() - t1,
+                   hydrations=sum(b.remote_reader.hydrations for b in cluster.brokers))
+    finally:
+        await cluster.stop()
+    return out
+
+
+def host_zstd_decompress(blob: bytes) -> bytes:
+    """One zstd frame decoded by libzstd through ctypes (the card's
+    machine has libzstd and no zstandard module)."""
+    import ctypes
+    import ctypes.util
+
+    name = ctypes.util.find_library("zstd")
+    if not name:
+        raise RuntimeError("no host zstd decoder: libzstd not found")
+    lib = ctypes.CDLL(name)
+    lib.ZSTD_getFrameContentSize.restype = ctypes.c_ulonglong
+    lib.ZSTD_getFrameContentSize.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
+    lib.ZSTD_decompress.restype = ctypes.c_size_t
+    lib.ZSTD_decompress.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_size_t]
+    lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
+    size = lib.ZSTD_getFrameContentSize(blob, len(blob))
+    if size >= (1 << 63):
+        raise ValueError("zstd frame without a content size")
+    out = ctypes.create_string_buffer(max(1, size))
+    n = lib.ZSTD_decompress(out, size, blob, len(blob))
+    if lib.ZSTD_isError(n) or n != size:
+        raise ValueError(f"libzstd could not decode a {len(blob)}-byte frame")
+    return out.raw[:size]
+
+
+def check_tiered(run: dict, batches, per_request: int) -> None:
+    """Every request acknowledged at its offset, every record fetched
+    back equal at its offset from 0, the log trimmed below what was
+    archived, and each stored object decoding to the bytes of its local
+    segment (libzstd where it is compressed)."""
+    want, n = [], 0
+    for i in range(0, len(batches), per_request):
+        if run["bases"][i // per_request] != n:
+            raise AssertionError(f"request {i // per_request} acked at {run['bases'][i // per_request]}, "
+                                 f"expected {n}")
+        for _, _, _, records in batches[i:i + per_request]:
+            want.extend((n + r, k, v) for r, (k, v) in enumerate(records))
+            n += len(records)
+    if run["hwm"] != n or run["records"] != want:
+        raise AssertionError(f"tiered partition: high watermark {run['hwm']} of {n}, or records differ")
+    if not run["objects"] or run["uploaded"] != len(run["objects"]) or run["local_start"] <= 0:
+        raise AssertionError(f"{run['uploaded']} segments uploaded, {len(run['objects'])} in the manifest, "
+                             f"local start {run['local_start']}")
+    for base, blob, size, size_compressed in run["objects"]:
+        body = host_zstd_decompress(blob) if size_compressed else blob
+        if size_compressed not in (0, len(blob)) or len(body) != size or body != run["local"].get(base):
+            raise AssertionError(f"segment object at {base} does not decode to its local segment")
+    if run["hydrations"] <= 0:
+        raise AssertionError("the fetch from offset 0 hydrated nothing")
+
+
+def tiered_batches(seed: int, total: int) -> list:
+    return broker_batches(seed, [(TIERED_TOPIC, 1)], max(1, total // (RECORDS * RECORD_BYTES)))
+
+
+def run_tiered(device: str, total: int = TIERED_BYTES, segment_bytes: int = TIERED_SEGMENT,
+               per_request: int = TIERED_PER_REQUEST, seed: int = SEED + 14) -> dict:
+    """Part B on the port: the card's zstd leg (TIERED_ENV) with the zstd
+    launches counted around its run, then the host leg (HOST_LEG_ENV) on
+    the same batches; both checked."""
+    import shutil
+    import tempfile
+
+    pkg = port_broker()
+    batches = tiered_batches(seed, total)
+    tmp = tempfile.mkdtemp(prefix="rp_tiered_")
+    cfg = dict(device=device, archival_interval_s=0, housekeeping_interval_s=0)
+    try:
+        with environ(TIERED_ENV):
+            reset_launches()
+            dev = asyncio.run(tiered_scenario(pkg, os.path.join(tmp, "device"), batches, segment_bytes,
+                                              per_request, cloud_storage_dir=os.path.join(tmp, "bucket-d"),
+                                              **cfg))
+            dev["launches"] = {k: KERNELS[k][2][k] for k in ("zstd_encode", "zstd_decode")}
+        with environ(HOST_LEG_ENV):
+            host = asyncio.run(tiered_scenario(pkg, os.path.join(tmp, "host"), batches, segment_bytes,
+                                               per_request, cloud_storage_dir=os.path.join(tmp, "bucket-h"),
+                                               **cfg))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_tiered(dev, batches, per_request)
+    check_tiered(host, batches, per_request)
+    if dev["records"] != host["records"] or dev["bases"] != host["bases"]:
+        raise AssertionError("the card's zstd leg and the host leg differ in records or offsets")
+    idle = [k for k, v in dev["launches"].items() if v <= 0]
+    if idle and device == "cuda":
+        raise AssertionError(f"the tiered brokers never launched {idle}")
+    if dev["objects"] and not all(o[3] for o in dev["objects"]):
+        raise AssertionError("the card's leg stored a segment uncompressed")
+    dev["host"], dev["batches"], dev["bytes"] = host, len(batches), len(batches) * RECORDS * RECORD_BYTES
+    return dev
+
+
+def run_processes(device: str, partitions: int = BROKER_PARTITIONS, count: int = BROKER_BATCHES,
+                  restart_count: int = PROC_RESTART_BATCHES, seed: int = SEED + 15, env=None) -> dict:
+    """Part A on the port: process_scenario in a fresh data dir (`env`
+    over PROC_ENV), checked; `launches` are the kernel launches of its
+    traffic."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="rp_procs_")
+    try:
+        r = asyncio.run(process_scenario(tmp, device, partitions, count, restart_count, seed, env))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_processes(r, {**PROC_ENV, **(env or {})}, device)
+    r["launches"] = r["path"][LAUNCH_COUNTS]
+    return r
+
+
+def phase_entry_points() -> dict:
+    """Phase 14: the port as users start it (part A: run_processes;
+    part B: run_tiered), its checks and numbers."""
+    t0 = time.perf_counter()
+    a = run_processes("cuda")
+    t_a = time.perf_counter() - t0
+    b = run_tiered("cuda")
+    smi = nvidia_smi()
+
+    def lat(xs):
+        ms = np.asarray(xs) * 1e3
+        return f"p50 {pct(ms, 50):.3f} ms p99 {pct(ms, 99):.3f} ms"
+
+    def traffic(x, tag):
+        return (f"{tag}: produce {len(x['lat_s'])} acks=all batches in {x['wall_s']:.3f} s (per batch "
+                f"{lat(x['lat_s'])}); fetch {x['fetch_bytes']} B of records in {x['fetch_responses']} responses, "
+                f"{x['fetch_wall_s']:.3f} s = {x['fetch_bytes'] / x['fetch_wall_s'] / 1e6:.1f} MB/s (per fetch "
+                f"call {lat(x['fetch_lat_s'])}); {x['short']} partitions read a high watermark short of their "
+                f"acks first")
+
+    log(f"[procs] {smi}: {PROC_NODES} nodes `python -m redpanda_tpu_torch --device cuda --shards {PROC_SHARDS}` "
+        f"({' '.join(f'{k}={v}' for k, v in PROC_ENV.items())}); topic {BROKER_TOPIC} created with the CLI, "
+        f"{BROKER_PARTITIONS} partitions RF=3 compression.type=lz4; setup {a['setup_s']:.3f} s; "
+        + traffic(a["run"], "first"))
+    log(f"[procs] SIGKILL of node 0's worker (pid {a['victim']}): serving again in {a['restart_s']:.3f} s; "
+        f"leaders placed again in {a['lead_s']:.3f} s, the worker leading {len(a['back'])} of its "
+        f"{len(a['owned'])} partitions; " + traffic(a["again"], f"then those {len(a['back'])}")
+        + f" (the fetch re-reads all {BROKER_PARTITIONS} partitions); every record back equal at its offset")
+    log(f"[procs] restarts {[v['liveness']['shard_restarts'] for v in a['views']]}; the restarted worker for "
+        f"the last batches: probe samples {a['worker'][SAMPLES]}, launches {a['worker'][LAUNCH_COUNTS]}; "
+        f"node 0's /v1/devplane samples "
+        f"{ {k: v['count'] for k, v in a['devplane'].get('kernels', {}).items()} }; the traffic's probe calls in "
+        f"all {PROC_NODES * PROC_SHARDS} processes (RP_DEVPLANE_SAMPLE=1) {a['path'][SAMPLES]}, launches "
+        f"{a['path'][LAUNCH_COUNTS]}; compute apps: {a['compute_apps']}; part A {t_a:.1f} s")
+    h = b["host"]
+    log(f"[tiered] {smi}: 3 Brokers (cuda), {' '.join(f'{k}={v}' for k, v in TIERED_ENV.items())}, topic "
+        f"{TIERED_TOPIC} 1 partition RF=3 remote write/read, segment.bytes = retention.local.target.bytes = "
+        f"{TIERED_SEGMENT} B; {b['batches']} batches ({b['bytes']} B of records), {TIERED_PER_REQUEST} a "
+        f"request: setup {b['setup_s']:.3f} s, produce {b['produce_s']:.3f} s (per request {lat(b['lat_s'])}, "
+        f"{b['bytes'] / b['produce_s'] / 1e6:.1f} MB/s); {b['uploaded']} segments archived in "
+        f"{b['archive_s']:.3f} s ({sum(len(o[1]) for o in b['objects'])} B stored for "
+        f"{sum(o[2] for o in b['objects'])} B); local start {b['local_start']}; fetch from 0 in "
+        f"{b['fetch_s']:.3f} s = {b['bytes'] / b['fetch_s'] / 1e6:.1f} MB/s, {b['hydrations']} hydrations; "
+        f"launches {b['launches']}")
+    log(f"[tiered] host leg ({' '.join(f'{k}={v}' for k, v in HOST_LEG_ENV.items())}): produce "
+        f"{h['produce_s']:.3f} s, archive {h['archive_s']:.3f} s, fetch {h['fetch_s']:.3f} s, {h['hydrations']} "
+        f"hydrations; records and offsets equal to the card's leg; every stored object decodes (libzstd where "
+        f"compressed) to its local segment; phase 14 {time.perf_counter() - t0:.1f} s")
+    launches = dict(a["launches"])
+    for k, v in b["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    return {"launches": launches, "procs": a["launches"], "tiered": b["launches"]}
+
+
 def nvidia_smi() -> str:
     try:
         return subprocess.run(
@@ -4058,9 +4789,10 @@ def main() -> int:
     # election timers (1.5 s), and phase 12's fsync'd logs leave the disk
     # writing back behind it
     broker = phase_broker()
+    entry = phase_entry_points()
     live = phase_live_raft()
     for launches in (seg["launches"], zr["launches"], mesh["launches"], cluster["launches"],
-                     live["launches"]["path"], broker["launches"]):
+                     live["launches"]["path"], broker["launches"], entry["launches"]):
         for name, count in launches.items():
             path_launches[name] = path_launches.get(name, 0) + count
     missing = [k for k in KERNELS if k not in OFF_PATH and path_launches.get(k, 0) <= 0]
@@ -4069,7 +4801,8 @@ def main() -> int:
     log(f"[launches] main path (batch CRCs: crc32c_device {rb['launches']}; codec path: {rc['launches']}; "
         f"segment path: {seg['launches']}; zstd batches: {zr['launches']}; mesh: {mesh['launches']}; "
         f"cluster: {cluster['launches']}; live raft: {live['launches']['path']}; "
-        f"broker: {broker['launches']}; no main-path caller: {', '.join(OFF_PATH)}): {path_launches}")
+        f"broker: {broker['launches']}; node processes: {entry['procs']}; tiered brokers: "
+        f"{entry['tiered']}; no main-path caller: {', '.join(OFF_PATH)}): {path_launches}")
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():

@@ -13,15 +13,15 @@ them with plain liblz4 / libsnappy. Decompression stays on the host.
 `compress_many` is the real batched entry: it flattens every 64 KiB
 chunk of every buffer into one padded batch, runs ONE parse + emission
 on the card, and reassembles frames. The entries take no device
-argument: they run on ops.lz4.DEFAULT_DEVICE / ops.snappy.DEFAULT_DEVICE
-(the card), and raise on a machine without one.
+argument: they run on ops.default_device (the card), and raise on a
+machine without one.
 
 The zstd leg (selected by RP_ZSTD_BACKEND=tpu through the registry's
 _zstd_* entries) compresses with the device huff0 encode of ops/zstd.py
 and decompresses profile frames with its device decode: the host walks
 the block scaffolding, then every huff0 stream of every compressed block
 decodes in one launch. Its entries take no device argument either: they
-run on ops.zstd.DEFAULT_DEVICE.
+run on ops.default_device.
 """
 
 from __future__ import annotations

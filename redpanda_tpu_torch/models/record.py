@@ -427,7 +427,7 @@ class RecordBatch:
         <= 64 KiB takes the fused card path (ops/fused.crc_lz4_fused):
         ONE upload yields the Kafka CRC (validated against `verify_crc`,
         replacing the host verify pass) AND the compressed block. It
-        runs on ops.fused.DEFAULT_DEVICE, the card, and raises on a
+        runs on ops.default_device, the card, and raises on a
         machine without one. Everything else runs the host codec
         registry. The call is synchronous, one batch per call."""
         import os

@@ -21,6 +21,10 @@ consensus state and the codecs, built on three legs:
     (one fold per frame) at run time, and any kernel dispatch or
     transfer inside `tick_scope()` but outside a frame bumps
     `devplane_tick_transfers_total`, which an alert rule watches.
+  * **Launch counts** — `count_launches` exports the kernel wrappers'
+    own launch counters as `devplane_kernel_launches` (this package
+    only: the reference's jitted programs have no such counter), so a
+    shard process's launches ride its scrape.
   * **Build events** — every nvcc build `ops/_build.py` runs reaches
     `utils/compileguard.py`'s subscribers: build count and seconds per
     kernel, labeled warmup vs steady (the port's counterpart of an XLA
@@ -135,6 +139,31 @@ def _jit_cache_samples() -> list[tuple[dict, float]]:
 
 registry.gauge(
     "devplane_jit_cache_entries", _jit_cache_samples, _JIT_CACHE_HELP
+)
+
+#: the kernel wrappers' own launch counters (each ops module's
+#: LAUNCHES, registered at its import): a wrapper adds one where it
+#: launches its CUDA kernel, and its plain version counts nothing
+_LAUNCH_TABLES: list[dict] = []
+
+
+def count_launches(table: dict) -> dict:
+    """Export `table` ({kernel: launches}) as the
+    devplane_kernel_launches family; returns it."""
+    _LAUNCH_TABLES.append(table)
+    return table
+
+
+def _launch_samples() -> list[tuple[dict, float]]:
+    return [
+        ({"kernel": k}, float(v)) for t in _LAUNCH_TABLES for k, v in t.items()
+    ]
+
+
+registry.gauge(
+    "devplane_kernel_launches",
+    _launch_samples,
+    "CUDA kernel launches per kernel wrapper in this process",
 )
 
 

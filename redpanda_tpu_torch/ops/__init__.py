@@ -10,6 +10,8 @@
 - zstd: the huff0 literals encode (code lengths, canonical codes, four
   reversed bitstreams) and the huff0 stream decode of the zstd codec
 - fused: CRC + LZ4 / snappy / zstd from one upload
+- default_device: where the codec and CRC entries run when their
+  caller names no device
 
 Each module holds a kernel wrapper and its plain PyTorch version; the
 sources live in `csrc/` and `_build` compiles them on first use.

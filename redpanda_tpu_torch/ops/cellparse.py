@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import torch
 
+from ..observability import devplane
 from . import _build
 
 CELL = 16  # parse grid: one sequence decision per CELL bytes
@@ -50,7 +51,7 @@ _HASH_BITS = 16
 _TAIL_GUARD = 12  # no match may start near the end (LZ4 spec; safe for snappy)
 _PRIME = 2654435761
 
-LAUNCHES = {"cell_parse": 0}
+LAUNCHES = devplane.count_launches({"cell_parse": 0})
 
 _LIB = None
 

@@ -28,15 +28,12 @@ import functools
 import numpy as np
 import torch
 
-from ..models.consensus_state import check_device
 from ..observability import devplane
 from ..utils.crc import _TABLE as _BYTE_TABLE
-from . import _build
+from . import _build, default_device
 
-# crc32c_batch_device(device=None) runs here; the CPU tests set it to "cpu"
-DEFAULT_DEVICE = "cuda"
 
-LAUNCHES = {"crc32c_device": 0}
+LAUNCHES = devplane.count_launches({"crc32c_device": 0})
 
 # csrc/crc32c.cu's two shapes, (warps a team, bytes a lane folds per
 # tile of 32 lanes): ONE when there are no more rows than SMs, else MANY
@@ -242,7 +239,7 @@ def crc32c_rows(data: torch.Tensor, lens: torch.Tensor, add: int = 0) -> torch.T
 def crc32c_batch_device(bufs: np.ndarray, lens: np.ndarray, device=None) -> np.ndarray:
     """Drop-in device counterpart of utils.crc.crc32c_batch (same padded
     [n, stride] layout produced by models.record.batch_crcs)."""
-    dev = check_device(device or DEFAULT_DEVICE)
+    dev = default_device.resolve(device)
     bufs = np.ascontiguousarray(bufs, dtype=np.uint8)
     lens = np.asarray(lens, dtype=np.int64)
     if lens.size and int(lens.max()) > bufs.shape[1]:

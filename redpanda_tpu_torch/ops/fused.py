@@ -56,9 +56,8 @@ import functools
 import numpy as np
 import torch
 
-from ..models.consensus_state import check_device
 from ..observability import devplane
-from . import _build, lz4, snappy, zstd
+from . import _build, default_device, lz4, snappy, zstd
 from . import cellparse as cp
 from . import crc32c as crc_ops
 from .cellparse import CELL
@@ -66,10 +65,8 @@ from .crc32c import crc32c_rows
 
 PREFIX = 40  # models/record.py _CRC_PREFIX packed size
 
-# entries with device=None run here; the CPU tests set it to "cpu"
-DEFAULT_DEVICE = "cuda"
 
-LAUNCHES = {"fused_lz4": 0, "fused_snappy": 0, "fused_zstd": 0}
+LAUNCHES = devplane.count_launches({"fused_lz4": 0, "fused_snappy": 0, "fused_zstd": 0})
 
 # the codecs of the cluster kernel: each one's id in the C entries (CODEC_*
 # in csrc/fused.cu), its launch entry, its block's bound and its parse +
@@ -312,7 +309,7 @@ def _fused_entry(prefixes, bodies, kernel, bound_fn, preamble_fn, device):
     assert len(prefixes) == len(bodies)
     if not bodies:
         return np.empty(0, np.uint32), []
-    dev = check_device(device or DEFAULT_DEVICE)
+    dev = default_device.resolve(device)
     batch, body_len, n = stage_fused(prefixes, bodies)
     crc, out, out_len = kernel(
         torch.from_numpy(batch).to(dev), torch.from_numpy(body_len).to(dev), n
@@ -428,7 +425,7 @@ def crc_zstd_fused(prefixes: "list[bytes]", bodies: "list", device=None):
     assert len(prefixes) == len(bodies)
     if not bodies:
         return np.empty(0, np.uint32), []
-    dev = check_device(device or DEFAULT_DEVICE)
+    dev = default_device.resolve(device)
     batch, body_len, n = stage_fused(prefixes, bodies, _zstd_width)
     crc, nbits, streams, bits = _fused_zstd(
         torch.from_numpy(batch).to(dev), torch.from_numpy(body_len).to(dev), n

@@ -41,7 +41,7 @@ from ..observability import devplane
 from . import _build
 from . import quorum as q
 
-LAUNCHES = {"health_reduce": 0, "health_totals": 0}
+LAUNCHES = devplane.count_launches({"health_reduce": 0, "health_totals": 0})
 
 # the fleet totals health_totals returns, in order (mesh_frame.py)
 TOTALS = ("advanced", "max_follower_lag", "under_replicated", "leaderless", "active")

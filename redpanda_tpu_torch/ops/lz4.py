@@ -31,16 +31,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.consensus_state import check_device
 from ..observability import devplane
-from . import _build
+from . import _build, default_device
 from . import cellparse as cp
 from .cellparse import CELL
 
-LAUNCHES = {"lz4_emit": 0}
-
-# entries with device=None run here; the CPU tests set it to "cpu"
-DEFAULT_DEVICE = "cuda"
+LAUNCHES = devplane.count_launches({"lz4_emit": 0})
 
 
 def out_bound(n: int) -> int:
@@ -202,7 +198,7 @@ def compress_chunks(chunks: "list[bytes | np.ndarray]", device=None) -> "list[by
     upload and one parse + emission launch for all of them."""
     if not chunks:
         return []
-    dev = check_device(device or DEFAULT_DEVICE)
+    dev = default_device.resolve(device)
     batch, valid, n = stage_chunks(as_arrays(chunks), "lz4")
     out, out_len = _compress_chunks(
         torch.from_numpy(batch).to(dev), torch.from_numpy(valid).to(dev), n

@@ -65,7 +65,7 @@ from . import _build
 I64_MIN = -(2**63)
 MAX_REPLICA_SLOTS = 32  # the commit kernel keeps a row in registers
 
-LAUNCHES = {
+LAUNCHES = devplane.count_launches({
     "fold_replies": 0,
     "quorum_commit_step": 0,
     "build_heartbeats": 0,
@@ -73,7 +73,7 @@ LAUNCHES = {
     "mesh_tick_frame": 0,
     "follower_commit_step": 0,
     "local_append_update": 0,
-}
+})
 
 _LIB = None
 

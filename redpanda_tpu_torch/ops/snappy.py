@@ -26,16 +26,13 @@ from __future__ import annotations
 
 import torch
 
-from ..models.consensus_state import check_device
 from ..observability import devplane
 from . import cellparse as cp
+from . import default_device
 from . import lz4
 from .cellparse import CELL
 
-LAUNCHES = {"snappy_emit": 0}
-
-# entries with device=None run here; the CPU tests set it to "cpu"
-DEFAULT_DEVICE = "cuda"
+LAUNCHES = devplane.count_launches({"snappy_emit": 0})
 
 
 def out_bound(n: int) -> int:
@@ -139,7 +136,7 @@ def compress_chunks(chunks: "list", device=None) -> "list[bytes]":
     emission launch for all of them."""
     if not chunks:
         return []
-    dev = check_device(device or DEFAULT_DEVICE)
+    dev = default_device.resolve(device)
     batch, valid, n = lz4.stage_chunks(lz4.as_arrays(chunks), "snappy")
     out, out_len = _compress_chunks(
         torch.from_numpy(batch).to(dev), torch.from_numpy(valid).to(dev), n

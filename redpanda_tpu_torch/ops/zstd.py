@@ -52,9 +52,8 @@ import ctypes
 import numpy as np
 import torch
 
-from ..models.consensus_state import check_device
 from ..observability import devplane
-from . import _build
+from . import _build, default_device
 from .lz4 import as_arrays
 
 TABLELOG = 11
@@ -62,10 +61,8 @@ TSIZE = 1 << TABLELOG
 MAX_N = 65536
 DECODE_SLOTS = 4  # streams per decode group (one zstd block's four); csrc/zstd.cu DEC_SLOTS
 
-LAUNCHES = {"zstd_encode": 0, "zstd_decode": 0}
+LAUNCHES = devplane.count_launches({"zstd_encode": 0, "zstd_decode": 0})
 
-# entries with device=None run here; the CPU tests set it to "cpu"
-DEFAULT_DEVICE = "cuda"
 
 _LIB = None
 
@@ -290,7 +287,7 @@ def encode_chunks(chunks: "list[bytes | np.ndarray]", device=None) -> "list[tupl
     zstd_frame.build_block's job."""
     if not chunks:
         return []
-    dev = check_device(device or DEFAULT_DEVICE)
+    dev = default_device.resolve(device)
     arrs = as_arrays(chunks)
     longest = max(a.size for a in arrs)
     if longest > MAX_N:
@@ -503,7 +500,7 @@ def decode_streams(
     does not consume its bits exactly (corrupt frame)."""
     if not streams:
         return []
-    dev = check_device(device or DEFAULT_DEVICE)
+    dev = default_device.resolve(device)
     *mats, index, sbytes, rmax = stage_streams(streams, regens, tables)
     groups = torch.from_numpy(decode_groups(index)).to(dev)
     out, end = decode_staged(*(torch.from_numpy(m).to(dev) for m in (*mats, index)), sbytes, rmax, groups)

@@ -48,7 +48,7 @@ from .mesh import Mesh
 
 RF = 3  # replication factor modeled by the ring placement
 
-LAUNCHES = {"cluster_tick": 0, "election_round": 0}
+LAUNCHES = devplane.count_launches({"cluster_tick": 0, "election_round": 0})
 
 _LIB = None
 

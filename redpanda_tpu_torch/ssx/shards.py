@@ -37,6 +37,20 @@ PartitionMover, on-disk re-adoption) lives in sharded_broker.py's
 ShardLifecycle; seeded process-fault injection for every boundary is
 ssx/procnemesis.py, installed as `runtime.nemesis`.
 
+Worker start (this package only; the JAX package forks each worker
+from the live parent): `start()` forks a *fork server* before anything
+else of the runtime, and every worker — at launch, on a crash restart
+and on `spawn_shard` — is forked from it, never from shard 0. A CUDA
+context does not survive `fork`, and shard 0 initialises CUDA as soon
+as it builds its Broker, so a worker forked from shard 0 after that
+could not use the card; the fork server is forked before shard 0
+touches the card and never touches it itself. The shard's channel
+sockets travel to the fork server over SCM_RIGHTS. The fork server
+double-forks each worker and shard 0 is a child subreaper
+(PR_SET_CHILD_SUBREAPER), so the worker is reparented to shard 0, which
+waits on it, signals it and reads its exit status as before. One
+mechanism on the CPU and on the card.
+
 Stand-down discipline mirrors the native gates (raft/service.py):
 fault-injection layers (file_sanitizer, iofaults) instrument
 *in-process* state that a forked shard cannot see, so the runtime
@@ -46,12 +60,14 @@ operator escape hatch.
 
 from __future__ import annotations
 
+import array
 import asyncio
 import logging
 import os
 import signal
 import socket
 import struct
+import sys
 import traceback
 from typing import Awaitable, Callable, Optional
 
@@ -204,6 +220,175 @@ def _close_inherited_sockets(keep: set[int]) -> None:
                 os.close(fd)
         except OSError:
             continue
+
+
+# --------------------------------------------------------- fork server
+_PR_SET_CHILD_SUBREAPER = 36
+# request: [u16 shard][u16 n_shards][f64 slow_start_s][u16 peer]*, one
+# socket fd a peer in SCM_RIGHTS (peer _GATE: the read end of a pipe the
+# worker waits on before it starts); reply: [i64 worker pid], or -1 and
+# an error text
+_FORK_REQ = struct.Struct("<HHd")
+_FORK_REPLY = struct.Struct("<q")
+_MAX_FDS = 1024
+_GATE = 0xFFFF
+
+
+def _become_subreaper() -> None:
+    """Make this process the reaper of its orphaned descendants, so a
+    worker the fork server double-forks is reparented here."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(_PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        err = ctypes.get_errno()
+        raise OSError(err, f"prctl(PR_SET_CHILD_SUBREAPER): {os.strerror(err)}")
+
+
+class ForkServer:
+    """A process forked from shard 0 before it touches the card, that
+    forks the workers on request (see the module docstring). `fork()`
+    blocks until the worker exists and is shard 0's child, and returns
+    its pid."""
+
+    def __init__(self, body: Callable[[int, int, float, dict, Optional[int]], None]):
+        # body(sid, n_shards, slow_start_s, socks, gate) runs in the
+        # worker and never returns
+        self._body = body
+        self.pid: Optional[int] = None
+        self._sock: Optional[socket.socket] = None
+
+    def start(self) -> None:
+        _become_subreaper()
+        a, b = socket.socketpair(socket.AF_UNIX, socket.SOCK_SEQPACKET)
+        pid = os.fork()
+        if pid:
+            b.close()
+            self.pid, self._sock = pid, a
+            return
+        # ---- fork server: never returns ----
+        status = 1
+        try:
+            a.close()
+            # the parent's loop wakes on its own self-pipe; a signal
+            # here must not write to our copy of it
+            signal.set_wakeup_fd(-1)
+            signal.signal(signal.SIGINT, signal.SIG_IGN)
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            _close_inherited_sockets({b.fileno()})
+            self._serve(b)
+            status = 0
+        except BaseException:
+            traceback.print_exc()
+        finally:
+            os._exit(status)
+
+    def fork(
+        self, sid: int, n_shards: int, slow_start_s: float,
+        socks: dict[int, socket.socket], gate: Optional[int] = None,
+    ) -> int:
+        """`gate`: the read end of a pipe; the worker starts once its
+        write end is closed."""
+        if self._sock is None:
+            raise RuntimeError("fork server not running")
+        peers = sorted(socks)
+        fds = array.array("i", [socks[p].fileno() for p in peers])
+        if gate is not None:
+            peers.append(_GATE)
+            fds.append(gate)
+        msg = _FORK_REQ.pack(sid, n_shards, slow_start_s) + struct.pack(
+            f"<{len(peers)}H", *peers
+        )
+        self._sock.sendmsg(
+            [msg], [(socket.SOL_SOCKET, socket.SCM_RIGHTS, fds)]
+        )
+        reply = self._sock.recv(4096)
+        if len(reply) < _FORK_REPLY.size:
+            raise RuntimeError("fork server closed its channel")
+        (pid,) = _FORK_REPLY.unpack_from(reply)
+        if pid < 0:
+            raise OSError(
+                f"fork server: {reply[_FORK_REPLY.size:].decode(errors='replace')}"
+            )
+        return pid
+
+    def stop(self) -> None:
+        """Close the channel (the server exits on EOF) and reap it."""
+        sock, self._sock = self._sock, None
+        if sock is not None:
+            sock.close()
+        pid, self.pid = self.pid, None
+        if pid is None:
+            return
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:
+            pass
+
+    # -- server side ---------------------------------------------------
+    def _serve(self, sock: socket.socket) -> None:
+        fd_bytes = _MAX_FDS * array.array("i").itemsize
+        while True:
+            msg, anc, _flags, _addr = sock.recvmsg(
+                65536, socket.CMSG_SPACE(fd_bytes)
+            )
+            if not msg:
+                return  # shard 0 closed the channel
+            fds = array.array("i")
+            for level, kind, data in anc:
+                if level == socket.SOL_SOCKET and kind == socket.SCM_RIGHTS:
+                    fds.frombytes(data[: len(data) - len(data) % fds.itemsize])
+            sid, n_shards, slow = _FORK_REQ.unpack_from(msg)
+            n = (len(msg) - _FORK_REQ.size) // 2
+            peers = struct.unpack_from(f"<{n}H", msg, _FORK_REQ.size)
+            gate = None
+            socks = {}
+            for p, fd in zip(peers, fds):
+                if p == _GATE:
+                    gate = fd
+                else:
+                    socks[p] = socket.socket(fileno=fd)
+            try:
+                pid = self._double_fork(sid, n_shards, slow, socks, gate)
+                reply = _FORK_REPLY.pack(pid)
+            except Exception as e:
+                reply = _FORK_REPLY.pack(-1) + repr(e).encode()[:1024]
+            finally:
+                for s in socks.values():
+                    s.close()
+                if gate is not None:
+                    os.close(gate)
+            sock.send(reply)
+
+    def _double_fork(
+        self, sid: int, n_shards: int, slow: float,
+        socks: dict[int, socket.socket], gate: Optional[int],
+    ) -> int:
+        r, w = os.pipe()
+        mid = os.fork()
+        if mid == 0:
+            # ---- intermediate: fork the worker, report its pid, exit
+            status = 1
+            try:
+                os.close(r)
+                pid = os.fork()
+                if pid == 0:
+                    os.close(w)
+                    self._body(sid, n_shards, slow, socks, gate)
+                os.write(w, _FORK_REPLY.pack(pid))
+                status = 0
+            finally:
+                os._exit(status)
+        os.close(w)
+        try:
+            data = os.read(r, _FORK_REPLY.size)
+        finally:
+            os.close(r)
+        # once the intermediate is reaped, its orphan is shard 0's child
+        os.waitpid(mid, 0)
+        if len(data) != _FORK_REPLY.size:
+            raise RuntimeError(f"worker fork for shard {sid} failed")
+        return _FORK_REPLY.unpack(data)[0]
 
 
 # ------------------------------------------------------------- channel
@@ -525,6 +710,8 @@ class ShardRuntime:
         self._hb_inflight: set[int] = set()
         # services registered before start() land on the parent ctx
         self._pre_services: dict[str, Callable] = {}
+        # every worker is forked from here (module docstring)
+        self.fork_server: Optional[ForkServer] = None
 
     # -- parent-side service registry (usable before start) ----------
     def register(self, service: str, handler) -> None:
@@ -552,7 +739,14 @@ class ShardRuntime:
         if reason is not None:
             raise RuntimeError(f"shard runtime stand-down: {reason}")
         self._started = True
-        await self._launch()
+        self.fork_server = ForkServer(self._worker_main)
+        self.fork_server.start()
+        try:
+            await self._launch()
+        except BaseException:
+            self.fork_server.stop()
+            self._started = False
+            raise
         self._reaper = asyncio.ensure_future(self._reap_loop())
 
     async def _launch(self) -> None:
@@ -642,32 +836,50 @@ class ShardRuntime:
         sid: int,
         socks: Optional[dict[int, socket.socket]] = None,
         slow_start_s: float = 0.0,
+        gate: Optional[int] = None,
     ) -> int:
-        """Fork one worker. `socks=None` is the pre-fork launch path
-        (the child derives its channel ends from the full mesh in
-        `self._pairs`); a dict is the dynamic-spawn path — the child
-        keeps exactly those peer sockets and drops every other socket
-        fd it inherited from the live parent (listeners, sibling
-        channels — keeping them open would mask EOFs fleet-wide)."""
-        pid = os.fork()
-        if pid:
-            return pid
-        # ---- child: never returns ----
+        """Fork one worker through the fork server. `socks=None` is the
+        launch path (the child's channel ends are its ends of the full
+        mesh in `self._pairs`); a dict is the dynamic-spawn path. The
+        worker keeps exactly those peer sockets and no other socket fd
+        (listeners, sibling channels — keeping them open would mask
+        EOFs fleet-wide)."""
+        if socks is None:
+            socks = {}
+            for (i, j), (a, b) in self._pairs.items():
+                if i == sid:
+                    socks[j] = a
+                elif j == sid:
+                    socks[i] = b
+        return self.fork_server.fork(
+            sid, max(self.n_shards, sid + 1), slow_start_s, socks, gate
+        )
+
+    def _worker_main(
+        self,
+        sid: int,
+        n_shards: int,
+        slow_start_s: float,
+        socks: dict[int, socket.socket],
+        gate: Optional[int],
+    ) -> None:
+        """A worker's body, in the process the fork server forked for
+        it (`self` is the fork server's copy, made before shard 0 built
+        anything but its config)."""
         status = 1
         try:
-            if socks is None:
-                socks = {}
-                for (i, j), (a, b) in self._pairs.items():
-                    keep = a if i == sid else (b if j == sid else None)
-                    for s in (a, b):
-                        if s is not keep:
-                            s.close()
-                    if keep is not None:
-                        socks[j if i == sid else i] = keep
-            else:
-                _close_inherited_sockets(
-                    {s.fileno() for s in socks.values()}
-                )
+            if gate is not None:
+                os.read(gate, 1)  # EOF: shard 0 let this worker start
+                os.close(gate)
+            _close_inherited_sockets({s.fileno() for s in socks.values()})
+            signal.signal(signal.SIGINT, signal.default_int_handler)
+            torch = sys.modules.get("torch")
+            if torch is not None:
+                # an OpenMP pool that ran before a fork hangs the
+                # child's first parallel op; a shard is pinned to one
+                # core, so it runs one intra-op thread
+                torch.set_num_threads(1)
+            self.n_shards = n_shards
             core = pin_to_core(sid)
             if slow_start_s > 0:
                 # procnemesis slow_start: stall before the event loop
@@ -821,7 +1033,20 @@ class ShardRuntime:
         try:
             fut = self._ready_futs[sid] = loop.create_future()
             a, b = socket.socketpair()
-            pid = self._fork_child(sid, socks={0: b}, slow_start_s=slow_start_s)
+            # the worker waits at its gate until shard 0 has passed the
+            # spawn.forked boundary, as a child of a plain fork would
+            # still be starting there
+            gate_r, gate_w = os.pipe()
+            try:
+                pid = self._fork_child(
+                    sid, socks={0: b}, slow_start_s=slow_start_s,
+                    gate=gate_r,
+                )
+            except BaseException:
+                os.close(gate_w)
+                raise
+            finally:
+                os.close(gate_r)
             b.close()
             self.shard_pids[sid] = pid
             old = self.ctx._channels.pop(sid, None)
@@ -833,7 +1058,10 @@ class ShardRuntime:
             )
             await ch.open()
             self.ctx._channels[sid] = ch
-            self._nemesis_act("spawn.forked", sid, pid=pid)
+            try:
+                self._nemesis_act("spawn.forked", sid, pid=pid)
+            finally:
+                os.close(gate_w)
             deadline = loop.time() + self._ready_timeout
             while not fut.done():
                 if loop.time() >= deadline:
@@ -1044,6 +1272,10 @@ class ShardRuntime:
                 await self._spawn(sid)
             except Exception:
                 logger.exception("shard %d in-place restart failed", sid)
+                if sid in self._retiring or sid in self.retired:
+                    # a retire took the shard over mid-restart (its
+                    # stop reaped the reborn worker): not a crash
+                    return
                 continue
             await self._run_hook(self.on_shard_up, sid)
             self.restart_ms.append((loop.time() - t0) * 1e3)
@@ -1160,4 +1392,6 @@ class ShardRuntime:
         )
         if self.ctx is not None:
             await self.ctx._close_channels()
+        if self.fork_server is not None:
+            self.fork_server.stop()
         self._started = False

@@ -5,7 +5,7 @@ TCP listeners and a KafkaClient (chip_smoke.py's KafkaCluster and
 broker_scenario, given either package's entry points), both under
 RP_CODEC_BACKEND=device and RP_FETCH_VERIFY=1. The port's brokers run
 with `device="cpu"` (the kernels' plain PyTorch versions; an autouse
-fixture points the codec and CRC modules' DEFAULT_DEVICE at the CPU),
+fixture points `ops.default_device` at the CPU),
 the JAX package's with its default quorum backend on the CPU. Both get
 the same seeded traffic: a topic of 4 partitions with
 compression.type=lz4 and an uncompressed topic of 2, RF=3, batches of
@@ -29,10 +29,8 @@ import pytest
 
 import chip_smoke as cs
 from redpanda_tpu_torch.ops import crc32c as crc_ops
+from redpanda_tpu_torch.ops import default_device
 from redpanda_tpu_torch.ops import fused as fused_ops
-from redpanda_tpu_torch.ops import lz4 as lz4_ops
-from redpanda_tpu_torch.ops import snappy as snappy_ops
-from redpanda_tpu_torch.ops import zstd as zstd_ops
 
 SEED = 20_260_118
 LZ4, PLAIN = ("lz4-t", 4, {"compression.type": "lz4"}), ("plain-t", 2, {})
@@ -46,8 +44,7 @@ BATCHES = 12
 def _plain_on_cpu(monkeypatch):
     # the port's codec and CRC entries run on the card by default; on
     # the CPU they run the kernels' plain PyTorch versions
-    for mod in (lz4_ops, snappy_ops, zstd_ops, fused_ops, crc_ops):
-        monkeypatch.setattr(mod, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
 
 
 def ref_broker():

@@ -37,6 +37,7 @@ from redpanda_tpu_torch.compression import CompressionType, lz4_codec, snappy_co
 from redpanda_tpu_torch.compression import tpu_backend as tbackend
 from redpanda_tpu_torch.models import record as trecord
 from redpanda_tpu_torch.ops import cellparse as tcp
+from redpanda_tpu_torch.ops import default_device
 from redpanda_tpu_torch.ops import fused as tfused
 from redpanda_tpu_torch.ops import lz4 as tlz4
 from redpanda_tpu_torch.ops import snappy as tsnappy
@@ -229,7 +230,7 @@ def _batch(mod, seed, text=True):
 
 @pytest.mark.parametrize("text", [True, False], ids=["json", "random"])
 def test_recompressed_matches_jax(monkeypatch, text):
-    monkeypatch.setattr(tfused, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
     monkeypatch.setenv("RP_CODEC_BACKEND", "device")
     tb, jb = _batch(trecord, 11), _batch(jrecord, 11)
     if not text:
@@ -285,8 +286,7 @@ def test_emission_launch_checks_parse(fault):
 
 
 def test_backend_registry_round_trips(monkeypatch):
-    monkeypatch.setattr(tlz4, "DEFAULT_DEVICE", "cpu")
-    monkeypatch.setattr(tsnappy, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
     bufs = list(_payloads().values()) + [_full_row() * 2 + b"tail"]
     assert tbackend.compress_many(bufs) == jbackend.compress_many(bufs)
     assert tbackend.compress_many_snappy(bufs) == jbackend.compress_many_snappy(bufs)
@@ -957,9 +957,7 @@ def test_kernel_replay_edges_match_plain_and_jax(case, codec):
 def test_chip_smoke_decoders_read_port_frames(monkeypatch):
     """chip_smoke.py decodes the card's frames without liblz4/libsnappy:
     its decoders must read what the port writes."""
-    monkeypatch.setattr(tlz4, "DEFAULT_DEVICE", "cpu")
-    monkeypatch.setattr(tsnappy, "DEFAULT_DEVICE", "cpu")
-    monkeypatch.setattr(tfused, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
     monkeypatch.setenv("RP_CODEC_BACKEND", "device")
     bufs = list(_payloads().values()) + [_full_row()]
     for data, frame, stream in zip(

@@ -7,7 +7,7 @@
   running the plain versions on the CPU (the mesh backend, the ring
   cluster step, a GroupManager and a Kafka Broker included), and
   chip_smoke.py exits non-zero without printing a result.
-* ops.crc32c.DEFAULT_DEVICE reaches the callers that pass no device: the
+* ops.default_device reaches the callers that pass no device: the
   broker's fetch verify and models/record.batch_crcs.
 * No kernel wrapper holds a try statement that could route a CUDA
   tensor to its plain version.
@@ -195,7 +195,7 @@ def test_default_crc_device_raises_without_cuda(monkeypatch):
 
 
 def test_crc_default_device_reaches_the_broker_seams(monkeypatch):
-    """ops.crc32c.DEFAULT_DEVICE is what the callers without a device
+    """ops.default_device is what the callers without a device
     argument run on: the fetch verify (kafka/server.py
     _verify_fetch_response) and models/record.batch_crcs. Set to "cpu",
     both run the plain version and agree with the host CRC; left at the
@@ -206,6 +206,7 @@ def test_crc_default_device_reaches_the_broker_seams(monkeypatch):
     from redpanda_tpu_torch.kafka.server import KafkaServer
     from redpanda_tpu_torch.models.record import RecordBatchBuilder, batch_crcs
     from redpanda_tpu_torch.ops import crc32c as crc_ops
+    from redpanda_tpu_torch.ops import default_device
     from redpanda_tpu_torch.utils import crc as host_crc
 
     monkeypatch.delenv("RP_CRC_BACKEND", raising=False)
@@ -213,7 +214,7 @@ def test_crc_default_device_reaches_the_broker_seams(monkeypatch):
     wire = b"".join(b.to_kafka_wire() for b in batches)
     row = SimpleNamespace(records=wire, error_code=0, partition_index=0)
     response = [SimpleNamespace(topic="t", partitions=[row])]
-    assert crc_ops.DEFAULT_DEVICE == "cuda"
+    assert default_device.DEVICE == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):
         batch_crcs(batches)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -226,7 +227,7 @@ def test_crc_default_device_reaches_the_broker_seams(monkeypatch):
         seen.append(data.device.type)
         return plain(data, lens)
 
-    monkeypatch.setattr(crc_ops, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
     monkeypatch.setattr(crc_ops, "crc32c_device", spy)
     want = [host_crc.crc32c(b.body, host_crc.crc32c(b.header.crc_prefix())) for b in batches]
     assert [int(c) for c in batch_crcs(batches)] == want
@@ -388,13 +389,13 @@ def test_zstd_decode_failure_is_not_punted(monkeypatch):
     from redpanda_tpu_torch import compression
     from redpanda_tpu_torch.compression import tpu_backend
     from redpanda_tpu_torch.compression import zstd_frame as zf
-    from redpanda_tpu_torch.ops import _build, zstd
+    from redpanda_tpu_torch.ops import _build, default_device, zstd
 
     def no_punt(_data):
         raise AssertionError("punted to the host codec")
 
     monkeypatch.setattr(compression, "_zstd_uncompress_host", no_punt)
-    monkeypatch.setattr(zstd, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
     frame = _compressed_zstd_frame()
     assert tpu_backend.uncompress_zstd(frame) == zf.reference_decompress(frame)
     for err in (ValueError("huffman stream 0 did not consume its bits exactly (3 left)"),

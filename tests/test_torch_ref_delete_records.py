@@ -1,8 +1,8 @@
-"""tests/test_delete_records.py run on the port: all 2 cases, with imports
-pointed at redpanda_tpu_torch. Brokers run on the CPU
-(`BrokerConfig(device="cpu")`). An autouse fixture sets the codec and
-CRC modules' `DEFAULT_DEVICE` to "cpu" (the kernels' plain versions).
-Nothing is left out.
+"""tests/test_delete_records.py run on the port: all 2 cases, with
+imports pointed at redpanda_tpu_torch. Brokers run on the CPU
+(`BrokerConfig(device="cpu")`). An autouse fixture sets
+`ops.default_device` (the codec and CRC entries' device) to "cpu" (the
+kernels' plain versions). Nothing is left out.
 
 DeleteRecords (API 21) and OffsetDelete (API 47).
 
@@ -22,19 +22,14 @@ from redpanda_tpu_torch.kafka.protocol import ErrorCode, Msg
 from redpanda_tpu_torch.kafka.protocol.admin_apis import DELETE_RECORDS, OFFSET_DELETE
 from redpanda_tpu_torch.models.fundamental import kafka_ntp
 from redpanda_tpu_torch.rpc.loopback import LoopbackNetwork
-from redpanda_tpu_torch.ops import crc32c as crc_ops
-from redpanda_tpu_torch.ops import fused as fused_ops
-from redpanda_tpu_torch.ops import lz4 as lz4_ops
-from redpanda_tpu_torch.ops import snappy as snappy_ops
-from redpanda_tpu_torch.ops import zstd as zstd_ops
+from redpanda_tpu_torch.ops import default_device
 
 
 @pytest.fixture(autouse=True)
 def _plain_on_cpu(monkeypatch):
     # the port's codec and CRC entries run on the card by default; on
     # the CPU they run the kernels' plain PyTorch versions
-    for mod in (lz4_ops, snappy_ops, zstd_ops, fused_ops, crc_ops):
-        monkeypatch.setattr(mod, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
 
 
 @contextlib.asynccontextmanager

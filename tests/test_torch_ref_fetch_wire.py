@@ -1,10 +1,10 @@
 """tests/test_fetch_wire.py run on the port: all 17 cases, with imports
-pointed at redpanda_tpu_torch, `test_verify_on_read_flags_disk_corruption`
-included (RP_FETCH_VERIFY=1: the fetch's CRC verify through
-`ops.crc32c.crc32c_batch_device`). Brokers run on the CPU
-(`BrokerConfig(device="cpu")`) and an autouse fixture sets the codec and
-CRC modules' `DEFAULT_DEVICE` to "cpu", the kernels' plain versions.
-Nothing is left out.
+pointed at redpanda_tpu_torch,
+`test_verify_on_read_flags_disk_corruption` included (RP_FETCH_VERIFY=1:
+the fetch's CRC verify through `ops.crc32c.crc32c_batch_device`).
+Brokers run on the CPU (`BrokerConfig(device="cpu")`) and an autouse
+fixture sets `ops.default_device` (the codec and CRC entries' device) to
+"cpu", the kernels' plain versions. Nothing is left out.
 
 Zero-copy fetch plane tests.
 
@@ -47,19 +47,14 @@ from redpanda_tpu_torch.models.record import (
     wire_crc_payloads,
 )
 from redpanda_tpu_torch.storage import BatchCache, Log, LogConfig
-from redpanda_tpu_torch.ops import crc32c as crc_ops
-from redpanda_tpu_torch.ops import fused as fused_ops
-from redpanda_tpu_torch.ops import lz4 as lz4_ops
-from redpanda_tpu_torch.ops import snappy as snappy_ops
-from redpanda_tpu_torch.ops import zstd as zstd_ops
+from redpanda_tpu_torch.ops import default_device
 
 
 @pytest.fixture(autouse=True)
 def _plain_on_cpu(monkeypatch):
     # the port's codec and CRC entries run on the card by default; on
     # the CPU they run the kernels' plain PyTorch versions
-    for mod in (lz4_ops, snappy_ops, zstd_ops, fused_ops, crc_ops):
-        monkeypatch.setattr(mod, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
 
 
 def make_batch(

@@ -24,11 +24,7 @@ from redpanda_tpu_torch.models.record import (
 )
 from redpanda_tpu_torch.ops.fused import crc_lz4_fused
 from redpanda_tpu_torch.utils import crc as host_crc
-from redpanda_tpu_torch.ops import crc32c as crc_ops
-from redpanda_tpu_torch.ops import fused as fused_ops
-from redpanda_tpu_torch.ops import lz4 as lz4_ops
-from redpanda_tpu_torch.ops import snappy as snappy_ops
-from redpanda_tpu_torch.ops import zstd as zstd_ops
+from redpanda_tpu_torch.ops import default_device
 
 from test_torch_ref_kafka_e2e import broker_cluster, client_for  # noqa: F401
 
@@ -37,8 +33,7 @@ from test_torch_ref_kafka_e2e import broker_cluster, client_for  # noqa: F401
 def _plain_on_cpu(monkeypatch):
     # the port's device codec and CRC entries run on the card by default; on
     # the CPU they run the kernels' plain PyTorch versions
-    for mod in (lz4_ops, snappy_ops, zstd_ops, fused_ops, crc_ops):
-        monkeypatch.setattr(mod, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
 
 
 def _payloads(rng, n, max_len=4000):

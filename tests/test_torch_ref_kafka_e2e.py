@@ -1,10 +1,10 @@
 """tests/test_kafka_e2e.py run on the port: all 10 cases, with imports
 pointed at redpanda_tpu_torch. Every broker is the port's on the CPU
 (`BrokerConfig(device="cpu")`: the raft lanes and the kernels' plain
-PyTorch versions), and an autouse fixture sets the codec and CRC
-modules' `DEFAULT_DEVICE` to "cpu". `broker_cluster` and `client_for`
-are imported from here by `test_torch_ref_fused_codec.py` and
-`test_torch_broker.py`. Nothing is left out.
+PyTorch versions), and an autouse fixture sets `ops.default_device` (the
+codec and CRC entries' device) to "cpu". `broker_cluster` and
+`client_for` are imported from here by `test_torch_ref_fused_codec.py`
+and `test_torch_broker.py`. Nothing is left out.
 
 End-to-end Kafka tests: full brokers in-process, real TCP kafka
 listeners, loopback internal RPC.
@@ -23,19 +23,14 @@ import pytest
 from redpanda_tpu_torch.app import Broker, BrokerConfig
 from redpanda_tpu_torch.kafka.client import KafkaClient, KafkaClientError
 from redpanda_tpu_torch.rpc.loopback import LoopbackNetwork
-from redpanda_tpu_torch.ops import crc32c as crc_ops
-from redpanda_tpu_torch.ops import fused as fused_ops
-from redpanda_tpu_torch.ops import lz4 as lz4_ops
-from redpanda_tpu_torch.ops import snappy as snappy_ops
-from redpanda_tpu_torch.ops import zstd as zstd_ops
+from redpanda_tpu_torch.ops import default_device
 
 
 @pytest.fixture(autouse=True)
 def _plain_on_cpu(monkeypatch):
     # the port's codec and CRC entries run on the card by default; on
     # the CPU they run the kernels' plain PyTorch versions
-    for mod in (lz4_ops, snappy_ops, zstd_ops, fused_ops, crc_ops):
-        monkeypatch.setattr(mod, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
 
 
 @contextlib.asynccontextmanager

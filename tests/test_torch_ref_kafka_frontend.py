@@ -1,8 +1,9 @@
-"""tests/test_kafka_frontend.py run on the port: all 8 cases, with imports
-pointed at redpanda_tpu_torch (the framing's native scanner is the
-port's `utils.native`). Brokers run on the CPU
-(`BrokerConfig(device="cpu")`) and an autouse fixture sets the codec and
-CRC modules' `DEFAULT_DEVICE` to "cpu". Nothing is left out.
+"""tests/test_kafka_frontend.py run on the port: all 8 cases, with
+imports pointed at redpanda_tpu_torch (the framing's native scanner is
+the port's `utils.native`). Brokers run on the CPU
+(`BrokerConfig(device="cpu")`) and an autouse fixture sets
+`ops.default_device` (the codec and CRC entries' device) to "cpu".
+Nothing is left out.
 
 Front-end regression coverage: request framing parity, the
 per-connection pipelining window, and connection-churn teardown.
@@ -28,19 +29,14 @@ from redpanda_tpu_torch.kafka.framing import FrameError, FrameScanner
 from redpanda_tpu_torch.kafka.protocol import FETCH, Msg
 from redpanda_tpu_torch.rpc.loopback import LoopbackNetwork
 from redpanda_tpu_torch.utils import native
-from redpanda_tpu_torch.ops import crc32c as crc_ops
-from redpanda_tpu_torch.ops import fused as fused_ops
-from redpanda_tpu_torch.ops import lz4 as lz4_ops
-from redpanda_tpu_torch.ops import snappy as snappy_ops
-from redpanda_tpu_torch.ops import zstd as zstd_ops
+from redpanda_tpu_torch.ops import default_device
 
 
 @pytest.fixture(autouse=True)
 def _plain_on_cpu(monkeypatch):
     # the port's codec and CRC entries run on the card by default; on
     # the CPU they run the kernels' plain PyTorch versions
-    for mod in (lz4_ops, snappy_ops, zstd_ops, fused_ops, crc_ops):
-        monkeypatch.setattr(mod, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
 
 MAX_FRAME = 1 << 20
 

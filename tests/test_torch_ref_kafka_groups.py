@@ -1,9 +1,9 @@
-"""tests/test_kafka_groups.py run on the port: all 11 cases, with imports
-pointed at redpanda_tpu_torch. The brokers come from
+"""tests/test_kafka_groups.py run on the port: all 11 cases, with
+imports pointed at redpanda_tpu_torch. The brokers come from
 `test_torch_ref_kafka_e2e`'s fixtures, on the CPU
-(`BrokerConfig(device="cpu")`). An autouse fixture sets the codec and
-CRC modules' `DEFAULT_DEVICE` to "cpu" (the kernels' plain versions).
-Nothing is left out.
+(`BrokerConfig(device="cpu")`). An autouse fixture sets
+`ops.default_device` (the codec and CRC entries' device) to "cpu" (the
+kernels' plain versions). Nothing is left out.
 
 Consumer-group coordinator e2e tests.
 
@@ -21,19 +21,14 @@ from redpanda_tpu_torch.kafka.client import KafkaClient, KafkaClientError
 from redpanda_tpu_torch.kafka.protocol import ErrorCode
 
 from test_torch_ref_kafka_e2e import broker_cluster, client_for
-from redpanda_tpu_torch.ops import crc32c as crc_ops
-from redpanda_tpu_torch.ops import fused as fused_ops
-from redpanda_tpu_torch.ops import lz4 as lz4_ops
-from redpanda_tpu_torch.ops import snappy as snappy_ops
-from redpanda_tpu_torch.ops import zstd as zstd_ops
+from redpanda_tpu_torch.ops import default_device
 
 
 @pytest.fixture(autouse=True)
 def _plain_on_cpu(monkeypatch):
     # the port's codec and CRC entries run on the card by default; on
     # the CPU they run the kernels' plain PyTorch versions
-    for mod in (lz4_ops, snappy_ops, zstd_ops, fused_ops, crc_ops):
-        monkeypatch.setattr(mod, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
 
 PROTO = [("range", b"meta-v0")]
 

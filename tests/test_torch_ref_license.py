@@ -1,9 +1,10 @@
 """tests/test_license.py run on the port: all 10 cases, with imports
 pointed at redpanda_tpu_torch. Brokers run on the CPU
-(`BrokerConfig(device="cpu")`). An autouse fixture sets the codec and
-CRC modules' `DEFAULT_DEVICE` to "cpu" (the kernels' plain versions).
-The admin API is read with `test_admin_server`'s `http`, a plain
-HTTP/1.1 client of no package. Nothing is left out.
+(`BrokerConfig(device="cpu")`). An autouse fixture sets
+`ops.default_device` (the codec and CRC entries' device) to "cpu" (the
+kernels' plain versions). The admin API is read with
+`test_admin_server`'s `http`, a plain HTTP/1.1 client of no package.
+Nothing is left out.
 
 License parse/verify/enforcement tests (reference:
 src/v/security/tests/license_test.cc + license.cc semantics)."""
@@ -31,19 +32,14 @@ from redpanda_tpu_torch.security.license import (
 KEY_PATH = os.path.join(
     os.path.dirname(__file__), "data", "license_signing_key.pem"
 )
-from redpanda_tpu_torch.ops import crc32c as crc_ops
-from redpanda_tpu_torch.ops import fused as fused_ops
-from redpanda_tpu_torch.ops import lz4 as lz4_ops
-from redpanda_tpu_torch.ops import snappy as snappy_ops
-from redpanda_tpu_torch.ops import zstd as zstd_ops
+from redpanda_tpu_torch.ops import default_device
 
 
 @pytest.fixture(autouse=True)
 def _plain_on_cpu(monkeypatch):
     # the port's codec and CRC entries run on the card by default; on
     # the CPU they run the kernels' plain PyTorch versions
-    for mod in (lz4_ops, snappy_ops, zstd_ops, fused_ops, crc_ops):
-        monkeypatch.setattr(mod, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
 
 
 def _signing_key() -> bytes:

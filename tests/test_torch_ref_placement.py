@@ -2,8 +2,9 @@
 pointed at redpanda_tpu_torch. Brokers run on the CPU
 (`BrokerConfig(device="cpu")`), so a lane move seeds and unseeds rows of
 the port's `ShardGroupArrays` on that device (the mesh case under
-RP_QUORUM_BACKEND=mesh too); an autouse fixture sets the codec and CRC
-modules' `DEFAULT_DEVICE` to "cpu". Nothing is left out.
+RP_QUORUM_BACKEND=mesh too); an autouse fixture sets
+`ops.default_device` (the codec and CRC entries' device) to "cpu".
+Nothing is left out.
 
 Placement layer: the unified group → (shard, lane) table, live
 partition moves, and the alert-driven bounded rebalancer.
@@ -40,19 +41,14 @@ from redpanda_tpu_torch.placement import (
 )
 from redpanda_tpu_torch.raft.consensus import NotLeaderError
 from redpanda_tpu_torch.rpc.loopback import LoopbackNetwork
-from redpanda_tpu_torch.ops import crc32c as crc_ops
-from redpanda_tpu_torch.ops import fused as fused_ops
-from redpanda_tpu_torch.ops import lz4 as lz4_ops
-from redpanda_tpu_torch.ops import snappy as snappy_ops
-from redpanda_tpu_torch.ops import zstd as zstd_ops
+from redpanda_tpu_torch.ops import default_device
 
 
 @pytest.fixture(autouse=True)
 def _plain_on_cpu(monkeypatch):
     # the port's codec and CRC entries run on the card by default; on
     # the CPU they run the kernels' plain PyTorch versions
-    for mod in (lz4_ops, snappy_ops, zstd_ops, fused_ops, crc_ops):
-        monkeypatch.setattr(mod, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
 
 GROUP = 7331
 

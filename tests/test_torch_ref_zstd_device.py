@@ -30,10 +30,7 @@ from redpanda_tpu_torch.compression import (
 from redpanda_tpu_torch.ops.fused import crc_zstd_fused
 from redpanda_tpu_torch.ops.zstd import encode_chunks
 from redpanda_tpu_torch.utils import crc as host_crc
-from redpanda_tpu_torch.ops import fused as fused_ops
-from redpanda_tpu_torch.ops import lz4 as lz4_ops
-from redpanda_tpu_torch.ops import snappy as snappy_ops
-from redpanda_tpu_torch.ops import zstd as zstd_ops
+from redpanda_tpu_torch.ops import default_device
 
 try:
     import zstandard as _zstd_wheel
@@ -95,8 +92,7 @@ _LIB = _load_libzstd()
 def _plain_on_cpu(monkeypatch):
     # the port's device codec entries run on the card by default; on
     # the CPU they run the kernels' plain PyTorch versions
-    for mod in (lz4_ops, snappy_ops, zstd_ops, fused_ops):
-        monkeypatch.setattr(mod, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
 
 
 def _stock_decompress(frame: bytes, expect_len: int) -> bytes:

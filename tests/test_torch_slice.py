@@ -100,8 +100,8 @@ _ARMED = """\
 import json, sys
 sys.path.insert(0, {repo!r})
 import chip_smoke
-from redpanda_tpu_torch.ops import fused
-fused.DEFAULT_DEVICE = "cpu"
+from redpanda_tpu_torch.ops import default_device
+default_device.DEVICE = "cpu"
 out = chip_smoke.armed_run("cpu", 256, 10, 2048, 8, 4)
 print(json.dumps(out["kernels"]))
 """

@@ -3,7 +3,7 @@
 Seeded inputs go through the JAX package (its jitted programs on the
 CPU, as tests/test_zstd_device.py runs them) and through
 redpanda_tpu_torch on the CPU (the plain PyTorch versions, with the
-port's DEFAULT_DEVICE set to "cpu"). Every output is integer or bytes,
+port's `ops.default_device` set to "cpu"). Every output is integer or bytes,
 so every comparison is exact: code lengths, all SB bytes of every
 stream, stream bit counts, decoded rows and `end` on every row, the
 decode errors, frames, fused CRCs and recompressed record batches.
@@ -46,6 +46,7 @@ from redpanda_tpu_torch.compression import zstd_frame as zf
 from redpanda_tpu_torch.models import record as trecord
 from redpanda_tpu_torch.ops import _build
 from redpanda_tpu_torch.ops import crc32c as tcrc
+from redpanda_tpu_torch.ops import default_device
 from redpanda_tpu_torch.ops import fused as tfused
 from redpanda_tpu_torch.ops import zstd as tz
 from redpanda_tpu_torch.utils import crc as host_crc
@@ -55,8 +56,7 @@ BUCKETS = (256, 4096, 65536)
 
 @pytest.fixture(autouse=True)
 def _cpu(monkeypatch):
-    monkeypatch.setattr(tz, "DEFAULT_DEVICE", "cpu")
-    monkeypatch.setattr(tfused, "DEFAULT_DEVICE", "cpu")
+    monkeypatch.setattr(default_device, "DEVICE", "cpu")
 
 
 class _LibZstd:
