@@ -12,6 +12,7 @@ over the rows.
     python3 chip_quorum.py ab .chipcheck/old [OUT_DIR]
     python3 chip_quorum.py append .chipcheck/old [OUT_DIR]
     python3 chip_quorum.py follower .chipcheck/old [OUT_DIR]
+    python3 chip_quorum.py tick .chipcheck/old [OUT_DIR [G_LIVE M_LIVE]]
 
 The old directory holds a tree whose mesh frame is a launch sequence
 (a copy of the commit lane, the fold, the sweep, two zero fills and
@@ -84,6 +85,21 @@ rows (the scalar tail) and on a view one row in (unaligned [G] lanes).
 Then all in turns (each side, then the same in reverse), and the ring
 cluster's kernels and `local_append_update` old against new. Its old
 directory holds the files of 288c153 (as for `ab`).
+
+`tick` times `heartbeat_tick` at chip_smoke phase 2's tick shape (G =
+50,000, R = 8, M = 131,072) and at the live Raft layer's call shape
+(phase 12: G_LIVE rows, a bucket of M_LIVE replies; by default 8,192 and
+1,024), on chip_smoke's inputs for each: the old tree's launch sequence
+(its cooperative fold, then its sweep); this tree's pair with its sweep
+kernel launched by programmatic dependent launch (`pdl`), back to back
+(`plain`: the `back_to_back` copy), and each captured in a CUDA graph
+and replayed (`graph_pdl`, `graph`); copies of this tree's pair with one
+change each (`TICK_VARIANTS`, launched by PDL); this tree's two kernels alone and
+empty kernels at their grids, alone and as a pair by PDL and back to
+back (`TICK_EXTRAS`, appended to its quorum.cu).
+Every side is first held exactly against the plain chain; then all in
+turns (each side, then the same in reverse). Its old directory holds
+the files of c5806f4 (as for `ab`).
 
 Every library is built under .chipcheck/quorum (git-ignored) with
 `-Xptxas -v` (registers and spills printed and kept); results are
@@ -371,6 +387,164 @@ FOLLOW_VARIANTS = {
 }
 
 
+# Appended to this tree's quorum.cu for `tick`: the heartbeat tick's
+# fold kernel alone (part 0) or its sweep kernel with the last_seq raise
+# alone (part 1, an ordinary launch), with rp_heartbeat_tick's arguments
+TICK_EXTRAS = r"""
+extern "C" int rp_tick_part(const i64* term, const u8* is_leader, i64* commit,
+                            const i64* term_start, i64* last_visible, i64* match, i64* flushed,
+                            i64* last_seq, const u8* voter, const u8* voter_old,
+                            const i64* group_idx, const i64* slot, const i64* dirty,
+                            const i64* flushed_in, const i64* seq, i64 m, i64 g_n, i64 r_n,
+                            i64 part, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (part == 0) {
+        tick_fold_kernel<<<(unsigned)((m + THREADS - 1) / THREADS), THREADS, 0, s>>>(
+            match, flushed, last_seq, group_idx, slot, dirty, flushed_in, seq, m, g_n, r_n, 0);
+        return (int)cudaGetLastError();
+    }
+    const i64 per_block = (i64)COMMIT_THREADS * TICK_RAISE;
+    i64 blocks = (g_n + COMMIT_THREADS - 1) / COMMIT_THREADS;
+    if ((m + per_block - 1) / per_block > blocks) blocks = (m + per_block - 1) / per_block;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)blocks);
+    cfg.blockDim = dim3(COMMIT_THREADS);
+    cfg.stream = s;
+    const cudaError_t e = launch_tick_sweep(&cfg, term_start, is_leader, commit, last_visible,
+                                            match, flushed, voter, voter_old, last_seq,
+                                            group_idx, slot, seq, m, g_n, r_n);
+    const cudaError_t last = cudaGetLastError();
+    return (int)(e != cudaSuccess ? e : last);
+}
+
+// the launch floor of the pair: an empty K1 that lets its dependents
+// launch, then an empty K2 that waits for it, by PDL (pdl) or back to back
+__global__ void rp_empty_trigger_kernel(int) { launch_dependents(); }
+__global__ void rp_empty_wait_kernel(int) { wait_prerequisites(); }
+
+extern "C" int rp_empty_pair(i64 b1, i64 t1, i64 b2, i64 t2, i64 pdl, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    rp_empty_trigger_kernel<<<(unsigned)b1, (unsigned)t1, 0, s>>>(0);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)b2);
+    cfg.blockDim = dim3((unsigned)t2);
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = pdl ? 1 : 0;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, rp_empty_wait_kernel, 0);
+    const cudaError_t last = cudaGetLastError();
+    return (int)(e != cudaSuccess ? e : last);
+}
+"""
+# the tick's kernels alone (rp_tick_part's parts)
+TICK_PARTS = {"fold kernel alone": 0, "sweep kernel alone (with the raise)": 1}
+# copies of this tree's quorum.cu with the pair changed, each timed as a
+# side of `tick` (PDL): the fold kernel reading match and flushed beside
+# last_seq and raising only what exceeds them; letting its dependents
+# launch at its start, or after its loads, whatever its grid; at
+# 128-thread blocks; the sweep kernel raising last_seq before it sweeps
+# its row
+_K1_ATOMICS = """    const bool fresh = k >= 0 && sq > last_seq[k];
+    if (!early) launch_dependents();
+    if (fresh) {
+        atomicMax(&match[k], d);
+        atomicMax(&flushed[k], fl);
+    }"""
+_K2_TAIL = """    i64 cur[TICK_RAISE];
+#pragma unroll
+    for (int s = 0; s < TICK_RAISE; ++s) cur[s] = k[s] >= 0 ? last_seq[k[s]] : sq[s];
+    if (t < g_n) {
+        i64 row[N];
+        sweep_row<N, kAligned>(f, commit, last_visible, match, flushed, t, r_n, row);
+    }
+#pragma unroll
+    for (int s = 0; s < TICK_RAISE; ++s)
+        if (sq[s] > cur[s]) atomicMax(&last_seq[k[s]], sq[s]);"""
+_K2_BODY = """    const i64 t = (i64)blockIdx.x * COMMIT_THREADS + threadIdx.x;
+    const i64 stride = (i64)gridDim.x * COMMIT_THREADS;
+    // the prologue: only what K1 never writes
+    RowFlags f = {};
+    if (t < g_n)
+        f = load_flags<N, kAligned>(term_start, is_leader, commit, last_visible, voter,
+                                    voter_old, t, r_n);
+    i64 k[TICK_RAISE], sq[TICK_RAISE];"""
+_K2_GRID = """    i64 blocks = (g_n + COMMIT_THREADS - 1) / COMMIT_THREADS;
+    if ((m + per_block - 1) / per_block > blocks) blocks = (m + per_block - 1) / per_block;"""
+TICK_VARIANTS = {
+    # the pair launched back to back (no PDL attribute on the sweep kernel)
+    "back_to_back": [("    cfg.numAttrs = m > 0 ? 1 : 0;", "    cfg.numAttrs = 0;")],
+    # the sweep kernel's rows and its raise in separate blocks: the first
+    # ceil(G / 128) blocks sweep, the rest raise TICK_RAISE replies a thread
+    "k2_raise_blocks": [
+        (_K2_BODY, """    const i64 row_blocks = (g_n + COMMIT_THREADS - 1) / COMMIT_THREADS;
+    if ((i64)blockIdx.x < row_blocks) {
+        const i64 g = (i64)blockIdx.x * COMMIT_THREADS + threadIdx.x;
+        RowFlags f0 = {};
+        if (g < g_n)
+            f0 = load_flags<N, kAligned>(term_start, is_leader, commit, last_visible, voter,
+                                         voter_old, g, r_n);
+        wait_prerequisites();
+        if (g < g_n) {
+            i64 row[N];
+            sweep_row<N, kAligned>(f0, commit, last_visible, match, flushed, g, r_n, row);
+        }
+        return;
+    }
+    const i64 t = ((i64)blockIdx.x - row_blocks) * COMMIT_THREADS + threadIdx.x;
+    const i64 stride = ((i64)gridDim.x - row_blocks) * COMMIT_THREADS;
+    i64 k[TICK_RAISE], sq[TICK_RAISE];"""),
+        (_K2_TAIL, """    i64 cur[TICK_RAISE];
+#pragma unroll
+    for (int s = 0; s < TICK_RAISE; ++s) cur[s] = k[s] >= 0 ? last_seq[k[s]] : sq[s];
+#pragma unroll
+    for (int s = 0; s < TICK_RAISE; ++s)
+        if (sq[s] > cur[s]) atomicMax(&last_seq[k[s]], sq[s]);"""),
+        (_K2_GRID, """    const i64 blocks = (g_n + COMMIT_THREADS - 1) / COMMIT_THREADS + (m + per_block - 1) / per_block;"""),
+    ],
+    # 64-thread blocks for the sweep kernel (and the sweeps it shares the
+    # constant with, unused here)
+    "k2_t64": [("#define COMMIT_THREADS 128", "#define COMMIT_THREADS 64")],
+    # two replies a thread of the sweep kernel
+    "k2_raise2": [("#define TICK_RAISE 4", "#define TICK_RAISE 2")],
+    "k1_reads_first": [(_K1_ATOMICS, """    i64 ls = 0, cm = 0, cf = 0;
+    if (k >= 0) {
+        ls = last_seq[k];
+        cm = match[k];
+        cf = flushed[k];
+    }
+    const bool fresh = k >= 0 && sq > ls;
+    if (!early) launch_dependents();
+    if (fresh) {
+        if (d > cm) atomicMax(&match[k], d);
+        if (fl > cf) atomicMax(&flushed[k], fl);
+    }""")],
+    "k1_trigger_first": [("        const int early = blocks <= sms;", "        const int early = 1;")],
+    "k1_trigger_late": [("        const int early = blocks <= sms;", "        const int early = 0;")],
+    "k1_t128": [
+        ("__global__ void __launch_bounds__(THREADS)\ntick_fold_kernel(",
+         "__global__ void __launch_bounds__(128)\ntick_fold_kernel("),
+        ("    const i64 i = (i64)blockIdx.x * THREADS + threadIdx.x;\n    i64 k = -1, sq = 0, d = 0, fl = 0;",
+         "    const i64 i = (i64)blockIdx.x * 128 + threadIdx.x;\n    i64 k = -1, sq = 0, d = 0, fl = 0;"),
+        ("        const i64 blocks = (m + THREADS - 1) / THREADS;", "        const i64 blocks = (m + 127) / 128;"),
+        ("        tick_fold_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(",
+         "        tick_fold_kernel<<<(unsigned)blocks, 128, 0, s>>>("),
+    ],
+    "k2_raise_first": [(_K2_TAIL, """    i64 cur[TICK_RAISE];
+#pragma unroll
+    for (int s = 0; s < TICK_RAISE; ++s) cur[s] = k[s] >= 0 ? last_seq[k[s]] : sq[s];
+#pragma unroll
+    for (int s = 0; s < TICK_RAISE; ++s)
+        if (sq[s] > cur[s]) atomicMax(&last_seq[k[s]], sq[s]);
+    if (t < g_n) {
+        i64 row[N];
+        sweep_row<N, kAligned>(f, commit, last_visible, match, flushed, t, r_n, row);
+    }""")],
+}
+
+
 def bind_coop(lib):
     """Bind design A's entry points on a library built with MESH_COOP."""
     _build.bind(lib, "rp_mesh_coop", 22, 3)
@@ -624,7 +798,8 @@ class Sides:
 
 
 def tick_items(shp) -> dict:
-    """name -> (the call, the plain chain), at the tick's shape."""
+    """name -> (the call, or {side: call}, and the plain chain), at the
+    tick's shape."""
     w, rep, hb = shp.work, shp.replies, shp.hb
 
     def plain_frame(health):
@@ -645,7 +820,10 @@ def tick_items(shp) -> dict:
         "quorum_commit_step": (lambda: quorum_ops.quorum_commit_step(w),
                                lambda: quorum_ops.quorum_commit_step_plain(w)),
         "health_reduce": (shp.health, shp.health_plain),
-        "heartbeat_tick": (lambda: quorum_ops.heartbeat_tick(w, *rep), None),
+        # the old tree has no rp_heartbeat_tick: its tick is the fold, then the sweep
+        "heartbeat_tick": ({"old": lambda: quorum_ops.quorum_commit_step(quorum_ops.fold_replies(w, *rep)),
+                            "new": lambda: quorum_ops.heartbeat_tick(w, *rep)},
+                           lambda: quorum_ops.heartbeat_tick_plain(w, *rep)),
         "tick_frame": (frame(False), plain_frame(False)),
         "tick_frame_health": (frame(True), plain_frame(True)),
     }
@@ -816,7 +994,8 @@ def ab(torch, old_dir: str) -> dict:
              "fold grid (blocks, threads, runs)": quorum_ops.fold_grid(shp.m)}
         if label == "tick":
             r["frame grid (blocks, threads, runs)"] = quorum_ops.frame_grid(shp.m, shp.g, shp.r, len(shp.hb))
-            items = {name: ({"old": fn, "new": fn}, plain) for name, (fn, plain) in tick_items(shp).items()}
+            items = {name: (fn if isinstance(fn, dict) else {"old": fn, "new": fn}, plain)
+                     for name, (fn, plain) in tick_items(shp).items()}
         else:
             r["D"] = cs.MESH_D
             r["design A grid (blocks, threads, runs)"] = {
@@ -1069,8 +1248,11 @@ def follower(torch, old_dir: str) -> dict:
                "old_cluster": (open(os.path.join(old_dir, "cluster.cu")).read(), old_dir)}
     sources.update({name: (patched(new_src, p, name), _build.CSRC_DIR) for name, p in FOLLOW_VARIANTS.items()})
     libs = build(sources, ptxas)
-    for name in ("old_quorum", *FOLLOW_VARIANTS):
+    for name in FOLLOW_VARIANTS:
         quorum_ops.bind(libs[name])
+    # the old tree's entries this mode calls, with that tree's argument lists
+    _build.bind(libs["old_quorum"], "rp_follower_commit", 4, 2)
+    _build.bind(libs["old_quorum"], "rp_local_append", 5, 4)
     _build.bind(libs["old_quorum"], "rp_fc_piece", 4, 3)
     _build.build_all(("quorum", "health", "cluster"))
     for lib in (libs["old_cluster"], cluster_ops._lib()):
@@ -1159,6 +1341,124 @@ def follower(torch, old_dir: str) -> dict:
     return res
 
 
+def tick_shapes(torch, g_live: int, m_live: int) -> dict:
+    """chip_smoke's inputs for heartbeat_tick: phase 2's at the tick
+    shape, live_tick's at the live shape."""
+    rng = np.random.default_rng(cs.SEED)
+    fields = cs.random_state_fields(rng, cs.G, cs.R)
+    out = {"tick": Shape(torch, "tick", fields, cs.padded_replies(rng, cs.G, cs.R, cs.M_REPLIES), rng)}
+    rng = np.random.default_rng(cs.SEED + 21)
+    fields = cs.random_state_fields(rng, g_live, cs.R)
+    out["live"] = Shape(torch, "live", fields, cs.padded_replies(rng, g_live, cs.R, m_live // 2 + m_live // 4),
+                        rng)
+    return out
+
+
+def tick(torch, old_dir: str, g_live: int = 8192, m_live: int = 1024) -> dict:
+    """heartbeat_tick old against new by launch mechanism (module doc)."""
+    ptxas = {}
+    new_src = open(os.path.join(_build.CSRC_DIR, "quorum.cu")).read()
+    libs = build({"old_quorum": (open(os.path.join(old_dir, "quorum.cu")).read(), old_dir),
+                  "new_parts": (new_src + TICK_EXTRAS + EXTRAS, _build.CSRC_DIR),
+                  **{name: (patched(new_src, p, name), _build.CSRC_DIR) for name, p in TICK_VARIANTS.items()}},
+                 ptxas)
+    old = libs["old_quorum"]
+    _build.bind(old, "rp_fold_replies", 8, 3)
+    _build.bind(old, "rp_commit_step", 8, 2)
+    parts = quorum_ops.bind(libs["new_parts"])
+    _build.bind(parts, "rp_tick_part", 15, 4)
+    _build.bind(parts, "rp_empty_pair", 0, 5)
+    _build.bind(parts, "rp_empty_shape", 0, 4)
+    for name in TICK_VARIANTS:
+        quorum_ops.bind(libs[name])
+    _build.build_all(("quorum",))
+    this = quorum_ops._lib()
+    res = {"card": cs.nvidia_smi(), "clocks": clocks(), "ptxas": ptxas}
+    for label, shp in tick_shapes(torch, g_live, m_live).items():
+        w, rep_ = shp.work, shp.replies
+        stream = shp.stream
+
+        def old_pair():
+            quorum_ops._LIB = old
+            try:
+                quorum_ops.quorum_commit_step(quorum_ops.fold_replies(w, *rep_))
+            finally:
+                quorum_ops._LIB = this
+
+        def pair():
+            quorum_ops.heartbeat_tick(w, *rep_)
+
+        def graph_of(fn):
+            g = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                shp.reset()
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            with torch.cuda.graph(g):
+                fn()
+            torch.cuda.synchronize()
+            return g.replay
+
+        def part(k):
+            return lambda: _build.check(parts, parts.rp_tick_part(
+                *(getattr(w, n).data_ptr() for n in quorum_ops.LANE_ORDER), *(t.data_ptr() for t in rep_),
+                shp.m, shp.g, shp.r, k, stream), "tick part")
+
+        def variant(name):
+            def run():
+                quorum_ops._LIB = libs[name]
+                try:
+                    pair()
+                finally:
+                    quorum_ops._LIB = this
+            return run
+
+        fns = {"old": old_pair, "pdl": pair, "plain": variant("back_to_back"),
+               "graph": graph_of(variant("back_to_back")), "graph_pdl": graph_of(pair),
+               **{name: variant(name) for name in TICK_VARIANTS if name != "back_to_back"}}
+        shp.reset()
+        quorum_ops.heartbeat_tick_plain(w, *rep_)
+        want = tensors(w)
+        for side, fn in fns.items():
+            shp.reset()
+            fn()
+            torch.cuda.synchronize()
+            same(tensors(w), want, f"{label} heartbeat_tick {side} vs plain")
+        r = {"G": shp.g, "R": shp.r, "M": shp.m}
+        b1 = -(-shp.m // 256)
+        b2 = max(-(-shp.g // 128), -(-shp.m // 512))
+        floors = {
+            f"empty kernel at the fold kernel's grid ({b1} x 256)": lambda: parts.rp_empty_shape(b1, 256, 0, 0, stream),
+            f"empty kernel at the sweep kernel's grid ({b2} x 128)": lambda: parts.rp_empty_shape(b2, 128, 0, 0, stream),
+            "empty pair at the two grids, PDL": lambda: parts.rp_empty_pair(b1, 256, b2, 128, 1, stream),
+            "empty pair at the two grids, back to back": lambda: parts.rp_empty_pair(b1, 256, b2, 128, 0, stream),
+        }
+        t = {}
+        order = list(fns)
+        for _ in range(2):
+            for side in order + order[::-1]:
+                t.setdefault(side, []).append(time_us(fns[side], shp.reset))
+            for name, k in TICK_PARTS.items():
+                t.setdefault(name, []).append(time_us(part(k), shp.reset))
+            for name, fn in floors.items():
+                t.setdefault(name, []).append(time_us(lambda: _build.check(parts, fn(), name)))
+            quorum_ops._LIB = old
+            try:
+                t.setdefault("old fold alone", []).append(
+                    time_us(lambda: quorum_ops.fold_replies(w, *rep_), shp.reset))
+                t.setdefault("old sweep alone", []).append(
+                    time_us(lambda: quorum_ops.quorum_commit_step(w), shp.reset))
+            finally:
+                quorum_ops._LIB = this
+        r["us"] = {k: float(np.mean(v)) for k, v in t.items()}
+        r["us turns"] = t
+        res[label] = r
+        print(label, json.dumps(r), flush=True)
+    return res
+
+
 def clocks() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -1173,7 +1473,10 @@ def main() -> int:
     mode, old_dir = sys.argv[1], sys.argv[2]
     out = sys.argv[3] if len(sys.argv) > 3 else OUT
     print(cs.nvidia_smi(), flush=True)
-    res = {"breakdown": breakdown, "ab": ab, "append": append, "follower": follower}[mode](torch, old_dir)
+    if mode == "tick":
+        res = tick(torch, old_dir, *(int(x) for x in sys.argv[4:6]))
+    else:
+        res = {"breakdown": breakdown, "ab": ab, "append": append, "follower": follower}[mode](torch, old_dir)
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, f"quorum_{mode}.json"), "w") as fh:
         json.dump(res, fh, indent=1)

@@ -13,9 +13,11 @@ Phases, each raising on any mismatch:
      rows), the fold, the commit sweep and the tick frame kernel also at
      R=5, 3, 12 and 32 (padded rows, the 16- and 32-slot kernels; the
      fold's and the frame's cooperative grids logged); the tick's launch
-     sequences (heartbeat_tick: fold + sweep; tick_frame and
-     tick_frame_health: one launch of the frame kernel) against their
-     plain chains; batches that mix rows -1, -G, -G-1, G, G+5 and slots
+     sequences (heartbeat_tick: one rp_heartbeat_tick call, its fold
+     kernel and its sweep kernel, timed beside the fold + sweep launch
+     sequence it replaced; tick_frame and tick_frame_health: one launch
+     of the frame kernel) against their plain chains; batches that mix
+     rows -1, -G, -G-1, G, G+5 and slots
      -1, -R, -R-1, R with in-range replies through fold_replies,
      local_append_update, build_heartbeats and the frame (both forms),
      each exact against its plain version; and on CRC rows (1,024 ragged rows of ~16.4 KiB, 4,096 rows
@@ -136,13 +138,18 @@ Phases, each raising on any mismatch:
      20 rounds of one acks=-1 batch (16 x 1 KiB records) on a seeded
      500 groups, every ack awaited, then one heartbeat tick on node 0;
      20 idle ticks and one health_report. Every device_tick of node 0
-     (a frame flush: fold_replies + quorum_commit_step) is held against
+     (a frame flush: one heartbeat_tick call) is held against
      the numpy host leg on a copy of the lanes taken just before it
      (advanced rows and the five lanes, exact); the same scenario under
      RP_QUORUM_BACKEND=host must end equal (every ack's offsets, commit
      / visible / term of every group on every node, node 0's match and
      flushed rows, the records read back from both followers, which
-     must also be those sent, and health_report); prints setup and
+     must also be those sent, and health_report); each shape of the
+     traffic's heartbeat_tick calls (the GroupManager's row capacity and
+     the reply bucket, read from the calls) is then given to the
+     kernel on seeded lanes and replies with duplicates and stale seqs,
+     exact against its plain chain and timed beside the launch sequence
+     it replaced; prints setup and
      catch-up seconds, round and tick p50 / p99, the launches at warm-up
      (prewarm's tick_frame_health) and around the traffic, and
      tick_frame.flushes;
@@ -166,8 +173,8 @@ Phases, each raising on any mismatch:
      the next offsets of its partition and every record fetched back
      equal, with equal high watermarks and no KAFKA_STORAGE_ERROR; on the
      device leg fused_lz4 must launch once a produced batch, crc32c_device
-     once a fetch response that carried records, and fold_replies,
-     quorum_commit_step and health_reduce at least once; leaders that
+     once a fetch response that carried records, and heartbeat_tick and
+     health_reduce at least once; leaders that
      moved during the produce lead as created again before the fetch;
      prints the setup, the produce wall time and per-batch p50 / p99, the
      fetch MB/s and per-call p50 / p99 of both legs, the launches, the
@@ -184,8 +191,8 @@ Phases, each raising on any mismatch:
      owns and everything fetched back again. Checked: every record back
      equal at its offset; /v1/shards on every node sharded with exactly
      the one restart; the restarted worker's own registry
-     (/v1/shards/1/metrics) with samples of quorum.heartbeat_tick (the
-     fold_replies + quorum_commit_step launches); node 0's /v1/devplane
+     (/v1/shards/1/metrics) with samples of quorum.heartbeat_tick, as
+     many as its heartbeat_tick launches on the card; node 0's /v1/devplane
      with fused.crc_lz4 and crc32c.device samples. The probe calls of
      every process (each call sampled) are the part's launches. Part B:
      three Brokers on the card sharing one bucket directory
@@ -258,6 +265,7 @@ KERNELS = {
     "fold_replies": ("redpanda_tpu_torch/csrc/quorum.cu", "redpanda_tpu/ops/quorum.py:172", quorum_ops.LAUNCHES),
     "quorum_commit_step": ("redpanda_tpu_torch/csrc/quorum.cu", "redpanda_tpu/ops/quorum.py:110", quorum_ops.LAUNCHES),
     "build_heartbeats": ("redpanda_tpu_torch/csrc/quorum.cu", "redpanda_tpu/ops/quorum.py:196", quorum_ops.LAUNCHES),
+    "heartbeat_tick": ("redpanda_tpu_torch/csrc/quorum.cu", "redpanda_tpu/ops/quorum.py:260", quorum_ops.LAUNCHES),
     "tick_frame": ("redpanda_tpu_torch/csrc/quorum.cu", "redpanda_tpu/ops/quorum.py:283", quorum_ops.LAUNCHES),
     "health_reduce": ("redpanda_tpu_torch/csrc/health.cu", "redpanda_tpu/ops/health.py:39", health_ops.LAUNCHES),
     "crc32c_device": ("redpanda_tpu_torch/csrc/crc32c.cu", "redpanda_tpu/ops/crc32c.py:226", crc_ops.LAUNCHES),
@@ -808,12 +816,13 @@ def sequences(torch, out, work, reset, replies, hb_idx, known, active, fresh, un
     the fresh pairs' three lanes and two [G] lanes written; the heartbeat
     gather adds hb_idx and term read and four fields written per row; the
     health adds two [G] flags read and max_lag plus two flags written.
-    heartbeat_tick is two launches (fold, sweep); tick_frame and
-    tick_frame_health one launch of the frame kernel each, entered as
+    heartbeat_tick is one call of its entry (its fold kernel, then its
+    sweep kernel), also timed as the launch sequence it replaced
+    (fold_replies, then quorum_commit_step: `sequence_ms`); tick_frame
+    and tick_frame_health one launch of the frame kernel each, entered as
     "tick_frame" (the health form is the one the main path calls)."""
     m, nf = len(replies[0]), int(fresh.sum())
-    tick = (24 * m + 16 * nf + 8 * uniq + G * R * (8 + 8 + 1 + 1) + G * (1 + 8 + 8 + 8)
-            + 24 * uniq_fresh + 16 * G)
+    tick = tick_bytes(G, R, m, nf, uniq, uniq_fresh)
     hb = H_ROWS * (8 + 8 + 4 * 8)
     health = G * 2 + G * (8 + 2)
 
@@ -857,6 +866,9 @@ def sequences(torch, out, work, reset, replies, hb_idx, known, active, fresh, un
             "ms": time_kernel(fn, reset), "plain_ms": time_plain(plain, reset),
             "bound_ms": bound(nbytes),
         }
+    entries["heartbeat_tick"]["sequence_ms"] = time_kernel(
+        lambda: quorum_ops.quorum_commit_step(quorum_ops.fold_replies(work, *replies)), reset)
+    one_call(torch, lambda: quorum_ops.heartbeat_tick(work, *replies), reset)
     blocks, threads, its = quorum_ops.frame_grid(m, G, R, H_ROWS)
     log(f"[kernels] tick_frame: one cooperative launch of {blocks} blocks x {threads} threads, {its} "
         f"reply(ies) a thread, at M={m} G={G} H={H_ROWS}")
@@ -866,6 +878,96 @@ def sequences(torch, out, work, reset, replies, hb_idx, known, active, fresh, un
     log(f"[kernels] tick_frame without health (quorum tick_frame): equal to plain, kernel "
         f"{no_health['ms']:.4f} ms, bound {no_health['bound_ms']:.4f} ms, plain {no_health['plain_ms']:.3f} ms")
     out.update(entries)
+
+
+def tick_bytes(g: int, r: int, m: int, nf: int, uniq: int, uniq_fresh: int) -> int:
+    """The bytes heartbeat_tick must move as one function for m replies,
+    nf of them fresh, on uniq addressed pairs (uniq_fresh with a fresh
+    reply): group, slot and seq of every reply, dirty and flushed of every
+    fresh one; last_seq once per addressed pair; match / flushed / both
+    voter masks over [G, R] and four [G] lanes read; the fresh pairs'
+    three lanes and commit / visible written."""
+    return (24 * m + 16 * nf + 8 * uniq + g * r * (8 + 8 + 1 + 1) + g * (1 + 8 + 8 + 8)
+            + 24 * uniq_fresh + 16 * g)
+
+
+def one_call(torch, fn, reset) -> None:
+    """heartbeat_tick on the card is one launch of its entry a call, and
+    launches neither of the kernels it replaced."""
+    names = ("heartbeat_tick", "fold_replies", "quorum_commit_step")
+    reset()
+    before = {k: quorum_ops.LAUNCHES[k] for k in names}
+    fn()
+    torch.cuda.synchronize()
+    moved = {k: quorum_ops.LAUNCHES[k] - before[k] for k in names}
+    if moved != {"heartbeat_tick": 1, "fold_replies": 0, "quorum_commit_step": 0}:
+        raise AssertionError(f"one heartbeat_tick call launched {moved}")
+
+
+def live_tick(torch, shape: tuple, mem_rate: float) -> dict:
+    """heartbeat_tick at the live Raft layer's shape (G rows of R slots,
+    a bucket of M replies, as phase 12's calls had them) on seeded lanes
+    and replies (M / 2 + M / 4 of them real, so the bucket stays M, over
+    a quarter of the rows: duplicate pairs, a tenth stale, the rest
+    padding), exact against its plain chain, timed beside the launch
+    sequence it replaced and its bound."""
+    from redpanda_tpu_torch.models.consensus_state import group_state_from_numpy
+
+    g, r, m = shape
+    rng = np.random.default_rng(SEED + 21)
+    fields = random_state_fields(rng, g, r)
+    replies_np = padded_replies(rng, g, r, m // 2 + m // 4)
+    if len(replies_np[0]) != m:
+        raise AssertionError(f"the live batch pads to {len(replies_np[0])} replies, not {m}")
+    base = group_state_from_numpy(fields, "cuda")
+    work = group_state_from_numpy(fields, "cuda")
+    replies = [torch.from_numpy(a).cuda() for a in replies_np]
+
+    def reset():
+        for a, b in zip(work, base):
+            a.copy_(b)
+
+    def lanes(state):
+        return {k: getattr(state, k).clone() for k in state._fields}
+
+    reset()
+    want = lanes(quorum_ops.heartbeat_tick_plain(work, *replies))
+    reset()
+    got = lanes(quorum_ops.heartbeat_tick(work, *replies))
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    one_call(torch, lambda: quorum_ops.heartbeat_tick(work, *replies), reset)
+    rows, slots, _, _, seqs = replies_np
+    cell = rows * r + slots
+    fresh = seqs > fields["last_seq"].reshape(-1)[cell]
+    return {
+        "shape": f"G={g} R={r} M={m} (of which {m // 2 + m // 4} real, {int(fresh.sum())} fresh)",
+        "max_abs_err": err,
+        "ms": time_kernel(lambda: quorum_ops.heartbeat_tick(work, *replies), reset),
+        "sequence_ms": time_kernel(
+            lambda: quorum_ops.quorum_commit_step(quorum_ops.fold_replies(work, *replies)), reset),
+        "plain_ms": time_plain(lambda: quorum_ops.heartbeat_tick_plain(work, *replies), reset),
+        "bound_ms": tick_bytes(g, r, m, int(fresh.sum()), len(np.unique(cell)), len(np.unique(cell[fresh])))
+        / mem_rate * 1e3,
+    }
+
+
+@contextlib.contextmanager
+def tick_shapes(shapes: list):
+    """Append (G, R, M) of every heartbeat_tick call to `shapes`: the
+    rows and slots of its state and the length of its reply batch
+    (ShardGroupArrays.device_tick looks the function up at each call)."""
+    tick = quorum_ops.heartbeat_tick
+
+    def recorded(state, group_idx, *rest):
+        shapes.append((*state.match_index.shape, group_idx.shape[0]))
+        return tick(state, group_idx, *rest)
+
+    quorum_ops.heartbeat_tick = recorded
+    try:
+        yield shapes
+    finally:
+        quorum_ops.heartbeat_tick = tick
 
 
 def mixed_index_batch(rng, g: int, r: int, m: int):
@@ -890,7 +992,7 @@ def mixed_index_batch(rng, g: int, r: int, m: int):
 
 def mixed_indices(torch, rng, fields, known, active) -> None:
     """Phase 2's out-of-range rows and slots: fold_replies,
-    local_append_update, build_heartbeats, tick_frame and
+    local_append_update, build_heartbeats, heartbeat_tick, tick_frame and
     tick_frame_health on mixed_index_batch at G groups, each exact
     against its plain version (JAX's rule: wrap once, then drop or
     clamp)."""
@@ -931,6 +1033,8 @@ def mixed_indices(torch, rng, fields, known, active) -> None:
          lambda s: [quorum_ops.local_append_update_plain(s, rows, dirty, flushed)._asdict()]),
         ("build_heartbeats", lambda s: [quorum_ops.build_heartbeats(s, hb)],
          lambda s: [quorum_ops.build_heartbeats_plain(s, hb)]),
+        ("heartbeat_tick", lambda s: [quorum_ops.heartbeat_tick(s, *replies)._asdict()],
+         lambda s: [quorum_ops.heartbeat_tick_plain(s, *replies)._asdict()]),
         ("tick_frame", lambda s: frame(s, False), lambda s: frame_plain(s, False)),
         ("tick_frame_health", lambda s: frame(s, True), lambda s: frame_plain(s, True)),
         ("mesh_tick_frame", lambda s: mesh_frame_card(s, replies, known, active),
@@ -941,7 +1045,7 @@ def mixed_indices(torch, rng, fields, known, active) -> None:
         for a, b in zip(got, plain(state())):
             max_abs_err(a, b)
     log(f"[kernels] rows {{-1, -G, -G-1, G, G+5}} x slots {{-1, -R, -R-1, R}} among {M_REPLIES} replies and "
-        f"{H_ROWS} heartbeat rows: fold_replies, local_append_update, build_heartbeats, tick_frame, "
+        f"{H_ROWS} heartbeat rows: fold_replies, local_append_update, build_heartbeats, heartbeat_tick, tick_frame, "
         f"tick_frame_health, mesh_tick_frame equal to plain, tolerance exact")
 
 
@@ -976,9 +1080,9 @@ def mesh_frame_err(torch, state_of, replies, known, active) -> float:
 
 
 def padded_slot_counts(torch, rng) -> None:
-    """fold_replies, quorum_commit_step, the tick frame kernel (with
-    health) and the mesh frame against their plain versions at G groups
-    for each R in EXTRA_SLOTS, exact."""
+    """fold_replies, quorum_commit_step, heartbeat_tick, the tick frame
+    kernel (with health) and the mesh frame against their plain versions
+    at G groups for each R in EXTRA_SLOTS, exact."""
     from redpanda_tpu_torch.models.consensus_state import group_state_from_numpy
 
     for r in EXTRA_SLOTS:
@@ -990,6 +1094,7 @@ def padded_slot_counts(torch, rng) -> None:
         for name, kern, plain, args in (
             ("fold_replies", quorum_ops.fold_replies, quorum_ops.fold_replies_plain, replies),
             ("quorum_commit_step", quorum_ops.quorum_commit_step, quorum_ops.quorum_commit_step_plain, ()),
+            ("heartbeat_tick", quorum_ops.heartbeat_tick, quorum_ops.heartbeat_tick_plain, replies),
         ):
             want = plain(group_state_from_numpy(fields, "cuda"), *args)
             got = kern(group_state_from_numpy(fields, "cuda"), *args)
@@ -1005,7 +1110,8 @@ def padded_slot_counts(torch, rng) -> None:
         max_abs_err(lanes, health_ops.health_reduce_plain(want.match_index, want.commit_index, want.is_voter,
                                                           want.is_voter_old, want.is_leader, known, active))
         mesh_frame_err(torch, lambda: group_state_from_numpy(fields, "cuda"), replies, known, active)
-        log(f"[kernels] fold_replies, quorum_commit_step, tick_frame (health), mesh_tick_frame at G={G} R={r}: "
+        log(f"[kernels] fold_replies, quorum_commit_step, heartbeat_tick, tick_frame (health), mesh_tick_frame "
+            f"at G={G} R={r}: "
             f"equal to plain, tolerance exact; frame grid "
             f"{quorum_ops.frame_grid(len(replies[0]), G, r, H_ROWS, r % 8 == 0)}")
 
@@ -2922,6 +3028,8 @@ def phase_cluster(torch, mem_rate: float) -> dict:
     run = run_cluster(torch, CLUSTER_G, MESH_D, CLUSTER_TICKS, "cuda")
     t2 = time.perf_counter()
     launches = {k: cl.LAUNCHES[k] for k in cl.LAUNCHES}
+    # the scenario's joint reconfiguration steps the commit sweep alone
+    launches["quorum_commit_step"] = quorum_ops.LAUNCHES["quorum_commit_step"]
     log(f"[cluster] G={CLUSTER_G} D={MESH_D} RF={RF}: the dryrun_multichip scenario held ({dry}) in "
         f"{(t1 - t0) * 1e3:.1f} ms; {CLUSTER_TICKS} seeded ticks and {run['totals']['elections']} elections "
         f"equal to the plain versions after every call ({run['totals']}) in {t2 - t1:.1f} s (host clock, "
@@ -3265,10 +3373,10 @@ def phase_armed(off_tick_s) -> dict:
 LIVE_GROUPS, LIVE_ROUNDS, LIVE_PER_ROUND, LIVE_NODES = 5_000, 10, 500, 3
 LIVE_STEADY_TICKS = 20
 # the kernels the live layer must launch between its traffic and its
-# health report (a frame flush without heartbeat rows: fold + commit; the
-# report: health_reduce); the frame kernel (tick_frame_health) runs only
-# in prewarm
-LIVE_PATH = ("fold_replies", "quorum_commit_step", "health_reduce")
+# health report (a frame flush without heartbeat rows: heartbeat_tick's
+# fold and sweep; the report: health_reduce); the frame kernel
+# (tick_frame_health) runs only in prewarm
+LIVE_PATH = ("heartbeat_tick", "health_reduce")
 
 
 def port_raft():
@@ -3565,6 +3673,7 @@ def run_live_raft(device: str, groups: int = LIVE_GROUPS, rounds: int = LIVE_ROU
     pkg = port_raft()
     held: list = []
     launches: dict = {}
+    shapes: list = []
 
     def hold(gm):
         held.append(hold_device_ticks(gm.arrays))
@@ -3573,15 +3682,18 @@ def run_live_raft(device: str, groups: int = LIVE_GROUPS, rounds: int = LIVE_ROU
         if phase == "start":
             launches["warm"] = {k: KERNELS[k][2][k] for k in ("tick_frame",) + LIVE_PATH}
             reset_launches()
+            del shapes[:]  # the traffic's calls only
         else:
             launches["path"] = {k: KERNELS[k][2][k] for k in LIVE_PATH + ("tick_frame",)}
+            launches["shapes"] = list(shapes)
 
     env = {k: os.environ.pop(k) for k in ("RP_QUORUM_BACKEND",) if k in os.environ}
     tmp = tempfile.mkdtemp(prefix="rp_live_")
     try:
         reset_launches()
-        dev = asyncio.run(live_scenario(pkg, os.path.join(tmp, "device"), groups, rounds, per_round, seed,
-                                        steady, hold=hold, on_traffic=count, device=device))
+        with tick_shapes(shapes):
+            dev = asyncio.run(live_scenario(pkg, os.path.join(tmp, "device"), groups, rounds, per_round, seed,
+                                            steady, hold=hold, on_traffic=count, device=device))
         with quorum_backend("host"):
             host = asyncio.run(live_scenario(pkg, os.path.join(tmp, "host"), groups, rounds, per_round, seed,
                                              steady, device=device))
@@ -3590,6 +3702,7 @@ def run_live_raft(device: str, groups: int = LIVE_GROUPS, rounds: int = LIVE_ROU
         shutil.rmtree(tmp, ignore_errors=True)
     check_held(held[0])
     same_live(dev, host, "device leg vs host leg")
+    dev["tick_shapes"] = launches.pop("shapes")
     dev["launches"], dev["held"], dev["host"] = launches, held[0]["calls"], host
     return dev
 
@@ -3603,6 +3716,21 @@ def phase_live_raft() -> dict:
     idle = [k for k in LIVE_PATH if r["launches"]["path"][k] <= 0]
     if idle:
         raise AssertionError(f"the live Raft layer never launched {idle}: {r['launches']['path']}")
+    if len(r["tick_shapes"]) != r["launches"]["path"]["heartbeat_tick"]:
+        raise AssertionError(f"{len(r['tick_shapes'])} heartbeat_tick calls in the traffic, "
+                             f"{r['launches']['path']['heartbeat_tick']} launches")
+    # each shape of the traffic's calls (the GroupManager's row capacity,
+    # its replica slots and the reply bucket: a round's replies, or the
+    # few of the heartbeat tick after it), the most frequent first
+    import torch
+    from collections import Counter
+
+    shapes = sorted(Counter(r["tick_shapes"]).items(), key=lambda kv: (-kv[1], -kv[0][2]))
+    r["tick"] = [{**live_tick(torch, shape, MEM_BYTES_PER_S), "calls": n} for shape, n in shapes]
+    for t in r["tick"]:
+        log(f"[raft] heartbeat_tick at {t['shape']} ({t['calls']} of the traffic's calls): equal to the plain "
+            f"chain, one call {t['ms']:.4f} ms (the fold + sweep sequence it replaced {t['sequence_ms']:.4f} ms), "
+            f"bound {t['bound_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms")
     log(f"[raft] {LIVE_GROUPS} groups at RF={LIVE_NODES} on three GroupManagers (cuda, default backend): "
         f"setup {r['setup_s']:.3f} s, catch-up {r['catchup_s']:.3f} s; {LIVE_ROUNDS} rounds of {LIVE_PER_ROUND} "
         f"acks=-1 batches ({RECORDS} x {RECORD_BYTES} B): round p50 {pct(r['round_s'], 50) * 1e3:.3f} ms "
@@ -3629,7 +3757,7 @@ def phase_live_raft() -> dict:
 BROKER_TOPIC, BROKER_PARTITIONS, BROKER_BATCHES, BROKER_NODES = "omb-1kb", 100, 1024, 3
 # the kernels the broker's produce, fetch, replication and health seams
 # launch (the frame kernel runs in each GroupManager's prewarm)
-BROKER_PATH = ("fused_lz4", "crc32c_device", "fold_replies", "quorum_commit_step", "health_reduce")
+BROKER_PATH = ("fused_lz4", "crc32c_device", "heartbeat_tick", "health_reduce")
 # the two legs' environments: the card's seams, then the host's
 BROKER_DEVICE_ENV = {"RP_CODEC_BACKEND": "device", "RP_FETCH_VERIFY": "1",
                      "RP_QUORUM_BACKEND": None, "RP_CRC_BACKEND": None}
@@ -4029,9 +4157,9 @@ PROC_ENV = {"RP_DEVPLANE": "1", "RP_DEVPLANE_SAMPLE": "1", "RP_CODEC_BACKEND": "
 # the kernel wrappers' own launch counters (LAUNCHES)
 SAMPLES, LAUNCH_COUNTS = "devplane_kernel_seconds_count", "devplane_kernel_launches"
 # what the restarted worker must run while it leads: the heartbeat tick
-# (probe) and its two kernels (launch counters; none on the CPU, where
-# the plain versions run)
-WORKER_PROBES, WORKER_KERNELS = ("quorum.heartbeat_tick",), ("fold_replies", "quorum_commit_step")
+# (probe) and its kernels (launch counter: one a call on the card, none
+# on the CPU, where the plain chain runs)
+WORKER_PROBES, WORKER_KERNELS = ("quorum.heartbeat_tick",), ("heartbeat_tick",)
 # each seam the run's environment arms, as (probe, kernel): its samples
 # in node 0's merged /v1/devplane, and on the card its kernel's launches
 # in the traffic (shard 0 runs both seams: a worker's produce path stores
@@ -4461,6 +4589,11 @@ def check_processes(r: dict, env: dict, device: str) -> None:
     for family, name in wanted:
         if r["worker"][family].get(name, 0) <= 0:
             raise AssertionError(f"the restarted worker ran no {name} for the last batches: {r['worker']}")
+    # every call of the sampled probe is one launch of the tick's entry
+    calls = r["worker"][SAMPLES].get("quorum.heartbeat_tick", 0)
+    if device == "cuda" and r["worker"][LAUNCH_COUNTS].get("heartbeat_tick", 0) != calls:
+        raise AssertionError(f"the restarted worker's heartbeat_tick launches differ from its "
+                             f"{calls} quorum.heartbeat_tick calls: {r['worker']}")
     kernels = r["devplane"].get("kernels", {})
     for (var, value), (probe, kernel) in SEAM_PROBES.items():
         if env.get(var) != value:
@@ -4756,7 +4889,7 @@ def main() -> int:
     s = run_slice(G, TICKS, "cuda")
     path_launches = {
         name: KERNELS[name][2][name]
-        for name in ("fold_replies", "quorum_commit_step", "build_heartbeats", "tick_frame", "health_reduce")
+        for name in ("fold_replies", "heartbeat_tick", "build_heartbeats", "tick_frame", "health_reduce")
     }
     st = s["stage_ms"]
     log(
@@ -4791,6 +4924,7 @@ def main() -> int:
     broker = phase_broker()
     entry = phase_entry_points()
     live = phase_live_raft()
+    results["heartbeat_tick"]["live"] = live["tick"]
     for launches in (seg["launches"], zr["launches"], mesh["launches"], cluster["launches"],
                      live["launches"]["path"], broker["launches"], entry["launches"]):
         for name, count in launches.items():
@@ -4817,6 +4951,10 @@ def main() -> int:
             kernels[-1]["also_replaces"] = ALSO_REPLACES[name]
         if "no_health" in e:  # the frame kernel as quorum.tick_frame launches it
             kernels[-1]["no_health"] = e["no_health"]
+        if "sequence_ms" in e:  # the launch sequence the kernel replaced, on the same inputs
+            kernels[-1]["sequence_ms"] = e["sequence_ms"]
+        if "live" in e:  # the same kernel at each of the live Raft layer's call shapes
+            kernels[-1]["live"] = e["live"]
         at_mesh = results.get(f"{name}@mesh")
         if at_mesh is not None:  # the same kernel alone at the mesh frame's shape
             kernels[-1]["mesh"] = {k: at_mesh[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}

@@ -7,6 +7,7 @@
 //   fold_replies          :172  scatter-max of M replies into [G, R] lanes
 //   quorum_commit_step    :110  masked majority order statistic per group
 //   build_heartbeats      :196  gather of the heartbeat payload fields
+//   heartbeat_tick        :260  fold, then the commit sweep
 //   tick_frame            :283  fold, sweep, gather (health.py:90
 //                               tick_frame_health: and the row health)
 //   follower_commit_step  :154  commit = min(leader_commit, flushed[0])
@@ -19,7 +20,10 @@
 // and writes two [G] lanes, ~9.3 MB, ~2.8 us at 3.35 TB/s; at the mesh
 // frame's 1M rows ~185 MB, ~55 us. The fold touches M random 8-byte cells
 // of three lanes; the gather reads H random rows. At the tick's sizes one
-// launch costs about as much as the work, so the launch count matters.
+// launch costs about as much as the work, so the launch count matters:
+// timed as chip_smoke times a kernel, an empty one reads ~5.2 us and an
+// empty pair launched as heartbeat_tick's ~6.5 us (H100, chip_quorum.py
+// tick), beside the tick's 4.5 us byte bound.
 //
 // Indices follow JAX's rule: a row in [-G, 0) or a slot in [-R, 0) counts
 // from the end, once; the scatters (fold, local append) then drop what is
@@ -48,6 +52,28 @@
 //     the masked slot with the right masked rank. R <= 32, padded to 8, 16
 //     or 32 slots in registers. 128-thread blocks spread the tick's 50k
 //     rows over more SMs than 256.
+//   * heartbeat_tick, the live tick, is its own pair of kernels behind one
+//     entry (rp_heartbeat_tick), with no grid barrier. Only match and
+//     flushed need the seq guard, and neither feeds it; last_seq needs no
+//     guard: a reply that fails it has seq <= the pre-batch last_seq and
+//     cannot raise the max, so the guarded raise equals max(last_seq, seq)
+//     over every in-range reply. K1 (tick_fold_kernel, an ordinary launch
+//     sized by M, one reply a thread) guards each reply against last_seq,
+//     which nothing writes during K1, and raises match and flushed of the
+//     fresh ones; it lets K2 launch at its start while its grid leaves SMs
+//     free, else once its loads are in flight (H100, chip_quorum.py tick:
+//     -0.6 us at the live layer's 4 blocks, +0.55 us at the tick's 512).
+//     K2 (tick_sweep_kernel<N, aligned>, one row a thread as
+//     the sweep above) is launched with programmatic dependent launch: its
+//     blocks load the flags of their row (lanes K1 never writes) and their
+//     replies' cells and seqs, wait for K1 (griddepcontrol.wait: K1 has
+//     finished and its writes are visible), sweep the row and raise
+//     last_seq for their replies. The launch boundary is the grid-wide
+//     barrier the raise needs, and K2's launch and prologue overlap K1.
+//     The raise reads the cell first and sends the atomic only where the
+//     seq exceeds it (last_seq only rises, so a skipped reply raises
+//     nothing): the padding entries (row 0, slot 0, seq i64 min) and the
+//     stale replies cost no atomic on one hot cell.
 //   * tick_frame (and tick_frame_health: the health lanes are nullable)
 //     is ONE cooperative launch of three phases. A: the fold above, with
 //     its barrier; up to two replies a thread stay in registers (the
@@ -124,6 +150,9 @@
 #define MESH_ROWS 4
 // rows a thread of the follower rule (a multiple of 2: 16-byte vectors)
 #define FOLLOW_ROWS 4
+// replies a thread of the tick's sweep kernel raises, held in registers
+// from its prologue (its grid has at least M / TICK_RAISE threads)
+#define TICK_RAISE 4
 // the frame's block: the sweep holds a row in registers (72 at R <= 8,
 // 140 at R <= 16, 255 at R <= 32), so a block of 256 threads keeps
 // every instance within the register file
@@ -366,6 +395,119 @@ commit_step_kernel(const i64* __restrict__ term_start,
     sweep_row<N, kAligned>(f, commit, last_visible, match, flushed, g, r_n, m);
 }
 
+// the 16-byte row loads and 8-byte mask words need R a multiple of 8 and
+// aligned lanes
+static bool aligned_rows(i64 r_n, const i64* match, const i64* flushed, const u8* voter,
+                         const u8* voter_old) {
+    return r_n % 8 == 0 && (uintptr_t)match % 16 == 0 && (uintptr_t)flushed % 16 == 0 &&
+           (uintptr_t)voter % 8 == 0 && (uintptr_t)voter_old % 8 == 0;
+}
+
+// ------------------------------------------------------- heartbeat tick
+// Programmatic dependent launch (sm_90): a kernel that may launch its
+// dependents early, and the dependents' wait for it (cudaTrigger-
+// ProgrammaticLaunchCompletion and cudaGridDependencySynchronize). The
+// wait returns once every prerequisite grid has finished and its memory
+// operations are visible; in a kernel launched without the attribute it
+// returns at once.
+__device__ __forceinline__ void launch_dependents() {
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void wait_prerequisites() {
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// K1 of the tick: reply i guarded against last_seq, match and flushed
+// raised for a fresh one. last_seq is read only (K2 raises it), so every
+// guard reads the pre-batch value with no barrier. K2 may launch once
+// every block has let it, at the start (early) or once its loads are
+// in flight; its wait covers K1's atomics either way.
+__global__ void __launch_bounds__(THREADS)
+tick_fold_kernel(i64* __restrict__ match, i64* __restrict__ flushed,
+                 const i64* __restrict__ last_seq, const i64* __restrict__ group_idx,
+                 const i64* __restrict__ slot, const i64* __restrict__ dirty,
+                 const i64* __restrict__ flushed_in, const i64* __restrict__ seq, i64 m,
+                 i64 g_n, i64 r_n, int early) {
+    if (early) launch_dependents();
+    const i64 i = (i64)blockIdx.x * THREADS + threadIdx.x;
+    i64 k = -1, sq = 0, d = 0, fl = 0;
+    if (i < m) {
+        k = scatter_cell(group_idx[i], slot[i], g_n, r_n);
+        sq = seq[i];
+        d = dirty[i];
+        fl = flushed_in[i];
+    }
+    const bool fresh = k >= 0 && sq > last_seq[k];
+    if (!early) launch_dependents();
+    if (fresh) {
+        atomicMax(&match[k], d);
+        atomicMax(&flushed[k], fl);
+    }
+}
+
+// K2 of the tick: thread t sweeps row t (t < G) and raises last_seq for
+// replies t + s T, s < TICK_RAISE (T threads in the grid, which the entry
+// makes at least M / TICK_RAISE). match, flushed and
+// last_seq carry no __restrict__: K1 writes the first two and reads the
+// third while this grid's prologue runs.
+template <int N, bool kAligned>
+__global__ void __launch_bounds__(COMMIT_THREADS)
+tick_sweep_kernel(const i64* __restrict__ term_start, const u8* __restrict__ is_leader,
+                  i64* __restrict__ commit, i64* __restrict__ last_visible, const i64* match,
+                  const i64* flushed, const u8* __restrict__ voter,
+                  const u8* __restrict__ voter_old, i64* last_seq,
+                  const i64* __restrict__ group_idx, const i64* __restrict__ slot,
+                  const i64* __restrict__ seq, i64 m, i64 g_n, int r_n) {
+    const i64 t = (i64)blockIdx.x * COMMIT_THREADS + threadIdx.x;
+    const i64 stride = (i64)gridDim.x * COMMIT_THREADS;
+    // the prologue: only what K1 never writes
+    RowFlags f = {};
+    if (t < g_n)
+        f = load_flags<N, kAligned>(term_start, is_leader, commit, last_visible, voter,
+                                    voter_old, t, r_n);
+    i64 k[TICK_RAISE], sq[TICK_RAISE];
+#pragma unroll
+    for (int s = 0; s < TICK_RAISE; ++s) {
+        const i64 i = t + s * stride;
+        k[s] = -1;
+        sq[s] = RP_I64_MIN;
+        if (i < m) {
+            k[s] = scatter_cell(group_idx[i], slot[i], g_n, r_n);
+            sq[s] = seq[i];
+        }
+    }
+    wait_prerequisites();
+    i64 cur[TICK_RAISE];
+#pragma unroll
+    for (int s = 0; s < TICK_RAISE; ++s) cur[s] = k[s] >= 0 ? last_seq[k[s]] : sq[s];
+    if (t < g_n) {
+        i64 row[N];
+        sweep_row<N, kAligned>(f, commit, last_visible, match, flushed, t, r_n, row);
+    }
+#pragma unroll
+    for (int s = 0; s < TICK_RAISE; ++s)
+        if (sq[s] > cur[s]) atomicMax(&last_seq[k[s]], sq[s]);
+}
+
+// K2 for R slots (padded to 8, 16 or 32) and the lanes' alignment
+static cudaError_t launch_tick_sweep(const cudaLaunchConfig_t* cfg, const i64* term_start,
+                                     const u8* is_leader, i64* commit, i64* last_visible,
+                                     const i64* match, const i64* flushed, const u8* voter,
+                                     const u8* voter_old, i64* last_seq, const i64* group_idx,
+                                     const i64* slot, const i64* seq, i64 m, i64 g_n,
+                                     i64 r_n) {
+    const int rn = (int)r_n;
+    const bool aligned = aligned_rows(r_n, match, flushed, voter, voter_old);
+#define RP_TICK_SWEEP(NS, AL)                                                                \
+    cudaLaunchKernelEx(cfg, tick_sweep_kernel<NS, AL>, term_start, is_leader, commit,        \
+                       last_visible, match, flushed, voter, voter_old, last_seq, group_idx, \
+                       slot, seq, m, g_n, rn)
+    if (r_n <= 8) return aligned ? RP_TICK_SWEEP(8, true) : RP_TICK_SWEEP(8, false);
+    if (r_n <= 16) return aligned ? RP_TICK_SWEEP(16, true) : RP_TICK_SWEEP(16, false);
+    return aligned ? RP_TICK_SWEEP(32, true) : RP_TICK_SWEEP(32, false);
+#undef RP_TICK_SWEEP
+}
+
 // ----------------------------------------------------------- heartbeats
 __global__ void heartbeats_kernel(const i64* __restrict__ hb_idx,
                                   const i64* __restrict__ term,
@@ -562,12 +704,6 @@ static cudaError_t frame_grid(i64 m, i64 rows, const void* kernel, CoopGrid* out
                      [kernel](bool) { return kernel; }, out);
 }
 
-static bool aligned_rows(i64 r_n, const i64* match, const i64* flushed, const u8* voter,
-                         const u8* voter_old) {
-    return r_n % 8 == 0 && (uintptr_t)match % 16 == 0 && (uintptr_t)flushed % 16 == 0 &&
-           (uintptr_t)voter % 8 == 0 && (uintptr_t)voter_old % 8 == 0;
-}
-
 // ------------------------------------------------------ follower rules
 // FOLLOW_ROWS consecutive rows a thread. kAligned: the three [G] lanes are
 // 16-byte aligned, so a thread whose rows all exist moves them as vectors;
@@ -746,6 +882,54 @@ int rp_commit_step(const i64* term_start, const u8* is_leader, i64* commit,
     }
 #undef RP_COMMIT_LAUNCH
     return (int)cudaGetLastError();
+}
+
+// The heartbeat tick: K1 folds m replies, K2 (programmatic stream
+// serialization: it starts while K1 runs and waits for it inside) sweeps
+// every row and raises last_seq. m == 0 launches K2 alone. The lanes come
+// in rp_tick_frame's order; term is not read.
+int rp_heartbeat_tick(const i64* term, const u8* is_leader, i64* commit, const i64* term_start,
+                      i64* last_visible, i64* match, i64* flushed, i64* last_seq,
+                      const u8* voter, const u8* voter_old, const i64* group_idx,
+                      const i64* slot, const i64* dirty, const i64* flushed_in,
+                      const i64* seq, i64 m, i64 g_n, i64 r_n, void* stream) {
+    if (g_n <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (m > 0) {
+        const i64 blocks = (m + THREADS - 1) / THREADS;
+        if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+        int sms = 0;
+        cudaError_t e = sm_count(&sms);
+        if (e != cudaSuccess) return (int)e;
+        // K2's blocks may launch at K1's start while K1 leaves SMs free;
+        // on a card K1 fills, they would take its slots while it loads
+        const int early = blocks <= sms;
+        tick_fold_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(
+            match, flushed, last_seq, group_idx, slot, dirty, flushed_in, seq, m, g_n, r_n,
+            early);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    // a row a thread, and at least TICK_RAISE replies a thread
+    const i64 per_block = (i64)COMMIT_THREADS * TICK_RAISE;
+    i64 blocks = (g_n + COMMIT_THREADS - 1) / COMMIT_THREADS;
+    if ((m + per_block - 1) / per_block > blocks) blocks = (m + per_block - 1) / per_block;
+    if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)blocks);
+    cfg.blockDim = dim3(COMMIT_THREADS);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = m > 0 ? 1 : 0;
+    const cudaError_t e = launch_tick_sweep(&cfg, term_start, is_leader, commit, last_visible,
+                                            match, flushed, voter, voter_old, last_seq,
+                                            group_idx, slot, seq, m, g_n, r_n);
+    const cudaError_t last = cudaGetLastError();  // clears a refused launch
+    return (int)(e != cudaSuccess ? e : last);
 }
 
 // out: blocks, threads, runs of replies a thread

@@ -23,8 +23,11 @@ loops:
   commit_index, last_dirty, last_visible) vectors from state
   (heartbeat_manager.cc:203).
 
-* `heartbeat_tick` — the fused tick as a launch sequence: fold, then
-  commit. `tick_frame` — fold, commit and gather in ONE cooperative
+* `heartbeat_tick` — the live tick: fold, then commit, on the card one
+  pair of kernels behind one entry (`rp_heartbeat_tick`): the fold with
+  no grid barrier and no last_seq write, then the sweep, launched with
+  programmatic dependent launch, which also raises last_seq (the raise
+  needs no seq guard). `tick_frame` — fold, commit and gather in ONE cooperative
   launch (`launch_frame`, which also takes ops.health's row health).
   `launch_mesh_frame` — the mesh frame (parallel/mesh_frame.py): the
   fold, then one sweep that also takes each row's health and the fleet
@@ -69,6 +72,7 @@ LAUNCHES = devplane.count_launches({
     "fold_replies": 0,
     "quorum_commit_step": 0,
     "build_heartbeats": 0,
+    "heartbeat_tick": 0,
     "tick_frame": 0,
     "mesh_tick_frame": 0,
     "follower_commit_step": 0,
@@ -85,6 +89,7 @@ def bind(lib):
     lib.rp_fold_grid.restype = ctypes.c_int
     _build.bind(lib, "rp_commit_step", 8, 2)
     _build.bind(lib, "rp_build_heartbeats", 9, 3)
+    _build.bind(lib, "rp_heartbeat_tick", 15, 3)
     _build.bind(lib, "rp_tick_frame", 25, 4)
     _build.bind(lib, "rp_mesh_sweep", 17, 2)
     lib.rp_frame_grid.argtypes = [ctypes.c_int64] * 5 + [ctypes.c_void_p]
@@ -454,6 +459,21 @@ def local_append_update(
 
 
 # ----------------------------------------------------- fused ticks
+# the tick and frame kernels' argument orders: the state's lanes, the
+# health lanes
+LANE_ORDER = ("term", "is_leader", "commit_index", "term_start", "last_visible",
+              "match_index", "flushed_index", "last_seq", "is_voter", "is_voter_old")
+HEALTH_KEYS = ("max_lag", "under_replicated", "leaderless")
+
+
+def heartbeat_tick_plain(
+    state, group_idx, replica_slot, last_dirty, last_flushed, seq
+) -> GroupState:
+    """The plain chain, in place: the fold, then the commit sweep."""
+    state = fold_replies_plain(state, group_idx, replica_slot, last_dirty, last_flushed, seq)
+    return quorum_commit_step_plain(state)
+
+
 def heartbeat_tick(
     state: GroupState,
     group_idx: torch.Tensor,
@@ -462,11 +482,36 @@ def heartbeat_tick(
     last_flushed: torch.Tensor,
     seq: torch.Tensor,
 ) -> GroupState:
-    """One leader tick: fold a reply batch, then advance commit indices
-    for all groups — the complete 50k-partition sweep as one launch
-    sequence on one stream."""
-    state = fold_replies_raw(state, group_idx, replica_slot, last_dirty, last_flushed, seq)
-    return quorum_commit_step_raw(state)
+    """One leader tick, in place: fold a reply batch (fold_replies'
+    rules), then advance every group's commit index (quorum_commit_step's).
+    On the card one entry, two kernels: the fold guards each reply
+    against the pre-batch last_seq and raises match and flushed; the
+    sweep, which may start while the fold runs and waits for it inside,
+    advances every row and raises last_seq to the max seq of its in-range
+    replies (a reply the guard drops cannot raise it)."""
+    check_state(state)
+    dev = state.match_index.device
+    g, r = state.match_index.shape
+    if not 1 <= r <= MAX_REPLICA_SLOTS:
+        raise ValueError(f"replica_slots={r} outside [1, {MAX_REPLICA_SLOTS}]")
+    replies = (group_idx, replica_slot, last_dirty, last_flushed, seq)
+    m = group_idx.shape[0]
+    for name, t in zip(("group_idx", "replica_slot", "last_dirty", "last_flushed", "seq"), replies):
+        _check_vec(t, m, dev, name)
+    if not _on_card(state):
+        return heartbeat_tick_plain(state, *replies)
+    if g == 0:
+        return state
+    lib = _lib()
+    rc = lib.rp_heartbeat_tick(
+        *(getattr(state, k).data_ptr() for k in LANE_ORDER),
+        *(t.data_ptr() for t in replies),
+        m, g, r,
+        _build.stream_of(state.match_index),
+    )
+    _build.check(lib, rc, "heartbeat_tick")
+    LAUNCHES["heartbeat_tick"] += 1
+    return state
 
 
 def tick_frame(
@@ -503,12 +548,6 @@ def frame_grid(m: int, g: int, r: int, h: int, aligned: bool = True) -> tuple[in
     _build.check(lib, lib.rp_frame_grid(m, g, r, h, int(aligned), ctypes.addressof(out)),
                  "frame_grid")
     return int(out[0]), int(out[1]), int(out[2])
-
-
-# the frame kernels' argument orders: the state's lanes, the health lanes
-LANE_ORDER = ("term", "is_leader", "commit_index", "term_start", "last_visible",
-              "match_index", "flushed_index", "last_seq", "is_voter", "is_voter_old")
-HEALTH_KEYS = ("max_lag", "under_replicated", "leaderless")
 
 
 def _health_lanes(g: int, dev) -> dict:

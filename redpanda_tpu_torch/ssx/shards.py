@@ -76,6 +76,9 @@ from ..utils.serde import Envelope, bytes_t, string, u8, u16, u64
 
 logger = logging.getLogger("ssx")
 
+# the supervisor's reap loop polls its children this often (s)
+REAP_POLL_S = 0.1
+
 # frame: [u32 size][u8 kind][envelope bytes]; size counts kind + envelope
 _HDR = struct.Struct("<IB")
 _KIND_REQUEST = 0
@@ -708,6 +711,7 @@ class ShardRuntime:
         self._next_sid = n_shards
         self._hb_last: dict[int, float] = {}
         self._hb_inflight: set[int] = set()
+        self._hb_pass: Optional[float] = None  # the last heartbeat pass
         # services registered before start() land on the parent ctx
         self._pre_services: dict[str, Callable] = {}
         # every worker is forked from here (module docstring)
@@ -1167,7 +1171,7 @@ class ShardRuntime:
         loop = asyncio.get_event_loop()
         hb_next = loop.time() + self._hb_interval
         while True:
-            await asyncio.sleep(0.1)
+            await asyncio.sleep(REAP_POLL_S)
             now = loop.time()
             if (
                 self._hb_deadline > 0
@@ -1216,7 +1220,15 @@ class ShardRuntime:
         """Gray-failure detection: waitpid cannot see a SIGSTOP'd (or
         wedged) child — only a missed ping deadline can. A shard past
         the deadline is SIGKILLed; the normal waitpid path then drives
-        the per-shard restart."""
+        the per-shard restart. A pass that comes late (shard 0's loop
+        stalled, or a restart's hooks held the reap loop) credits every
+        shard with the lateness: no ping went out in that time, so no
+        answer could come back."""
+        prev, self._hb_pass = self._hb_pass, now
+        late = now - prev - self._hb_interval - REAP_POLL_S if prev is not None else 0.0
+        if late > 0:
+            for sid, last in self._hb_last.items():
+                self._hb_last[sid] = min(now, last + late)
         for sid in list(self.shard_pids):
             if sid in self._retiring or sid in self._spawning:
                 continue

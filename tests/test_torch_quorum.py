@@ -655,6 +655,8 @@ def _jax_vs_port(fn, fields, rng, g, r):
     if fn == "build_heartbeats":
         return (flat(None, ("hb", jq.build_heartbeats(js, jnp.asarray(hb)))),
                 flat(None, ("hb", tq.build_heartbeats(ts, tvec(hb)))))
+    if fn == "heartbeat_tick":
+        return flat(jq.heartbeat_tick(js, *jr)), flat(tq.heartbeat_tick(ts, *tr))
     if fn == "tick_frame":
         (a, ahb), (b, bhb) = jq.tick_frame(js, *jr, jnp.asarray(hb)), tq.tick_frame(ts, *tr, tvec(hb))
         return flat(a, ("hb", ahb)), flat(b, ("hb", bhb))
@@ -664,7 +666,7 @@ def _jax_vs_port(fn, fields, rng, g, r):
 
 
 @pytest.mark.parametrize("fn", ["fold_replies", "local_append_update", "build_heartbeats",
-                                "tick_frame", "tick_frame_health"])
+                                "heartbeat_tick", "tick_frame", "tick_frame_health"])
 @pytest.mark.parametrize("r", [3, 8])
 def test_index_rule_matches_jax(fn, r):
     """The port's plain versions equal JAX exactly on one batch mixing
@@ -1162,3 +1164,185 @@ def test_kernel_replay_follower_matches_jax(skip, g, r):
     assert_states_equal(want, torch_state(replay))
     np.testing.assert_array_equal(np.sort(reads), np.flatnonzero(lc > fields["commit_index"]))
     assert vec.sum() == (g // FOLLOW_ROWS if aligned else 0)
+
+
+# ------------------------------------------------------------------
+# The heartbeat tick's pair (csrc/quorum.cu tick_fold_kernel, then
+# tick_sweep_kernel launched with programmatic dependent launch),
+# replayed: K1 guards against last_seq and writes no last_seq cell; K2
+# sweeps the rows and raises last_seq with no guard.
+
+TICK_THREADS, COMMIT_THREADS, TICK_RAISE = 256, 128, 4
+
+
+def _tick_grid(g, m):
+    """rp_heartbeat_tick's grids: K1's blocks (one reply a thread) and
+    K2's (a row a thread, and at least m / TICK_RAISE threads)."""
+    per_block = COMMIT_THREADS * TICK_RAISE
+    return -(-m // TICK_THREADS), max(-(-g // COMMIT_THREADS), -(-m // per_block))
+
+
+def _unguarded_raise(last_seq, replies):
+    """last_seq raised to max(last_seq, seq) over every reply whose pair is
+    in range after the wrap, with no seq guard."""
+    out = np.array(last_seq, copy=True)
+    g_n, r_n = out.shape
+    flat = out.reshape(-1)
+    rows, slots, _, _, seq = replies
+    for g, r, sq in zip(rows, slots, seq):
+        k = _cell(g, r, g_n, r_n)
+        if k >= 0:
+            flat[k] = max(flat[k], sq)
+    return out
+
+
+def _replay_tick(fields, replies, seed=0, raise_in_k1=False):
+    """The pair on numpy lanes. K1: blocks in a seeded order, lanes in a
+    seeded order within each warp; each reply's guard reads last_seq,
+    which K1 never writes, and a fresh reply raises match and flushed.
+    K2 (after K1, as its wait orders it): every thread first reads the
+    last_seq cell of each of its replies (as early as the kernel can:
+    the most stale reads), then sweeps its row (_replay_commit on the
+    lanes K1 left) and raises the cells whose seq exceeds what it read,
+    threads in a seeded order. raise_in_k1: each K1 block also raises
+    last_seq for its own fresh replies at once, with no grid barrier
+    (the design the pair rules out)."""
+    out = {k: np.array(v, copy=True) for k, v in fields.items()}
+    g_n, r_n = out["match_index"].shape
+    match, flushed, last_seq = (out[k].reshape(-1) for k in ("match_index", "flushed_index", "last_seq"))
+    rows, slots, dirty, fl, seq = replies
+    m = len(rows)
+    k1_blocks, k2_blocks = _tick_grid(g_n, m)
+    rng = np.random.default_rng(seed)
+    for b in rng.permutation(k1_blocks):
+        fresh = []
+        for w in range(TICK_THREADS // 32):
+            for lane in rng.permutation(32):
+                i = b * TICK_THREADS + w * 32 + lane
+                if i >= m:
+                    continue
+                k = _cell(rows[i], slots[i], g_n, r_n)
+                if k >= 0 and seq[i] > last_seq[k]:
+                    match[k] = max(match[k], dirty[i])
+                    flushed[k] = max(flushed[k], fl[i])
+                    fresh.append((k, seq[i]))
+        if raise_in_k1:
+            for k, sq in fresh:
+                last_seq[k] = max(last_seq[k], sq)
+    threads = k2_blocks * COMMIT_THREADS
+    assert threads >= g_n and threads * TICK_RAISE >= m
+    mine = [[t + s * threads for s in range(TICK_RAISE) if t + s * threads < m] for t in range(threads)]
+    cells = [[(_cell(rows[i], slots[i], g_n, r_n), seq[i]) for i in ii] for ii in mine]
+    read = [[last_seq[k] if k >= 0 else sq for k, sq in cc] for cc in cells]
+    swept = _replay_commit(out)
+    for t in rng.permutation(threads):
+        for (k, sq), cur in zip(cells[t], read[t]):
+            if sq > cur:
+                last_seq[k] = max(last_seq[k], sq)
+    out["commit_index"], out["last_visible"] = swept["commit_index"], swept["last_visible"]
+    return out
+
+
+@pytest.mark.parametrize("r", [3, 5, 8])
+@pytest.mark.parametrize("seed", range(3))
+def test_unguarded_last_seq_raise_matches_jax_fold(seed, r):
+    """The raise K2 does, max(last_seq, seq) over every in-range reply with
+    no guard, equals the last_seq of JAX's guarded fold: duplicate pairs
+    in both seq orders, equal seqs, stale seqs, padding entries (row 0,
+    slot 0, seq i64 min) and rows and slots out of range."""
+    rng = np.random.default_rng(200 + 10 * seed + r)
+    g = 12
+    fields = random_fields(rng, g, r)
+    fields["last_seq"] = rng.integers(0, 6, (g, r)).astype(np.int64)
+    replies = mixed_index_replies(rng, g, r, m=300)
+    rows, slots, dirty, fl, seq = replies
+    # duplicate pairs with both seq orders and an equal pair, and stale twins
+    dup = rng.integers(0, len(rows), 40)
+    extra = [a[dup] for a in replies]
+    extra[4] = np.where(rng.random(40) < 0.5, extra[4] + rng.integers(-3, 4, 40), extra[4])
+    replies = [np.concatenate([a, e, np.full(8, f, np.int64)])
+               for a, e, f in zip(replies, extra, (0, 0, I64_MIN, I64_MIN, I64_MIN))]
+    want = jq.fold_replies(jax_state(fields), *map(jnp.asarray, replies))
+    np.testing.assert_array_equal(_unguarded_raise(fields["last_seq"], replies), np.asarray(want.last_seq))
+
+
+def test_unguarded_last_seq_raise_property():
+    """The same equality on batches hypothesis draws: any mix of rows in
+    [-G - 2, G + 2), slots in [-R - 2, R + 2), seqs around last_seq and
+    padding entries, at R = 3, 5 and 8."""
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+
+    g, m = 5, 24
+
+    @settings(max_examples=60, deadline=None, derandomize=True, database=None)
+    @given(data=st.data())
+    def check(data):
+        r = data.draw(st.sampled_from([3, 5, 8]))
+        reply = st.one_of(st.tuples(st.integers(-g - 2, g + 1), st.integers(-r - 2, r + 1), st.integers(-2, 8)),
+                          st.just((0, 0, I64_MIN)))
+        batch = data.draw(st.lists(reply, min_size=m, max_size=m))
+        fields = random_fields(np.random.default_rng(r), g, r)
+        fields["last_seq"] = np.array(data.draw(st.lists(st.integers(0, 6), min_size=g * r, max_size=g * r)),
+                                      np.int64).reshape(g, r)
+        rows, slots, seq = (np.array([b[j] for b in batch], np.int64) for j in range(3))
+        dirty = np.arange(m, dtype=np.int64)
+        replies = [rows, slots, dirty, dirty - 1, seq]
+        want = jq.fold_replies(jax_state(fields), *map(jnp.asarray, replies))
+        np.testing.assert_array_equal(_unguarded_raise(fields["last_seq"], replies),
+                                      np.asarray(want.last_seq))
+
+    check()
+
+
+@pytest.mark.parametrize("batch", ["dup_pairs", "random", "mixed_index", "empty"])
+@pytest.mark.parametrize("r", [3, 5, 8])
+def test_kernel_replay_tick_matches_jax(batch, r):
+    """K1 with no last_seq write, then K2's sweep and raise, replayed in
+    seeded orders, equal to JAX's heartbeat_tick and the port's plain
+    chain: duplicate pairs across K1's blocks, random batches with
+    padding, JAX's index rule, and no replies at all."""
+    rng = np.random.default_rng(300 + r)
+    g = 300  # K2: 3 blocks of rows
+    fields = edge_fields(rng, g, r)
+    fields["last_seq"][:] = rng.integers(0, 3, (g, r))
+    if batch == "dup_pairs":
+        replies = _dup_pair_replies()
+        replies[1] = replies[1] % r
+    elif batch == "random":
+        replies = random_replies(rng, g, r, 2500, pad=37)  # K2: 5 blocks for the replies
+    elif batch == "mixed_index":
+        replies = mixed_index_replies(rng, g, r, m=900)
+    else:
+        replies = [np.zeros(0, np.int64)] * 5
+    want = jq.heartbeat_tick(jax_state(fields), *map(jnp.asarray, replies))
+    assert_states_equal(want, tq.heartbeat_tick(torch_state(fields), *map(tvec, replies)))
+    for seed in range(3):
+        assert_states_equal(want, torch_state(_replay_tick(fields, replies, seed=seed)))
+
+
+def test_kernel_replay_tick_raise_in_k1_drops_a_duplicate():
+    """Raising last_seq inside K1, with no grid barrier, lets a block raise
+    a cell before a duplicate in a later block reads its guard: the replay
+    then drops a reply the reference keeps. So the raise lives in K2,
+    after the launch boundary."""
+    fields = random_fields(np.random.default_rng(301), 16, 8)
+    fields["last_seq"][:] = 1
+    fields["match_index"][:] = -1
+    replies = _dup_pair_replies()
+    want = jq.heartbeat_tick(jax_state(fields), *map(jnp.asarray, replies))
+    differs = False
+    for seed in range(8):
+        got = _replay_tick(fields, replies, seed=seed, raise_in_k1=True)
+        differs |= not np.array_equal(got["match_index"], np.asarray(want.match_index))
+        assert_states_equal(want, torch_state(_replay_tick(fields, replies, seed=seed)))
+    assert differs
+
+
+@pytest.mark.parametrize("g,m", [(1, 0), (1024, 2048), (50_000, 131_072), (8192, 1024), (8, 131_072)])
+def test_tick_grid_covers_rows_and_replies(g, m):
+    """K1 has a thread for every reply; K2 a thread for every row and
+    TICK_RAISE slots a thread for every reply."""
+    k1, k2 = _tick_grid(g, m)
+    assert k1 * TICK_THREADS >= m > (k1 - 1) * TICK_THREADS or m == k1 == 0
+    assert k2 * COMMIT_THREADS >= g and k2 * COMMIT_THREADS * TICK_RAISE >= m
