@@ -209,9 +209,39 @@ Phases, each raising on any mismatch:
      clock beside the card's name and power limit, and
      `nvidia-smi --query-compute-apps` (one line per process on the
      card).
+  15. (run before 12) the brokers under faults, through the port's copy
+     of the chaos harness (tests/test_torch_chaos_harness.py run_chaos).
+     Part A: three app.Brokers on the card (device="cuda", the default
+     quorum backend, RP_CODEC_BACKEND=device, RP_FETCH_VERIFY=1), one
+     topic of 2 partitions at RF=3 with compression.type=lz4, acks=all
+     sequenced produces and a live fetch stream for 15 s of crashes
+     (Broker.stop, then a fresh Broker over the same data directory on
+     the same CUDA context), network partitions and leadership
+     transfers, the internal RPC under test_nemesis.py's capstone
+     schedule (seed 20260804: AppendEntries dropped 5 %, duplicated 2 %,
+     reordered 4 % in windows of 4, corrupted 1 %; both heartbeat kinds
+     duplicated 2 %; every method delayed 5 %, 1 ms + up to 4 ms). Checked:
+     I1-I3 (the harness's validate), every acked record at its offset in
+     each of the three replicas' committed logs, L1-L4 (linear_check)
+     over the produce and fetch history, every device_tick of node 0
+     (across its restarts) exact against the numpy host leg on a copy of
+     its lanes, every nemesis action fired, and heartbeat_tick,
+     fused_lz4, crc32c_device and health_reduce launched. Part B: the
+     tiered brokers (RP_ARCHIVE_COMPRESSION=zstd RP_ZSTD_BACKEND=tpu)
+     under test_chaos.py's object-store schedule (seed 515: partial
+     uploads, torn manifests, slow ranged reads, failed gets, throttles)
+     for 6 s of broker faults. Checked: I1-I3, the tiered checks (at
+     least one partition archived and one trimmed, every manifest
+     object present at its stored size), the store's fault trace
+     replayed byte-equal from (rules, seed, ops), the topic read from
+     offset 0 after the trim equal to the acks, and crc32c_device,
+     zstd_encode and zstd_decode launched. Prints, for each part, acked /
+     attempts, the faults fired, produce p50 / p99 on the host clock, the
+     launches and its wall seconds.
 The launch counters are zeroed just before each main-path phase (3, 4,
-6, 8, 8b, 9, 10, 12's traffic, 13's produce and 14's part B) and read
-just after (14's part A reads the node processes' probe calls); every kernel
+6, 8, 8b, 9, 10, 12's traffic, 13's produce, 14's part B and each part
+of 15, once its cluster has started) and read just after (14's part A
+reads the node processes' probe calls); every kernel
 must have launched there, except those in OFF_PATH
 (follower_commit_step, local_append_update, build_heartbeats,
 fused_snappy, fused_zstd).
@@ -3404,15 +3434,17 @@ def shadow_arrays(arrays):
     return shadow
 
 
-def hold_device_ticks(arrays) -> dict:
+def hold_device_ticks(arrays, held: dict | None = None) -> dict:
     """Hold every device_tick call on `arrays` against the numpy host
     leg (host_tick) run on a copy of the lanes taken just before the
     call: the advanced rows and LANES must be equal, exact. A call that
     differs raises, and since a frame flush runs in an event-loop
     callback, where asyncio only logs what it raises, the error is also
     kept: check_held raises the first. Returns {"calls": the reply
-    count of each held call, "errors": the mismatches}."""
-    held = {"calls": [], "errors": []}
+    count of each held call, "errors": the mismatches}; a `held` given
+    (one node's arrays across its restarts) collects into that."""
+    if held is None:
+        held = {"calls": [], "errors": []}
     device_tick = arrays.device_tick
 
     def checked(*args, **kwargs):
@@ -4839,6 +4871,343 @@ def phase_entry_points() -> dict:
     return {"launches": launches, "procs": a["launches"], "tiered": b["launches"]}
 
 
+# ------------------------------------------------ the brokers under faults
+# Phase 15: the port's copy of the chaos harness (tests/
+# test_torch_chaos_harness.py) on the card. Part A: three Brokers under
+# crashes, partitions and leadership transfers, their internal RPC under
+# the network nemesis of test_nemesis.py's capstone (its rules and seed);
+# part B: the tiered brokers under test_chaos.py's object-store faults
+# (its rules and seed, 515)
+FAULT_TOPIC, FAULT_PARTITIONS = "chaos", 2
+FAULT_SEED_A, FAULT_SEED_B = 20_260_804, 515
+FAULT_SECONDS_A, FAULT_SECONDS_B = 15.0, 6.0
+FAULT_ACTIONS = ("drop", "duplicate", "reorder", "corrupt", "delay")
+FAULT_PATH_A = ("heartbeat_tick", "fused_lz4", "crc32c_device", "health_reduce")
+FAULT_PATH_B = ("crc32c_device", "zstd_encode", "zstd_decode")
+# part A: every produced batch recompressed to the topic's lz4 by the
+# fused kernel, every fetch response verified on the card, the default
+# (device) quorum backend; part B adds the zstd archive leg
+FAULT_ENV_A = {"RP_CODEC_BACKEND": "device", "RP_FETCH_VERIFY": "1", "RP_QUORUM_BACKEND": None}
+FAULT_ENV_B = {**FAULT_ENV_A, **TIERED_ENV}
+
+
+def chaos_harness():
+    """The port's chaos harness and the history checker, imported from
+    the repository's tests/ (neither imports JAX)."""
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import linear_check
+    import test_torch_chaos_harness
+
+    return test_torch_chaos_harness, linear_check
+
+
+def nemesis_rules():
+    """test_nemesis.py's capstone schedule without its one-way episode:
+    drop, duplicate, reorder and corrupt on AppendEntries, duplicated
+    heartbeats (both kinds), jitter on every method."""
+    import redpanda_tpu_torch.raft.types as rt
+    from redpanda_tpu_torch.rpc import NetRule
+
+    return [
+        NetRule(method=rt.APPEND_ENTRIES, action="drop", prob=0.05),
+        NetRule(method=rt.APPEND_ENTRIES, action="duplicate", prob=0.02),
+        NetRule(method=rt.HEARTBEAT, action="duplicate", prob=0.02),
+        NetRule(method=rt.HEARTBEAT_SAME, action="duplicate", prob=0.02),
+        NetRule(method=rt.APPEND_ENTRIES, action="reorder", prob=0.04, reorder_window=4, reorder_hold_s=0.03),
+        NetRule(method=rt.APPEND_ENTRIES, action="corrupt", prob=0.01),
+        NetRule(action="delay", prob=0.05, delay_s=0.001, jitter_s=0.004),
+    ]
+
+
+def store_rules():
+    """test_chaos.py's object-store schedule: partial uploads, torn
+    manifests, slow ranged reads, failed gets, throttles."""
+    from redpanda_tpu_torch.cloud.nemesis import StoreRule
+
+    return [
+        StoreRule(op="put", action="partial", prob=0.15),
+        StoreRule(op="put", key_glob="*manifest.bin", action="error", prob=0.1),
+        StoreRule(op="get_range", action="slow", prob=0.1, delay_s=0.0, bandwidth_bps=512 * 1024),
+        StoreRule(op="get", action="error", prob=0.1),
+        StoreRule(op="*", action="throttle", prob=0.05, delay_s=0.02),
+    ]
+
+
+class FaultWatch:
+    """What phase 15 reads around one run_chaos call, through subclasses
+    of the harness's ChaosCluster and SeqProducer that run_chaos builds
+    while `watching` holds: node 0's device_tick calls held against the
+    host leg across its restarts, the launch counters zeroed once the
+    cluster has started, each produce in a linearizability history with
+    its latency, and just before the cluster stops (after validation),
+    for a tiered run the topic fetched from offset 0 with the hydrations
+    it took, else a live fetch stream into the history, every replica's
+    committed records and node 0's health report."""
+
+    def __init__(self, harness, linear_check, tiered: bool):
+        self.harness, self.tiered = harness, tiered
+        self.hist = linear_check.LinearHistory()
+        self.held = {"calls": [], "errors": []}
+        self.lat_s: list = []
+        self.producer = None
+        self.replicas: dict = {}
+        self.reread: dict = {}
+        self.health = None
+        self.hydrations = 0
+
+    @contextlib.contextmanager
+    def watching(self):
+        h = self.harness
+        old = h.ChaosCluster, h.SeqProducer
+        h.ChaosCluster, h.SeqProducer = self._cluster(old[0]), self._producer(old[1])
+        try:
+            yield
+        finally:
+            h.ChaosCluster, h.SeqProducer = old
+
+    def _cluster(self, base):
+        watch = self
+
+        class Watched(base):
+            def _make_broker(self, nid):
+                b = super()._make_broker(nid)
+                if nid == 0:
+                    hold_device_ticks(b.group_manager.arrays, watch.held)
+                return b
+
+            async def start(self):
+                await super().start()
+                reset_launches()
+
+            async def stop(self):
+                if watch.producer is not None and watch.producer._stop:
+                    await watch.capture(self)
+                await super().stop()
+
+        return Watched
+
+    def _producer(self, base):
+        watch = self
+        h = self.harness
+
+        class Watched(base):
+            async def run(self):
+                watch.producer = self
+                loops = [self._produce()] + ([] if watch.tiered else [self._fetch()])
+                await asyncio.gather(*loops)
+
+            async def _produce(self):
+                # SeqProducer.run, each produce also in the history
+                client = h.KafkaClient(self.cluster.addresses())
+                try:
+                    while not self._stop:
+                        seq = self._seq
+                        self._seq += 1
+                        pid = seq % self.partitions
+                        self.attempts += 1
+                        op = watch.hist.begin_produce(pid, seq)
+                        t0 = time.perf_counter()
+                        try:
+                            off = await asyncio.wait_for(
+                                client.produce(self.topic, pid, [(b"seq-%d" % seq, b"payload-%d" % seq)], acks=-1),
+                                timeout=3.0,
+                            )
+                            watch.lat_s.append(time.perf_counter() - t0)
+                            watch.hist.ack(op, off)
+                            self.acked.append((pid, off, seq))
+                        except (h.KafkaClientError, asyncio.TimeoutError, OSError):
+                            with contextlib.suppress(Exception):
+                                await client.close()
+                            client = h.KafkaClient(self.cluster.addresses())
+                        await asyncio.sleep(0.01)
+                finally:
+                    with contextlib.suppress(Exception):
+                        await client.close()
+
+            async def _fetch(self):
+                # the capstone's fetch loop, over every partition
+                client = h.KafkaClient(self.cluster.addresses())
+                try:
+                    while not self._stop:
+                        for pid in range(self.partitions):
+                            t0 = time.monotonic()
+                            try:
+                                recs = await asyncio.wait_for(
+                                    client.fetch(self.topic, pid, 0, max_bytes=1 << 24, max_wait_ms=50), timeout=3.0)
+                                watch.hist.record_fetch(pid, 0, t0, recs)
+                            except (h.KafkaClientError, asyncio.TimeoutError, OSError):
+                                with contextlib.suppress(Exception):
+                                    await client.close()
+                                client = h.KafkaClient(self.cluster.addresses())
+                        await asyncio.sleep(0.05)
+                finally:
+                    with contextlib.suppress(Exception):
+                        await client.close()
+
+        return Watched
+
+    async def capture(self, cluster) -> None:
+        from redpanda_tpu_torch.models.fundamental import kafka_ntp
+
+        if self.tiered:
+            # the whole topic again after the settle sweeps' trim: the
+            # read below the local start hydrates archived segments
+            h0 = sum(b.remote_reader.hydrations for b in cluster.brokers.values() if b.remote_reader)
+            client = self.harness.KafkaClient(cluster.addresses())
+            try:
+                for pid in range(self.producer.partitions):
+                    got = await client.fetch(self.producer.topic, pid, 0, max_bytes=1 << 24, max_wait_ms=100)
+                    self.reread[pid] = {o: (k, v) for o, k, v in got}
+            finally:
+                await client.close()
+            self.hydrations = sum(b.remote_reader.hydrations for b in cluster.brokers.values()
+                                  if b.remote_reader) - h0
+            return
+        # every replica's committed records, once its watermark covers
+        # the partition's last ack (a follower learns it by heartbeat)
+        top: dict = {}
+        for pid, off, _ in self.producer.acked:
+            top[pid] = max(top.get(pid, -1), off)
+        deadline = time.monotonic() + 15.0
+        for nid, b in cluster.brokers.items():
+            for pid in range(self.producer.partitions):
+                ntp = kafka_ntp(self.producer.topic, pid)
+                while True:
+                    p = b.partition_manager.get(ntp)
+                    if (p is not None and p.high_watermark() > top.get(pid, -1)) or time.monotonic() > deadline:
+                        break
+                    await asyncio.sleep(0.05)
+                rows = {}
+                if p is not None:
+                    for kbase, batch in p.read_kafka(0, max_bytes=1 << 30):
+                        for r in batch.records():
+                            rows[kbase + r.offset_delta] = (r.key, r.value)
+                self.replicas[(nid, pid)] = rows
+        self.health = cluster.brokers[0].group_manager.health_report()
+
+
+def check_acked(acked, rows_of, what: str) -> None:
+    """Every acked (partition, offset, seq) is that seq's record at that
+    offset in rows_of[partition]."""
+    for pid, off, seq in acked:
+        got = rows_of(pid).get(off)
+        if got != (b"seq-%d" % seq, b"payload-%d" % seq):
+            raise AssertionError(f"{what}: p{pid}@{off}: acked seq {seq}, found {got!r}")
+
+
+def run_faults(device: str, seconds_a: float = FAULT_SECONDS_A, seconds_b: float = FAULT_SECONDS_B) -> dict:
+    """Phase 15 on `device`: part A (network nemesis, crashes,
+    partitions, transfers; lz4 topic) and part B (tiered, object-store
+    faults), each one run_chaos call of the port's harness, with their
+    checks: I1-I3 (the harness's validate) in both; in A each replica's
+    records, L1-L4 over the live fetch stream, every device_tick call of
+    node 0 exact against the host leg and the nemesis trace one line a
+    fault; in B the tiered checks, the archive and the trim, the store
+    fault trace replayed byte-equal and the topic read again from offset
+    0. Launch counts are read after each run (zeroed once its cluster
+    has started)."""
+    import shutil
+    import tempfile
+    from dataclasses import replace
+    from pathlib import Path
+
+    from redpanda_tpu_torch.cloud.nemesis import StoreFaultSchedule, replay_trace
+    from redpanda_tpu_torch.rpc import NemesisSchedule
+
+    harness, linear_check = chaos_harness()
+    tmp = Path(tempfile.mkdtemp(prefix="rp_faults_"))
+    out = {}
+    try:
+        # part A
+        watch = FaultWatch(harness, linear_check, tiered=False)
+        sched = NemesisSchedule(rules=nemesis_rules(), seed=FAULT_SEED_A)
+        t0 = time.perf_counter()
+        with environ(FAULT_ENV_A), watch.watching():
+            stats = asyncio.run(harness.run_chaos(
+                tmp / "a", seed=FAULT_SEED_A, duration_s=seconds_a, partitions=FAULT_PARTITIONS,
+                faults=("partition", "crash", "transfer"), nemesis=sched, device=device,
+                topic_configs={"compression.type": "lz4"}))
+        a = {"wall_s": time.perf_counter() - t0, "stats": stats, "lat_s": watch.lat_s,
+             "launches": {k: KERNELS[k][2][k] for k in FAULT_PATH_A}, "held": len(watch.held["calls"])}
+        acked = watch.producer.acked
+        if not acked:
+            raise AssertionError(f"part A: no produce was acknowledged ({stats})")
+        for nid in range(3):
+            check_acked(acked, lambda pid: watch.replicas[(nid, pid)], f"part A: node {nid}'s replica")
+        a["linear"] = linear_check.check(watch.hist)
+        if a["linear"]["acked"] != len(acked) or a["linear"]["fetches"] <= 10:
+            raise AssertionError(f"part A: history {a['linear']} for {len(acked)} acks")
+        check_held(watch.held)
+        if len(sched.trace) != sum(sched.injected.values()):
+            raise AssertionError(f"part A: a trace of {len(sched.trace)} for {sched.injected}")
+        a["health"] = watch.health
+        out["a"] = a
+        # part B
+        watch = FaultWatch(harness, linear_check, tiered=True)
+        rules = store_rules()
+        store = StoreFaultSchedule(rules=[replace(r) for r in rules], seed=FAULT_SEED_B)
+        t0 = time.perf_counter()
+        with environ(FAULT_ENV_B), watch.watching():
+            stats = asyncio.run(harness.run_chaos(
+                tmp / "b", seed=FAULT_SEED_B, duration_s=seconds_b, partitions=FAULT_PARTITIONS,
+                faults=("partition", "crash", "transfer"), tiered=True, store_faults=store, device=device))
+        b = {"wall_s": time.perf_counter() - t0, "stats": stats, "lat_s": watch.lat_s,
+             "launches": {k: KERNELS[k][2][k] for k in FAULT_PATH_B}, "hydrations": watch.hydrations}
+        acked = watch.producer.acked
+        if not acked or stats["tiered_archived"] < 1 or stats["tiered_trimmed"] < 1:
+            raise AssertionError(f"part B: nothing acked, archived or trimmed ({stats})")
+        check_acked(acked, lambda pid: watch.reread[pid], "part B: the topic from offset 0 after the trim")
+        if sum(store.injected.values()) <= 0 or replay_trace(rules, FAULT_SEED_B, store.ops) != store.trace:
+            raise AssertionError(f"part B: the store fault trace ({store.injected}) does not replay")
+        out["b"] = b
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_faults() -> dict:
+    """Phase 15: the brokers under faults on the card (run_faults), the
+    launches of each part, and its numbers."""
+    t0 = time.perf_counter()
+    r = run_faults("cuda")
+    # the replies this phase exists to show: every action of the network
+    # nemesis fired in part A
+    fired = r["a"]["stats"]["nemesis"]
+    idle = [k for k in FAULT_ACTIONS if fired.get(k, 0) <= 0]
+    if idle:
+        raise AssertionError(f"phase 15 part A: the nemesis never fired {idle} ({fired})")
+    for part, path in (("a", FAULT_PATH_A), ("b", FAULT_PATH_B)):
+        idle = [k for k in path if r[part]["launches"][k] <= 0]
+        if idle:
+            raise AssertionError(f"phase 15 part {part.upper()} never launched {idle}: {r[part]['launches']}")
+
+    def line(x, faults):
+        lat = np.asarray(x["lat_s"]) * 1e3
+        s = x["stats"]
+        return (f"{s['acked']} acked / {s['attempts']} attempts; faults {faults}; events "
+                f"{sum(1 for e in s['events'] if e[0] != 'recover')} ({', '.join(sorted({e[0] for e in s['events']}))}); "
+                f"produce per ack p50 {pct(lat, 50):.3f} ms p99 {pct(lat, 99):.3f} ms (host clock); "
+                f"launches {x['launches']}; {x['wall_s']:.3f} s wall")
+
+    a, b = r["a"], r["b"]
+    log(f"[faults] part A: 3 brokers (cuda), topic {FAULT_TOPIC} {FAULT_PARTITIONS} partitions RF=3 "
+        f"compression.type=lz4, network nemesis seed {FAULT_SEED_A}, crash / partition / transfer: "
+        + line(a, a["stats"]["nemesis"]))
+    log(f"[faults] part A: I1-I3 hold, every acked record on each of the 3 replicas, L1-L4 hold "
+        f"({a['linear']}); {a['held']} node-0 heartbeat_tick calls exact against the host leg; health "
+        f"{health_totals(a['health'])}")
+    log(f"[faults] part B: 3 tiered brokers (cuda, zstd archive), store nemesis seed {FAULT_SEED_B}: "
+        + line(b, b["stats"]["store_faults"]))
+    log(f"[faults] part B: I1-I3 hold; archived {b['stats']['tiered_archived']}, trimmed "
+        f"{b['stats']['tiered_trimmed']}; store trace of {b['stats']['store_trace_len']} replays byte-equal; "
+        f"the topic from offset 0 after the trim equal to the acks ({b['hydrations']} hydrations); "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    launches = {k: a["launches"].get(k, 0) + b["launches"].get(k, 0) for k in FAULT_PATH_A + FAULT_PATH_B}
+    return {"launches": launches, "a": a, "b": b}
+
+
 def nvidia_smi() -> str:
     try:
         return subprocess.run(
@@ -4923,10 +5292,11 @@ def main() -> int:
     # writing back behind it
     broker = phase_broker()
     entry = phase_entry_points()
+    faults = phase_faults()
     live = phase_live_raft()
     results["heartbeat_tick"]["live"] = live["tick"]
     for launches in (seg["launches"], zr["launches"], mesh["launches"], cluster["launches"],
-                     live["launches"]["path"], broker["launches"], entry["launches"]):
+                     live["launches"]["path"], broker["launches"], entry["launches"], faults["launches"]):
         for name, count in launches.items():
             path_launches[name] = path_launches.get(name, 0) + count
     missing = [k for k in KERNELS if k not in OFF_PATH and path_launches.get(k, 0) <= 0]
@@ -4936,7 +5306,8 @@ def main() -> int:
         f"segment path: {seg['launches']}; zstd batches: {zr['launches']}; mesh: {mesh['launches']}; "
         f"cluster: {cluster['launches']}; live raft: {live['launches']['path']}; "
         f"broker: {broker['launches']}; node processes: {entry['procs']}; tiered brokers: "
-        f"{entry['tiered']}; no main-path caller: {', '.join(OFF_PATH)}): {path_launches}")
+        f"{entry['tiered']}; brokers under faults: {faults['launches']}; no main-path caller: "
+        f"{', '.join(OFF_PATH)}): {path_launches}")
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():

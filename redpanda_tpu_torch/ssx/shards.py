@@ -199,30 +199,41 @@ def bind_reuse_port(host: str, port: int) -> socket.socket:
 
 
 def _close_inherited_sockets(keep: set[int]) -> None:
-    """Fork hygiene for DYNAMIC spawns: the child of a live broker
-    inherits every open fd — listeners, established connections,
+    """Fork hygiene for the fork server and every worker it forks: the
+    child of a live broker inherits every open fd — listeners, established connections,
     sibling channel ends. Sockets are the dangerous ones (a connection
     the parent closes stays half-open until the child's copy dies, so
     peers never see FIN); pipes and files are left alone so pytest's
-    capture machinery keeps working."""
+    capture machinery keeps working.
+
+    Each socket fd is pointed at /dev/null rather than closed: the
+    child also inherits the parent's Python objects for those sockets
+    (an unclosed event loop's self-pipe, a transport awaiting the
+    cyclic GC), and one finalized here closes its fd number. Closed,
+    that number would go to the child's next fd (its event loop's
+    epoll), which the finalizer would then close."""
     import stat
 
     try:
         fds = os.listdir("/proc/self/fd")
     except OSError:
         return
-    for name in fds:
-        try:
-            fd = int(name)
-        except ValueError:
-            continue
-        if fd < 3 or fd in keep:
-            continue
-        try:
-            if stat.S_ISSOCK(os.fstat(fd).st_mode):
-                os.close(fd)
-        except OSError:
-            continue
+    null = os.open(os.devnull, os.O_RDWR | os.O_CLOEXEC)
+    try:
+        for name in fds:
+            try:
+                fd = int(name)
+            except ValueError:
+                continue
+            if fd < 3 or fd in keep or fd == null:
+                continue
+            try:
+                if stat.S_ISSOCK(os.fstat(fd).st_mode):
+                    os.dup2(null, fd)
+            except OSError:
+                continue
+    finally:
+        os.close(null)
 
 
 # --------------------------------------------------------- fork server

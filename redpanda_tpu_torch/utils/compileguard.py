@@ -95,7 +95,7 @@ def warmup(reason: str):
     why at the site; re-enterable."""
     global _WARMUP_DEPTH
     if not reason:
-        raise ValueError("warmup() requires a justification string")
+        raise AssertionError("warmup() requires a justification string")
     _WARMUP_DEPTH += 1
     try:
         yield

@@ -100,6 +100,11 @@ REQUIRED = RAFT_LAYER + BROKER + (
 )
 
 
+# what chip_smoke.py's phase 15 imports from tests/: the port's chaos
+# harness and the history checker
+HARNESS = ("test_torch_chaos_harness", "linear_check")
+
+
 def test_every_module_imports_without_jax_or_reference():
     names = _modules()
     assert len(names) > 20
@@ -107,7 +112,8 @@ def test_every_module_imports_without_jax_or_reference():
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
-        f"for n in {names!r} + ['chip_smoke']:\n"
+        f"sys.path.append({str(REPO / 'tests')!r})\n"
+        f"for n in {names!r} + ['chip_smoke'] + {list(HARNESS)!r}:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'redpanda_tpu'))\n"
@@ -121,7 +127,7 @@ def test_every_module_imports_without_jax_or_reference():
 
 
 def test_sources_import_nothing_forbidden():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + [REPO / "tests" / f"{n}.py" for n in HARNESS]
     assert len(files) > 20
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
