@@ -238,10 +238,41 @@ Phases, each raising on any mismatch:
      zstd_encode and zstd_decode launched. Prints, for each part, acked /
      attempts, the faults fired, produce p50 / p99 on the host clock, the
      launches and its wall seconds.
+  16. (run before 12) the broker's zstd and mesh seams: three app.Brokers
+     on the card as in phase 13. Part A (RP_ZSTD_BACKEND=tpu
+     RP_CODEC_BACKEND=device RP_FETCH_VERIFY=1): phase 13's 1,024
+     uncompressed batches to a topic of 100 partitions at RF=3, acks=all,
+     with compression.type=zstd (BASELINE.json config 5's codec; each
+     leader recompresses each batch with one zstd_encode launch), then
+     512 batches of JSON-like records the producer compressed with zstd
+     (the port's RecordBatchBuilder, before the count starts) to an lz4
+     topic of 100 partitions (each leader decodes each with one
+     zstd_decode launch and re-encodes it with one fused_lz4 launch);
+     every partition fetched back. Every zstd_encode,
+     zstd_decode and fused_lz4 call is held against its plain version
+     (the fused CRC against the host's), exact; no zstd decode may punt
+     to the host codec. Checked: every record back at its
+     offset, every stored zstd batch decoding through libzstd (ctypes) to
+     the body sent, each stage's launches equal to its held calls and to
+     the leaders' recompressions (retries counted), crc32c_device once a
+     fetch response with records. Part B (RP_QUORUM_BACKEND=mesh
+     RP_MESH_FULL=1 RP_MESH_DEVICES=8): phase 13's lz4 traffic, the
+     second half produced while the lanes of 4 partitions node 0 leads
+     move into another chip block (PartitionMover.move_lane), then one
+     frame at rest; every node's mesh frames held against the numpy host
+     leg on a copy of its lanes (advanced rows, LANES, HEALTH_LANES,
+     mesh_totals) and every health refresh against the host reduction;
+     the host quorum backend's leg equal in offsets, watermarks and
+     records; fold_replies and mesh_tick_frame launched once a held
+     frame, health_totals once a held refresh. Prints a `[seams]` line
+     per part with setup, produce wall and per-batch p50 / p99, fetch
+     MB/s, the launches by stage, the held calls, the moves, the event
+     loop's longest stall and the phase's wall seconds.
 The launch counters are zeroed just before each main-path phase (3, 4,
-6, 8, 8b, 9, 10, 12's traffic, 13's produce, 14's part B and each part
-of 15, once its cluster has started) and read just after (14's part A
-reads the node processes' probe calls); every kernel
+6, 8, 8b, 9, 10, 12's traffic, 13's produce, 14's part B, each part
+of 15, once its cluster has started, and each part of 16's produce)
+and read just after (14's part A reads the node processes' probe
+calls); every kernel
 must have launched there, except those in OFF_PATH
 (follower_commit_step, local_append_update, build_heartbeats,
 fused_snappy, fused_zstd).
@@ -440,6 +471,7 @@ def drive_tick(arrays, frame, rows, event, hb: bool):
 
 LANES = ("commit_index", "last_visible", "match_index", "flushed_index", "last_seq")
 HEALTH_LANES = ("health_max_lag", "health_under", "health_leaderless")
+HEALTH_KEYS = ("max_lag", "under_replicated", "leaderless")  # their health_reduce outputs
 
 
 @contextlib.contextmanager
@@ -480,12 +512,26 @@ def assert_equal(a, b, what: str) -> None:
         raise AssertionError(f"{what}: device leg != host leg (first diffs at {bad})")
 
 
+def health_np(arrays) -> dict:
+    """The host health reduction (health_reduce_np) of every row of a
+    ShardGroupArrays' lanes."""
+    from redpanda_tpu_torch.ops.health import health_reduce_np
+
+    return health_reduce_np(arrays.match_index, arrays.commit_index, arrays.is_voter, arrays.is_voter_old,
+                            arrays.is_leader, arrays.leader_id >= 0, arrays.row_active)
+
+
+def totals_np(arrays, health: dict) -> dict:
+    return {"max_follower_lag": int(health["max_lag"].max(initial=0)),
+            "under_replicated": int(health["under_replicated"].sum()),
+            "leaderless": int(health["leaderless"].sum()), "active": int(arrays.row_active.sum())}
+
+
 def run_slice(g: int, ticks: int, device: str, seed: int = SEED) -> dict:
     """The replication slice on two legs fed identical traffic: the
     device leg (RP_QUORUM_BACKEND=device on `device`) and the numpy host
     leg. Raises on the first lane that differs; returns per-tick
     timings of both legs' fold calls and the device leg's stages."""
-    from redpanda_tpu_torch.ops.health import health_reduce_np
     from redpanda_tpu_torch.raft.shard_state import ShardGroupArrays
     from redpanda_tpu_torch.raft.tick_frame import TickFrame
 
@@ -512,11 +558,8 @@ def run_slice(g: int, ticks: int, device: str, seed: int = SEED) -> dict:
         if hb:
             for k in hb_h:
                 assert_equal(hb_d[k], hb_h[k], f"tick {t}: heartbeat {k}")
-            want = health_reduce_np(
-                host.match_index, host.commit_index, host.is_voter, host.is_voter_old,
-                host.is_leader, host.leader_id >= 0, host.row_active,
-            )
-            for lane, k in zip(HEALTH_LANES, ("max_lag", "under_replicated", "leaderless")):
+            want = health_np(host)
+            for lane, k in zip(HEALTH_LANES, HEALTH_KEYS):
                 assert_equal(getattr(dev, lane), want[k], f"tick {t}: fused {lane}")
     with quorum_backend("device"):
         totals_d = dev_frame.health_totals()
@@ -1445,7 +1488,6 @@ def fused_err(torch, got, want, what: str) -> float:
     lengths and the block bytes on [0, out_len). Returns max_abs_err."""
     crc, out, out_len = got
     w_crc, w_out, w_len = want
-    torch.cuda.synchronize()
     if not (torch.equal(crc.cpu(), w_crc.cpu()) and torch.equal(out_len.cpu(), w_len.cpu())):
         raise AssertionError(f"{what}: the CRC or out_len differs from the plain chain")
     cols = torch.arange(out.shape[1], device=out.device)[None, :] < out_len[:, None].long()
@@ -2525,28 +2567,19 @@ def phase_zstd_recompress(torch) -> dict:
     batches through recompressed(zstd, verify_crc=...) and back through
     .records(), under RP_ZSTD_BACKEND=tpu; records equal to the
     originals'."""
-    from redpanda_tpu_torch import compression
     from redpanda_tpu_torch.compression import CompressionType
-
-    def no_punt(_data):
-        raise AssertionError("a device zstd frame punted to the host codec")
 
     batches = build_batches(np.random.default_rng(SEED + 6))
     want = [[(r.key, r.value) for r in b.records()] for b in batches]
-    saved = compression._zstd_uncompress_host
-    compression._zstd_uncompress_host = no_punt
-    try:
-        with env_backend("RP_ZSTD_BACKEND", "tpu"):
-            reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs = [b.recompressed(CompressionType.zstd, verify_crc=b.header.crc) for b in batches]
-            t1 = time.perf_counter()
-            got = [[(r.key, r.value) for r in o.records()] for o in outs]
-            t2 = time.perf_counter()
-            launches = {k: zstd_ops.LAUNCHES[k] for k in zstd_ops.LAUNCHES}
-    finally:
-        compression._zstd_uncompress_host = saved
+    with no_zstd_punt([]), env_backend("RP_ZSTD_BACKEND", "tpu"):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [b.recompressed(CompressionType.zstd, verify_crc=b.header.crc) for b in batches]
+        t1 = time.perf_counter()
+        got = [[(r.key, r.value) for r in o.records()] for o in outs]
+        t2 = time.perf_counter()
+        launches = {k: zstd_ops.LAUNCHES[k] for k in zstd_ops.LAUNCHES}
     if got != want or any(o.header.compression != CompressionType.zstd for o in outs):
         raise AssertionError("a zstd batch does not round-trip through recompressed / records")
     raw_in, comp_out = sum(len(b.body) for b in batches), sum(len(o.body) for o in outs)
@@ -2627,7 +2660,6 @@ def run_mesh_slice(g: int, devices: int, device: str, window: int = MESH_WINDOW,
     `windows` of `window` replies, `big_windows` of `big_window`, then
     one health_refresh. Raises on the first lane, advanced-row set or
     total that differs; returns the mesh leg's frame times and stages."""
-    from redpanda_tpu_torch.ops.health import health_reduce_np
     from redpanda_tpu_torch.raft.shard_state import ShardGroupArrays
     from redpanda_tpu_torch.raft.tick_frame import TickFrame
 
@@ -2656,17 +2688,10 @@ def run_mesh_slice(g: int, devices: int, device: str, window: int = MESH_WINDOW,
         advanced_rows += len(adv_h)
         for lane in LANES:
             assert_equal(getattr(mesh, lane), getattr(host, lane), f"window {k}: {lane}")
-        want = health_reduce_np(host.match_index, host.commit_index, host.is_voter, host.is_voter_old,
-                                host.is_leader, host.leader_id >= 0, host.row_active)
-        for lane, key in zip(HEALTH_LANES, ("max_lag", "under_replicated", "leaderless")):
+        want = health_np(host)
+        for lane, key in zip(HEALTH_LANES, HEALTH_KEYS):
             assert_equal(getattr(mesh, lane), want[key], f"window {k}: {lane}")
-        totals = {
-            "advanced": len(adv_h),
-            "max_follower_lag": int(want["max_lag"].max(initial=0)),
-            "under_replicated": int(want["under_replicated"].sum()),
-            "leaderless": int(want["leaderless"].sum()),
-            "active": int(host.row_active.sum()),
-        }
+        totals = {"advanced": len(adv_h), **totals_np(host, want)}
         if mesh.mesh_totals() != totals:
             raise AssertionError(f"window {k}: totals {mesh.mesh_totals()} != {totals}")
     with mesh_env(devices):
@@ -3799,9 +3824,11 @@ KAFKA_STORAGE_ERROR, NOT_LEADER_FOR_PARTITION = 56, 6
 
 
 def port_broker():
-    """The port's Kafka entry points, as KafkaCluster takes them."""
+    """The port's Kafka entry points, as KafkaCluster takes them (and
+    its placement package, for the lane moves of phase 16)."""
     from types import SimpleNamespace
 
+    from redpanda_tpu_torch import placement
     from redpanda_tpu_torch.app import Broker, BrokerConfig
     from redpanda_tpu_torch.kafka.client import KafkaClient, KafkaClientError
     from redpanda_tpu_torch.models.fundamental import kafka_ntp
@@ -3810,30 +3837,36 @@ def port_broker():
 
     return SimpleNamespace(Broker=Broker, BrokerConfig=BrokerConfig, KafkaClient=KafkaClient,
                            KafkaClientError=KafkaClientError, LoopbackNetwork=LoopbackNetwork,
-                           kafka_ntp=kafka_ntp, NotLeaderError=NotLeaderError)
+                           kafka_ntp=kafka_ntp, NotLeaderError=NotLeaderError, placement=placement)
 
 
-def broker_batches(seed: int, topics, count: int) -> list:
+def broker_batches(seed: int, topics, count: int, compression=None, json_only: bool = False) -> list:
     """`count` produce requests of one batch each, as a client would
     send them: RECORDS x RECORD_BYTES records, batch i to topics[i % T]
     and partition (i // T) % partitions, JSON-like text where i // T is
-    even and random bytes where it is odd (phase 6's corpus). Built once with
-    the port's RecordBatchBuilder at fixed timestamps, so two clusters
-    get the same wire bytes. Returns [(topic, partition, wire,
-    [(key, value)])]."""
+    even (every batch with `json_only`) and random bytes where it is odd
+    (phase 6's corpus). Built once with the port's RecordBatchBuilder at
+    fixed timestamps, so two clusters get the same wire bytes; the
+    producer compresses them as `compression` (a CompressionType) when
+    given. Returns [(topic, partition, wire, [(key, value)])]."""
     from redpanda_tpu_torch.models.record import RecordBatchBuilder
 
     rng = np.random.default_rng(seed)
-    n_json = sum(1 for i in range(count) if (i // len(topics)) % 2 == 0)
+
+    def is_json(i):
+        return json_only or (i // len(topics)) % 2 == 0
+
+    n_json = sum(1 for i in range(count) if is_json(i))
     json_vals = iter(json_values(rng, n_json * RECORDS))
+    codec = {} if compression is None else {"compression": compression}
     out = []
     for i in range(count):
         name, parts = topics[i % len(topics)]
         part = (i // len(topics)) % parts
-        b = RecordBatchBuilder(timestamp_ms=1_700_000_000_000 + i)
+        b = RecordBatchBuilder(timestamp_ms=1_700_000_000_000 + i, **codec)
         records = []
         for r in range(RECORDS):
-            value = next(json_vals) if (i // len(topics)) % 2 == 0 else rng.bytes(RECORD_BYTES)
+            value = next(json_vals) if is_json(i) else rng.bytes(RECORD_BYTES)
             records.append((b"key-%d-%d" % (i, r), value))
             b.add(value, key=records[-1][0])
         out.append((name, part, b.build().to_kafka_wire(), records))
@@ -3860,6 +3893,7 @@ class KafkaCluster:
                                         members=members, **self.cfg)
             self.brokers.append(self.pkg.Broker(cfg, loopback=net))
         for b in self.brokers:
+            self.made(b)
             # the scenario places every leader itself (`create`); the
             # controller's leader balancer would move one mid-traffic,
             # and a produce it interrupts is retried on the new leader
@@ -3870,6 +3904,10 @@ class KafkaCluster:
             b.config.peer_kafka_addresses = addrs
         await self.brokers[0].wait_controller_leader(timeout=60.0)
         self.client = self.pkg.KafkaClient([b.kafka_advertised for b in self.brokers])
+
+    def made(self, broker) -> None:
+        """Called with each Broker just before it starts (a subclass
+        hooks its seams here)."""
 
     def replicas(self, what) -> list:
         """Each node's replica of `what`, "controller" or (topic,
@@ -4046,15 +4084,16 @@ async def loop_stalls(out: list, period: float = 0.01) -> None:
         out.append(loop.time() - t0 - period)
 
 
-async def broker_scenario(pkg, data_dir: str, topics, batches, on_phase=None, stored=(), **cfg) -> dict:
+async def broker_scenario(pkg, data_dir: str, topics, batches, on_phase=None, stored=(), then=(), **cfg) -> dict:
     """One cluster end to end: start, create `topics`, produce `batches`
-    (acks=-1), lead as created, fetch everything back, lead as created,
+    (acks=-1) and, once they are acknowledged, `then` (its run under
+    "then"), lead as created, fetch everything back, lead as created,
     settle, node 0's health report
     (health_sampler, fresh) and group_manager.health_report(). Checked
     by check_broker_run. `on_phase(name)` is called with "produce" just
-    before the traffic, "fetch" between produce and fetch and "end"
-    after the health report; `stored` names (topic, partitions) whose
-    stored batches are returned."""
+    before the traffic, "then" before `then`, "fetch" between produce
+    and fetch and "end" after the health report; `stored` names (topic,
+    partitions) whose stored batches are returned."""
     cluster = KafkaCluster(pkg, data_dir, **cfg)
     t0 = time.perf_counter()
     try:
@@ -4066,6 +4105,10 @@ async def broker_scenario(pkg, data_dir: str, topics, batches, on_phase=None, st
         stalls: list = []
         watch = asyncio.ensure_future(loop_stalls(stalls))
         run = await cluster.produce(batches)
+        if then:
+            if on_phase:
+                on_phase("then")
+            run["then"] = await cluster.produce(then)
         run["produce_stall_s"] = max(stalls, default=0.0)
         # leaders that moved during the produce (an election after an
         # event-loop stall) lead as created again
@@ -4090,7 +4133,8 @@ async def broker_scenario(pkg, data_dir: str, topics, batches, on_phase=None, st
         run["setup_s"] = setup_s
     finally:
         await cluster.stop()
-    check_broker_run(run, batches, topics)
+    check_broker_run({**run, "bases": run["bases"] + run.get("then", {}).get("bases", [])}, list(batches) + list(then),
+                     topics)
     return run
 
 
@@ -5208,6 +5252,568 @@ def phase_faults() -> dict:
     return {"launches": launches, "a": a, "b": b}
 
 
+# ------------------------------------------ the broker's zstd and mesh seams
+# Phase 16. Part A: a zstd topic at BASELINE.json config 5's codec (OMB's
+# 1-topic-100-partitions, zstd, 1 KB), whose leaders recompress every
+# uncompressed producer batch on the card, then an lz4 topic fed batches
+# the producer compressed with zstd, as bench.py:3447 _omb_async's
+# producers do (the codec-mismatch leg: the leader decodes each on the
+# card and re-encodes it with the fused LZ4 kernel). Part B: phase 13's
+# lz4 traffic under RP_QUORUM_BACKEND=mesh over bench.py:478's 8 chip
+# blocks, with lanes moved across blocks mid-produce, beside the host
+# quorum backend
+SEAMS_ZSTD_TOPIC, SEAMS_MISMATCH_TOPIC = "omb-zstd", "omb-mismatch"
+SEAMS_MISMATCH_BATCHES, SEAMS_MOVES, SEAMS_MESH_DEVICES = 512, 4, 8
+SEAMS_ENV_A = {**BROKER_DEVICE_ENV, "RP_ZSTD_BACKEND": "tpu"}
+SEAMS_ENV_B = {**BROKER_DEVICE_ENV, "RP_QUORUM_BACKEND": "mesh", "RP_MESH_FULL": "1",
+               "RP_MESH_DEVICES": str(SEAMS_MESH_DEVICES)}
+SEAMS_HOST_B = {**SEAMS_ENV_B, "RP_QUORUM_BACKEND": "host", "RP_MESH_FULL": None, "RP_MESH_DEVICES": None}
+# the kernels each part must launch (part A's brokers run the default
+# device quorum backend: heartbeat_tick and health_reduce)
+SEAMS_PATH_A = ("zstd_encode", "zstd_decode", "fused_lz4", "crc32c_device", "heartbeat_tick", "health_reduce")
+SEAMS_PATH_B = ("fold_replies", "mesh_tick_frame", "health_totals", "fused_lz4", "crc32c_device")
+
+
+def same_outputs(fields):
+    """A comparison of a kernel entry's output tuple with its plain
+    version's: every field exact (max_abs_err)."""
+
+    def same(got, want, what: str) -> None:
+        try:
+            max_abs_err(dict(zip(fields, got)), dict(zip(fields, want)))
+        except AssertionError as e:
+            raise AssertionError(f"{what}: {e}") from None
+
+    return same
+
+
+class KernelHold:
+    """Every call of a kernel entry (`module.name`, looked up there by
+    its callers; `kernel` names it in errors) held against its plain
+    version on the same inputs while the hold is entered. A call that
+    differs raises where it ran and is kept, and `check` raises the first
+    after the run, since a broker answers a produce whose handler raised
+    with an error code. `calls` counts the held calls (on the card one
+    launch each)."""
+
+    def __init__(self, kernel: str, module, name: str, plain, same):
+        self.kernel, self.module, self.name, self.plain, self.same = kernel, module, name, plain, same
+        self.calls, self.errors = 0, []
+
+    def __enter__(self):
+        entry = self.entry = getattr(self.module, self.name)
+
+        def held(*args, **kwargs):
+            got = entry(*args, **kwargs)
+            want = self.plain(*args, **kwargs)
+            n = self.calls
+            self.calls += 1
+            try:
+                self.same(got, want, f"{self.kernel} call {n}")
+            except AssertionError as e:
+                self.errors.append(e)
+                raise
+            return got
+
+        setattr(self.module, self.name, held)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.name, self.entry)
+
+    def check(self) -> None:
+        if self.errors:
+            raise self.errors[0]
+
+
+def seam_holds(plains: dict | None = None) -> dict:
+    """Part A's holds, by kernel: the zstd encode and decode entries and
+    the fused CRC + LZ4 entry, each against its plain version (the fused
+    entry's CRC against the host's: the plain CRC takes ~2 s a batch on
+    the card, PERF.md's kernel table); `plains` replaces one by name."""
+    import torch
+
+    plains = {"zstd_encode": zstd_ops._encode_chunks_plain, "zstd_decode": decode_plain,
+              "fused_lz4": lambda d, v, n: fused_plain(torch, d, v, n, host_crc=True), **(plains or {})}
+    holds = [("zstd_encode", zstd_ops, "_encode_chunks", same_outputs(ENC_FIELDS)),
+             ("zstd_decode", zstd_ops, "decode_staged", same_outputs(("out", "end"))),
+             ("fused_lz4", fused_ops, "_fused", lambda got, want, what: fused_err(torch, got, want, what))]
+    return {k: KernelHold(k, module, name, plains[k], same) for k, module, name, same in holds}
+
+
+@contextlib.contextmanager
+def counted_recompress(counts: dict):
+    """Count RecordBatch.recompressed calls by (source codec, target
+    codec): a leader's recompression of a produced batch, retries
+    included, and the inner call of a codec mismatch (source none)."""
+    from redpanda_tpu_torch.models.record import RecordBatch
+
+    method = RecordBatch.recompressed
+
+    def counted(self, ctype, verify_crc=None):
+        key = (int(self.header.compression), int(ctype))
+        counts[key] = counts.get(key, 0) + 1
+        return method(self, ctype, verify_crc=verify_crc)
+
+    RecordBatch.recompressed = counted
+    try:
+        yield
+    finally:
+        RecordBatch.recompressed = method
+
+
+@contextlib.contextmanager
+def no_zstd_punt(punts: list):
+    """Fail any punt of uncompress_zstd to the host codec: every frame of
+    phase 16 comes from the port's own encoder, inside the kernels'
+    profile."""
+    from redpanda_tpu_torch import compression
+
+    saved = compression._zstd_uncompress_host
+
+    def punt(data):
+        punts.append(len(data))
+        raise AssertionError("a zstd frame of the port's own encoder punted to the host codec")
+
+    compression._zstd_uncompress_host = punt
+    try:
+        yield
+    finally:
+        compression._zstd_uncompress_host = saved
+
+
+def kernel_counts() -> dict:
+    return {k: KERNELS[k][2][k] for k in KERNELS}
+
+
+def check_zstd_stored(stored: dict, a1, zstd: int) -> int:
+    """Every stored batch of the zstd topic is zstd and decodes through
+    libzstd to the records body its producer sent; returns how many."""
+    from redpanda_tpu_torch.models.record import RecordBatch
+
+    sent: dict = {}
+    for name, part, wire, _ in a1:
+        sent.setdefault((name, part), []).append(bytes(RecordBatch.from_kafka_wire(wire).body))
+    n = 0
+    for key, bodies in sent.items():
+        rows = stored[key]
+        if len(rows) != len(bodies):
+            raise AssertionError(f"{key}: {len(rows)} batches stored for {len(bodies)} sent")
+        for i, ((codec, blob), body) in enumerate(zip(rows, bodies)):
+            if codec != zstd or host_zstd_decompress(blob) != body:
+                raise AssertionError(f"{key} batch {i}: stored as codec {codec}, or libzstd does not decode "
+                                     f"it to the body sent")
+            n += 1
+    return n
+
+
+def check_seams(holds: dict, punts: list) -> None:
+    """Raise the first mismatch a hold kept, or a punt."""
+    for h in holds.values():
+        h.check()
+    if punts:
+        raise AssertionError(f"{len(punts)} zstd decodes punted to the host codec")
+
+
+def run_seams_zstd(device: str, partitions: int = BROKER_PARTITIONS, count: int = BROKER_BATCHES,
+                   mismatch: int = SEAMS_MISMATCH_BATCHES, seed: int = SEED + 16, plains: dict | None = None) -> dict:
+    """Part A on the port (SEAMS_ENV_A, brokers on `device`):
+    broker_scenario with `count` uncompressed batches to a zstd topic of
+    `partitions` (A1), then `mismatch` zstd batches (JSON-like records,
+    built by the port's RecordBatchBuilder under RP_ZSTD_BACKEND=tpu
+    before the count starts) to an lz4 topic of `partitions` (A2). Every
+    zstd encode, zstd decode and fused CRC + LZ4 call is held against its
+    plain version (`plains` replaces one, by kernel name) and counted by
+    stage (A1, A2, fetch) beside the leaders' recompressions by codec
+    pair; no zstd decode may punt to the host codec. Checked on both
+    devices: every record back at its offset, every stored zstd batch
+    decoding through libzstd to the body sent, every stored batch of the
+    lz4 topic lz4, A1's held calls one zstd_encode a recompression to
+    zstd, A2's one zstd_decode and one fused call a codec mismatch (its
+    recompressions), retries included; on the card also each stage's
+    launches equal to its held calls, one crc32c_device a fetch response
+    with records, and every SEAMS_PATH_A kernel launched."""
+    import shutil
+    import tempfile
+
+    from redpanda_tpu_torch.compression import CompressionType
+    from redpanda_tpu_torch.models.record import RecordBatch
+
+    pkg = port_broker()
+    zstd, lz4 = int(CompressionType.zstd), int(CompressionType.lz4)
+    topics = [(SEAMS_ZSTD_TOPIC, partitions, {"compression.type": "zstd"}),
+              (SEAMS_MISMATCH_TOPIC, partitions, {"compression.type": "lz4"})]
+    a1 = broker_batches(seed, [(SEAMS_ZSTD_TOPIC, partitions)], count)
+    with environ(SEAMS_ENV_A):
+        a2 = broker_batches(seed + 1, [(SEAMS_MISMATCH_TOPIC, partitions)], mismatch,
+                            compression=CompressionType.zstd, json_only=True)
+    # every producer frame carries a compressed block, so the leader's
+    # decode of each is one launch
+    for i, (_, _, wire, _) in enumerate(a2):
+        if block_kinds(bytes(RecordBatch.from_kafka_wire(wire).body))[0]["compressed"] < 1:
+            raise AssertionError(f"mismatch batch {i}: the producer's zstd frame has no compressed block")
+    holds = seam_holds(plains)
+    recompress: dict = {}
+    punts: list = []
+    marks: dict = {}
+
+    def mark(stage):
+        if stage == "produce":
+            reset_launches()
+        marks[stage] = {"launches": kernel_counts(), "recompress": dict(recompress),
+                        "held": {k: h.calls for k, h in holds.items()}}
+
+    tmp = tempfile.mkdtemp(prefix="rp_seams_a_")
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(environ(SEAMS_ENV_A))
+            for h in holds.values():
+                stack.enter_context(h)
+            stack.enter_context(counted_recompress(recompress))
+            stack.enter_context(no_zstd_punt(punts))
+            try:
+                run = asyncio.run(broker_scenario(pkg, os.path.join(tmp, "a"), topics, a1, on_phase=mark,
+                                                  stored=[(name, parts) for name, parts, _ in topics], then=a2,
+                                                  device=device))
+            except Exception:
+                # a held mismatch or a punt is the cause of what failed
+                check_seams(holds, punts)
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_seams(holds, punts)
+    run["stored_zstd"] = check_zstd_stored(run["stored"], a1, zstd)
+    bad = [k for k, rows in run["stored"].items() if k[0] == SEAMS_MISMATCH_TOPIC and any(c != lz4 for c, _ in rows)]
+    if bad:
+        raise AssertionError(f"codec-mismatch partitions {bad[:5]} store a batch that is not lz4")
+
+    def between(a, b, what):
+        return {k: marks[b][what][k] - marks[a][what].get(k, 0) for k in marks[b][what]}
+
+    stages = {name: {w: between(s, t, w) for w in ("launches", "recompress", "held")}
+              for name, s, t in (("a1", "produce", "then"), ("a2", "then", "fetch"), ("fetch", "fetch", "end"))}
+    recompressed = stages["a1"]["recompress"].get((0, zstd), 0)
+    mismatched = stages["a2"]["recompress"].get((zstd, lz4), 0)
+    want = {"a1": {"zstd_encode": recompressed, "zstd_decode": 0, "fused_lz4": 0},
+            "a2": {"zstd_encode": 0, "zstd_decode": mismatched,
+                   "fused_lz4": stages["a2"]["recompress"].get((0, lz4), 0)}}
+    for stage, calls in want.items():
+        if stages[stage]["held"] != calls:
+            raise AssertionError(f"{stage}: held calls {stages[stage]['held']} for recompressions "
+                                 f"{stages[stage]['recompress']}")
+    if recompressed < len(a1) or mismatched < len(a2) or want["a2"]["fused_lz4"] != mismatched:
+        raise AssertionError(f"recompressions {stages['a1']['recompress']} / {stages['a2']['recompress']} for "
+                             f"{len(a1)} / {len(a2)} batches")
+    if device == "cuda":
+        for stage, st in stages.items():
+            for k, n in st["held"].items():
+                if st["launches"][k] != n:
+                    raise AssertionError(f"{stage}: {st['launches'][k]} {k} launches for {n} held calls")
+        if stages["fetch"]["launches"]["crc32c_device"] != run["fetch_responses"]:
+            raise AssertionError(f"crc32c_device launched {stages['fetch']['launches']['crc32c_device']} times "
+                                 f"for {run['fetch_responses']} fetch responses with records")
+    run["launches"] = {k: marks["end"]["launches"][k] - marks["produce"]["launches"][k] for k in SEAMS_PATH_A}
+    idle = [k for k, v in run["launches"].items() if v <= 0]
+    if idle and device == "cuda":
+        raise AssertionError(f"phase 16 part A never launched {idle}: {run['launches']}")
+    run.update(stages=stages, batches=(len(a1), len(a2)), retries=(recompressed - len(a1), mismatched - len(a2)))
+    return run
+
+
+def hold_mesh(arrays) -> dict:
+    """Hold every full mesh frame of `arrays` (`_mesh_full_frame`, which
+    both device_tick and frame_tick reach on the mesh backend) against
+    the numpy host leg (host_tick) on a copy of the lanes taken just
+    before it: the advanced rows, LANES, the HEALTH_LANES against the
+    host health reduction of the copy, and mesh_totals() against the
+    copy's totals; and every run_health (the read path's refresh)
+    against the host health reduction of the same lanes. A frame or a
+    refresh that differs raises and is kept, as in hold_device_ticks.
+    Returns {"frames": the reply count of each held frame, "health":
+    one entry a held refresh, "errors": the mismatches}."""
+    held: dict = {"frames": [], "health": [], "errors": []}
+    full = arrays._mesh_full_frame
+    run_health = arrays.mesh_frame.run_health
+
+    def kept(check) -> None:
+        try:
+            check()
+        except AssertionError as e:
+            held["errors"].append(e)
+            raise
+
+    def frame(*args, **kwargs):
+        shadow = shadow_arrays(arrays)
+        got = full(*args, **kwargs)
+        want = shadow.host_tick(*args, **kwargs)
+        n = len(held["frames"])
+        held["frames"].append(len(args[0]))
+
+        def check():
+            assert_equal(np.sort(got), np.sort(want), f"mesh frame {n}: advanced rows")
+            for lane in LANES:
+                assert_equal(getattr(arrays, lane), getattr(shadow, lane), f"mesh frame {n}: {lane}")
+            h = health_np(shadow)
+            for lane, key in zip(HEALTH_LANES, HEALTH_KEYS):
+                assert_equal(getattr(arrays, lane), h[key], f"mesh frame {n}: {lane}")
+            totals = {"advanced": len(want), **totals_np(shadow, h)}
+            if arrays.mesh_totals() != totals:
+                raise AssertionError(f"mesh frame {n}: totals {arrays.mesh_totals()} != host leg's {totals}")
+
+        kept(check)
+        return got
+
+    def health(a):
+        got, totals = run_health(a)
+        n = len(held["health"])
+        held["health"].append(1)
+
+        def check():
+            h = health_np(a)
+            for key in HEALTH_KEYS:
+                assert_equal(got[key], h[key], f"run_health {n}: {key}")
+            if totals != totals_np(a, h):
+                raise AssertionError(f"run_health {n}: totals {totals} != host leg's {totals_np(a, h)}")
+
+        kept(check)
+        return got, totals
+
+    arrays._mesh_full_frame = frame
+    arrays.mesh_frame.run_health = health
+    return held
+
+
+def check_kept(held: list) -> None:
+    """Raise the first mismatch any node's hold_mesh kept."""
+    for h in held:
+        if h["errors"]:
+            raise h["errors"][0]
+
+
+async def move_lanes(cluster, topic: str, parts: int, n: int) -> list:
+    """Move the lanes of the first `n` partitions of `topic` that node 0
+    leads into another chip block of node 0's mesh (the block with the
+    most free rows), one after another, with PartitionMover.move_lane on
+    node 0's own placement table as tests/test_placement.py:341-400 sets
+    it up; each move checked (the partition's row in the new block, the
+    table bound to it). Returns one entry a move."""
+    pl = cluster.pkg.placement
+    b = cluster.brokers[0]
+    arrays = b.group_manager.arrays
+    mover = pl.PartitionMover(b.shard_table, pl.MoveHost(b.partition_manager, b.group_manager, b.storage.log_mgr),
+                              budget=pl.MoveBudget(moves_per_window=100))
+    led = [p for p in range(parts) if cluster.replicas((topic, p))[0].is_leader][:n]
+    if len(led) < n:
+        raise AssertionError(f"node 0 leads {len(led)} partitions of {topic}, {n} lanes to move")
+    out = []
+    for p in led:
+        ntp = cluster.pkg.kafka_ntp(topic, p)
+        part = b.partition_manager.get(ntp)
+        src_row = part.consensus.row
+        src = arrays.chip_of(src_row)
+        free = np.bincount(arrays.chip_of_rows(np.asarray(arrays._free, np.int64)), minlength=arrays.chip_count())
+        free[src] = -1
+        dst = int(np.argmax(free))
+        t0 = time.perf_counter()
+        r = await mover.move_lane(ntp, dst)
+        row = part.consensus.row
+        if not r["moved"] or r["to_chip"] != dst or arrays.chip_of(row) != dst \
+                or b.shard_table.chip_lane_for(r["group"]) != (dst, row):
+            raise AssertionError(f"{topic}/{p}: lane move to chip {dst} did not land ({r}, row {row})")
+        out.append({"partition": p, "group": r["group"], "from": (src, src_row), "to": (dst, row),
+                    "s": time.perf_counter() - t0})
+    return out
+
+
+async def mesh_scenario(pkg, data_dir: str, topics, batches, moves: int, held: list | None = None, mark=None,
+                        **cfg) -> dict:
+    """Part B's cluster: start (each node's mesh frames and health
+    refreshes held into `held` when given, hold_mesh), create `topics`
+    at RF = the node count, produce the first half of `batches`, then
+    the second half while `moves` lanes move on node 0 (move_lanes),
+    lead as created, fetch every partition back, settle, take node 0's
+    health report and run one frame at rest; each moved lane is checked
+    again in its block at the end. `mark(stage)` is called with
+    "produce" and "end". Returns the run with the moves, node 0's chip
+    count and mesh_totals(), and every node's commit_index and
+    last_visible lanes."""
+
+    class Held(KafkaCluster):
+        def made(self, broker):
+            if held is not None:
+                held.append(hold_mesh(broker.group_manager.arrays))
+
+    cluster = Held(pkg, data_dir, **cfg)
+    (name, parts, _), = topics
+    t0 = time.perf_counter()
+    try:
+        await cluster.start()
+        await cluster.create(topics, rf=cluster.nodes)
+        out = {"setup_s": time.perf_counter() - t0}
+        if mark:
+            mark("produce")
+        stalls: list = []
+        watch = asyncio.ensure_future(loop_stalls(stalls))
+        half = len(batches) // 2
+        first = await cluster.produce(batches[:half])
+        rest = asyncio.ensure_future(cluster.produce(batches[half:]))
+        out["moves"] = await move_lanes(cluster, name, parts, moves) if moves else []
+        second = await rest
+        out.update(bases=first["bases"] + second["bases"], lat_s=first["lat_s"] + second["lat_s"],
+                   wall_s=first["wall_s"] + second["wall_s"], produce_stall_s=max(stalls, default=0.0))
+        out["moved"] = await cluster.place(topics)
+        stalls.clear()
+        out.update({f"fetch_{k}": v for k, v in (await cluster.fetch_all(topics)).items()})
+        out["fetch_stall_s"] = max(stalls, default=0.0)
+        watch.cancel()
+        out["records"], out["hwm"] = out.pop("fetch_records"), out.pop("fetch_hwm")
+        await cluster.place(topics)
+        out["sampler"] = await cluster.settle()
+        out["health"] = cluster.brokers[0].group_manager.health_report()
+        # one frame at rest (no replies) on node 0, so its totals are the
+        # settled view whatever the traffic's last frame advanced
+        arrays = cluster.brokers[0].group_manager.arrays
+        empty = np.empty(0, np.int64)
+        arrays.frame_tick(empty, empty, empty, empty, empty)
+        if mark:
+            mark("end")
+        for m in out["moves"]:
+            row = cluster.brokers[0].partition_manager.get(pkg.kafka_ntp(name, m["partition"])).consensus.row
+            if (arrays.chip_of(row), row) != m["to"]:
+                raise AssertionError(f"{name}/{m['partition']}: lane at (chip {arrays.chip_of(row)}, row {row}) "
+                                     f"at the end, moved to {m['to']}")
+        out["chips"], out["mesh_totals"] = arrays.chip_count(), arrays.mesh_totals()
+        out["lanes"] = [{k: getattr(b.group_manager.arrays, k).copy() for k in ("commit_index", "last_visible")}
+                        for b in cluster.brokers]
+    finally:
+        await cluster.stop()
+    check_broker_run(out, batches, topics)
+    return out
+
+
+def run_seams_mesh(device: str, partitions: int = BROKER_PARTITIONS, count: int = BROKER_BATCHES,
+                   moves: int = SEAMS_MOVES, seed: int = SEED + 17, env: dict | None = None) -> dict:
+    """Part B on the port: mesh_scenario under SEAMS_ENV_B (`env` over
+    it; brokers on `device`) with every node's mesh frames and health
+    refreshes held and `moves` lane moves, the launches counted from the
+    produce to the health report; then the host leg (SEAMS_HOST_B, no
+    move: one block) on the same batches. Checked: every record back at
+    its offset on both legs, the legs equal in offsets, watermarks and
+    records, every held frame and refresh exact, a held frame on every
+    node and a held refresh; on the card also fold_replies and
+    mesh_tick_frame launched once a held frame, health_totals once a
+    held refresh, and every SEAMS_PATH_B kernel launched."""
+    import shutil
+    import tempfile
+
+    pkg = port_broker()
+    topics = [(BROKER_TOPIC, partitions, {"compression.type": "lz4"})]
+    batches = broker_batches(seed, [(BROKER_TOPIC, partitions)], count)
+    marks: dict = {}
+    dev_held: list = []
+
+    def mark(stage):
+        if stage == "produce":
+            reset_launches()
+        marks[stage] = {"launches": kernel_counts(),
+                        "frames": [len(h["frames"]) for h in dev_held], "health": [len(h["health"]) for h in dev_held]}
+
+    tmp = tempfile.mkdtemp(prefix="rp_seams_b_")
+    try:
+        with environ({**SEAMS_ENV_B, **(env or {})}):
+            try:
+                dev = asyncio.run(mesh_scenario(pkg, os.path.join(tmp, "mesh"), topics, batches, moves, dev_held,
+                                                mark, device=device))
+            except Exception:
+                # a held mismatch is the cause of what failed
+                check_kept(dev_held)
+                raise
+        with environ({**SEAMS_HOST_B, **(env or {})}):
+            host = asyncio.run(mesh_scenario(pkg, os.path.join(tmp, "host"), topics, batches, 0, device=device))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_kept(dev_held)
+    if dev["records"] != host["records"] or dev["hwm"] != host["hwm"] or dev["bases"] != host["bases"]:
+        raise AssertionError("the mesh leg and the host leg differ in offsets, watermarks or records")
+    if len(dev["moves"]) != moves or dev["chips"] != SEAMS_MESH_DEVICES:
+        raise AssertionError(f"{len(dev['moves'])} lane moves of {moves}, over {dev['chips']} chip blocks")
+    frames = [e - s for s, e in zip(marks["produce"]["frames"], marks["end"]["frames"])]
+    refreshes = sum(marks["end"]["health"]) - sum(marks["produce"]["health"])
+    if not all(len(h["frames"]) for h in dev_held) or not all(frames) or refreshes <= 0:
+        raise AssertionError(f"held mesh frames by node {frames} (since start "
+                             f"{[len(h['frames']) for h in dev_held]}), held refreshes {refreshes}")
+    launches = {k: marks["end"]["launches"][k] - marks["produce"]["launches"][k] for k in KERNELS}
+    if device == "cuda":
+        if not launches["fold_replies"] == launches["mesh_tick_frame"] == sum(frames):
+            raise AssertionError(f"fold_replies {launches['fold_replies']} / mesh_tick_frame "
+                                 f"{launches['mesh_tick_frame']} launches for {sum(frames)} held frames")
+        if launches["health_totals"] != refreshes:
+            raise AssertionError(f"health_totals launched {launches['health_totals']} times for {refreshes} "
+                                 f"held refreshes")
+        idle = [k for k in SEAMS_PATH_B if launches[k] <= 0]
+        if idle:
+            raise AssertionError(f"phase 16 part B never launched {idle}: {launches}")
+    dev.update(host=host, batches=len(batches), frames=frames, refreshes=refreshes,
+               launches={k: launches[k] for k in SEAMS_PATH_B},
+               held_frames=sum(len(h["frames"]) for h in dev_held))
+    return dev
+
+
+def phase_seams() -> dict:
+    """Phase 16: the broker's zstd and mesh seams on the card (part A:
+    run_seams_zstd; part B: run_seams_mesh), its checks and numbers."""
+    t0 = time.perf_counter()
+    a = run_seams_zstd("cuda")
+    t_a = time.perf_counter() - t0
+    b = run_seams_mesh("cuda")
+    smi = nvidia_smi()
+
+    def lat(xs):
+        ms = np.asarray(xs) * 1e3
+        return f"p50 {pct(ms, 50):.3f} ms p99 {pct(ms, 99):.3f} ms"
+
+    def fetch(x):
+        return (f"fetch {x['fetch_bytes']} B in {x['fetch_responses']} responses, {x['fetch_wall_s']:.3f} s = "
+                f"{x['fetch_bytes'] / x['fetch_wall_s'] / 1e6:.1f} MB/s")
+
+    s, (n1, n2), a2 = a["stages"], a["batches"], a["then"]
+    log(f"[seams] part A {smi}: {BROKER_NODES} brokers (cuda), "
+        f"{' '.join(f'{k}={v}' for k, v in SEAMS_ENV_A.items() if v)}; setup {a['setup_s']:.3f} s; A1 {n1} "
+        f"uncompressed acks=all batches to {SEAMS_ZSTD_TOPIC} ({BROKER_PARTITIONS} partitions RF=3 "
+        f"compression.type=zstd) in {a['wall_s']:.3f} s (per batch {lat(a['lat_s'])}), {a['retries'][0]} retried; "
+        f"A2 {n2} producer-zstd batches to {SEAMS_MISMATCH_TOPIC} (compression.type=lz4) in {a2['wall_s']:.3f} s "
+        f"(per batch {lat(a2['lat_s'])}), {a['retries'][1]} retried; {fetch(a)}")
+    log(f"[seams] part A launches: A1 produce {s['a1']['launches']['zstd_encode']} zstd_encode (held "
+        f"{s['a1']['held']['zstd_encode']}); A2 produce {s['a2']['launches']['zstd_decode']} zstd_decode, "
+        f"{s['a2']['launches']['fused_lz4']} fused_lz4 (held {s['a2']['held']['zstd_decode']} / "
+        f"{s['a2']['held']['fused_lz4']}); recompressions by codec pair {s['a1']['recompress']} / "
+        f"{s['a2']['recompress']}; fetch "
+        f"{s['fetch']['launches']['crc32c_device']} crc32c_device for {a['fetch_responses']} responses and the "
+        f"consumer's {s['fetch']['launches']['zstd_decode']} zstd_decode (held {s['fetch']['held']['zstd_decode']}); "
+        f"all {a['launches']}; every held call exact, no punt; {a['stored_zstd']} stored zstd batches decode "
+        f"through libzstd to the bodies sent; health {health_totals(a['health'])}; leaders moved {a['moved']}; "
+        f"the event loop's longest stall {a['produce_stall_s'] * 1e3:.1f} ms (produce) / "
+        f"{a['fetch_stall_s'] * 1e3:.1f} ms (fetch); part A {t_a:.1f} s")
+    h = b["host"]
+    moves = ", ".join(f"p{m['partition']} chip {m['from'][0]} row {m['from'][1]} -> chip {m['to'][0]} row "
+                      f"{m['to'][1]} ({m['s'] * 1e3:.1f} ms)" for m in b["moves"])
+    log(f"[seams] part B {smi}: {' '.join(f'{k}={v}' for k, v in SEAMS_ENV_B.items() if v)}; topic "
+        f"{BROKER_TOPIC} {BROKER_PARTITIONS} partitions RF=3 lz4; setup {b['setup_s']:.3f} s; produce "
+        f"{b['batches']} batches in {b['wall_s']:.3f} s (per batch {lat(b['lat_s'])}); fetch "
+        f"{b['fetch_bytes']} B in {b['fetch_wall_s']:.3f} s = {b['fetch_bytes'] / b['fetch_wall_s'] / 1e6:.1f} "
+        f"MB/s; host leg (RP_QUORUM_BACKEND=host) produce {h['wall_s']:.3f} s (per batch {lat(h['lat_s'])}), "
+        f"fetch {h['fetch_bytes'] / h['fetch_wall_s'] / 1e6:.1f} MB/s")
+    log(f"[seams] part B: held mesh frames by node {b['frames']} (since start {b['held_frames']}), held "
+        f"refreshes {b['refreshes']}, each exact in advanced rows, lanes, health lanes and totals; launches "
+        f"{b['launches']}; lane moves on node 0 over {b['chips']} chip blocks: {moves}; mesh_totals "
+        f"{b['mesh_totals']}; offsets, watermarks and records equal to the host leg; leaders moved "
+        f"{b['moved']} / {h['moved']}; the event loop's longest stall {b['produce_stall_s'] * 1e3:.1f} / "
+        f"{h['produce_stall_s'] * 1e3:.1f} ms (produce), {b['fetch_stall_s'] * 1e3:.1f} / "
+        f"{h['fetch_stall_s'] * 1e3:.1f} ms (fetch); phase 16 {time.perf_counter() - t0:.1f} s")
+    launches = {k: a["launches"].get(k, 0) + b["launches"].get(k, 0) for k in SEAMS_PATH_A + SEAMS_PATH_B}
+    return {"launches": launches, "a": a, "b": b}
+
+
 def nvidia_smi() -> str:
     try:
         return subprocess.run(
@@ -5293,10 +5899,12 @@ def main() -> int:
     broker = phase_broker()
     entry = phase_entry_points()
     faults = phase_faults()
+    seams = phase_seams()
     live = phase_live_raft()
     results["heartbeat_tick"]["live"] = live["tick"]
     for launches in (seg["launches"], zr["launches"], mesh["launches"], cluster["launches"],
-                     live["launches"]["path"], broker["launches"], entry["launches"], faults["launches"]):
+                     live["launches"]["path"], broker["launches"], entry["launches"], faults["launches"],
+                     seams["launches"]):
         for name, count in launches.items():
             path_launches[name] = path_launches.get(name, 0) + count
     missing = [k for k in KERNELS if k not in OFF_PATH and path_launches.get(k, 0) <= 0]
@@ -5306,7 +5914,8 @@ def main() -> int:
         f"segment path: {seg['launches']}; zstd batches: {zr['launches']}; mesh: {mesh['launches']}; "
         f"cluster: {cluster['launches']}; live raft: {live['launches']['path']}; "
         f"broker: {broker['launches']}; node processes: {entry['procs']}; tiered brokers: "
-        f"{entry['tiered']}; brokers under faults: {faults['launches']}; no main-path caller: "
+        f"{entry['tiered']}; brokers under faults: {faults['launches']}; the broker's zstd and mesh seams: "
+        f"{seams['launches']}; no main-path caller: "
         f"{', '.join(OFF_PATH)}): {path_launches}")
 
     kernels = []
