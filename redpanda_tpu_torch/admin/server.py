@@ -15,6 +15,7 @@ import logging
 from typing import TYPE_CHECKING, Optional
 
 from ..httpd import HttpError, HttpServer
+from ..resource_mgmt import MemoryGovernor
 
 if TYPE_CHECKING:  # pragma: no cover
     from ..app import Broker
@@ -891,7 +892,16 @@ class AdminServer(HttpServer):
             "throttled_seconds_total": round(t.throttled_s, 3),
         }
 
-    blocked_reactor_notify_ms = 25.0
+    @property
+    def blocked_reactor_notify_ms(self) -> float:
+        """The loop's stall threshold, process-wide as the loop is: it
+        also sets which iterations `reactor_stall_seconds` counts
+        (resource_mgmt.LoopMonitor)."""
+        return MemoryGovernor.instance().loop.stall_ms
+
+    @blocked_reactor_notify_ms.setter
+    def blocked_reactor_notify_ms(self, ms: float) -> None:
+        MemoryGovernor.instance().loop.stall_ms = ms
 
     async def _partitions_summary(self, _m, _q, _b):
         """Local partition counts (partition_api.cc local_summary)."""

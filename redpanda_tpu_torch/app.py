@@ -802,7 +802,7 @@ class Broker:
             from .resource_mgmt import MemoryGovernor
 
             self._gc_governor = MemoryGovernor.instance()
-            self._gc_governor.start()
+            self._gc_governor.start(self.metrics)
         self._started = True
 
     async def _register_self(self) -> None:
@@ -861,7 +861,7 @@ class Broker:
             return
         self._started = False
         if getattr(self, "_gc_governor", None) is not None:
-            self._gc_governor.stop()
+            self._gc_governor.stop(self.metrics)
             self._gc_governor = None
         join_task, self._join_task = self._join_task, None
         await cancel_and_wait(join_task)

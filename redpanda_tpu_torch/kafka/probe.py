@@ -63,6 +63,14 @@ class KafkaProbe:
             (_FETCH, False): obs("fetch", "done", "python"),
         }
 
+        # read_all() passes a fetch's long-poll made: sum = passes,
+        # count = fetches answered (a count, not seconds: values over
+        # 32 land in the overflow bucket, sum and count stay exact)
+        self.fetch_polls = metrics.histogram(
+            "kafka_fetch_polls",
+            "Long-poll read passes of each fetch answered",
+        ).observe
+
     def produce_done_quantile(self, q: float) -> float:
         """Merged produce e2e quantile in seconds (bench --probes
         cross-check against the bench's own client-side timers)."""

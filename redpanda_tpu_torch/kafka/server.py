@@ -1255,9 +1255,10 @@ class KafkaServer:
                         # recompressed() verifies the wire crc in the
                         # same pass, transcodes codec mismatches, and
                         # no-ops when the codec already matches
-                        batch = batch.recompressed(
-                            ctype_cfg, verify_crc=batch.header.crc
-                        )
+                        with trace.section("recompress", self.probe.registry):
+                            batch = batch.recompressed(
+                                ctype_cfg, verify_crc=batch.header.crc
+                            )
                     # order guard: the PREVIOUS batch must be cached in
                     # FIFO order before this one dispatches. Awaiting
                     # lazily (instead of after every replicate) makes
@@ -1885,10 +1886,14 @@ class KafkaServer:
 
         # long-poll: debounced re-read until min_bytes or max_wait
         # (fetch.cc:432 over_min_bytes, :546 debounce)
+        metrics = self.probe.registry
+        polls = 0
         while True:
             if shard_router is not None:
                 await shard_prepass()
-            responses, total, has_error = read_all()
+            polls += 1
+            with trace.section("fetch_read", metrics, span=False):
+                responses, total, has_error = read_all()
             # error partitions complete the fetch immediately — holding
             # the long-poll would stall the client's metadata refresh
             if has_error or total >= min_bytes:
@@ -1897,9 +1902,12 @@ class KafkaServer:
             if now >= deadline:
                 break
             await asyncio.sleep(min(0.005, deadline - now))
+        self.probe.fetch_polls(polls)
+        trace.tag_current(polls=polls)
 
         if fetch_verify_enabled():
-            self._verify_fetch_response(responses)
+            with trace.section("fetch_verify", metrics):
+                self._verify_fetch_response(responses)
         if session is not None:
             responses = self._finish_session_fetch(
                 session, responses, incremental

@@ -11,12 +11,18 @@ probe/histogram layer. One `FlightRecorder` per broker holds:
   * a small event log for out-of-band markers (NemesisNet fault
     injections land here and also tag the span they hit).
 
-Span mechanics mirror utils/spans.py (the RP_SPANS featherweight
-profiler): a module-level ENABLED flag checked per call, a shared
+Span mechanics: a module-level ENABLED flag checked per call, a shared
 no-op context object when tracing is off, and `time.monotonic_ns()`
 stamps. Parent linkage is a contextvar within a task; across tasks
 (produce request -> batcher flush round) the caller captures
 `current_span()` and passes it back via `span(..., parent=...)`.
+
+Loop sections (`section(name, metrics)`) time the synchronous code
+that holds the brokers' one event loop: each entry is one observation
+of `loop_section_seconds{section=<name>}` in the broker's registry,
+a leaf span of the open request tree (if any), and, while
+`torch.profiler` runs, a `record_function` range on the profiler's
+timeline, the clock of the device operations.
 
 Env knobs:
   RP_TRACE=0          kill switch — span() returns the shared no-op,
@@ -29,7 +35,9 @@ from __future__ import annotations
 
 import itertools
 import os
+import sys
 import time
+import weakref
 from collections import deque
 from contextvars import ContextVar
 from typing import Optional
@@ -266,6 +274,89 @@ def tag_current(**tags) -> None:
     s = _current.get()
     if s is not None:
         s.tag(**tags)
+
+
+SECTION_FAMILY = "loop_section_seconds"
+
+# id(registry) -> {section name: bound observe of its histogram child};
+# an entry leaves with its registry
+_section_obs: dict[int, dict] = {}
+
+
+def _section_observer(metrics, name: str):
+    per = _section_obs.get(id(metrics))
+    if per is None:
+        per = _section_obs[id(metrics)] = {}
+        weakref.finalize(metrics, _section_obs.pop, id(metrics), None)
+    obs = per.get(name)
+    if obs is None:
+        obs = per[name] = metrics.histogram(
+            SECTION_FAMILY,
+            "Event-loop time held by a synchronous code section",
+        ).labels(section=name).observe
+    return obs
+
+
+def profiler_running() -> bool:
+    """Whether torch.profiler is recording in this process (torch's
+    own flag; False until torch is imported)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+class _Section:
+    """One entry of a loop section; see section()."""
+
+    __slots__ = ("name", "obs", "span", "rf", "t0")
+
+    def __init__(self, name: str, obs, span: Optional[Span]):
+        self.name = name
+        self.obs = obs
+        self.span = span
+        self.rf = None
+
+    def __enter__(self) -> "_Section":
+        if profiler_running():
+            self.rf = sys.modules["torch.autograd.profiler"].record_function(
+                self.name
+            )
+            self.rf.__enter__()
+        if self.span is not None:
+            self.span.start_ns = time.monotonic_ns()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        dt = time.perf_counter() - self.t0
+        if self.obs is not None:
+            self.obs(dt)
+        if self.span is not None:
+            self.span.finish(exc_type)
+        if self.rf is not None:
+            self.rf.__exit__(exc_type, exc, tb)
+        return False
+
+
+def section(name: str, metrics=None, span: bool = True) -> _Section:
+    """Time one synchronous stretch of event-loop work (no `await`
+    inside, so its duration is loop time held), as one `with`:
+
+      * one observation of `loop_section_seconds{section=name}` in
+        `metrics`, the registry of the broker running the code (None:
+        no observation);
+      * with tracing on and a request span open, a leaf child span of
+        that tree (`span=False` leaves it out, for a section entered
+        many times a request, such as a long-poll's passes);
+      * while `torch.profiler` runs, `record_function(name)`, so the
+        section lies on the profiler's timeline beside the device
+        operations. With no profiler running this costs one check."""
+    obs = _section_observer(metrics, name) if metrics is not None else None
+    child = None
+    if span and ENABLED:
+        parent = _current.get()
+        if parent is not None:
+            child = Span(name, parent=parent)
+    return _Section(name, obs, child)
 
 
 class FlightRecorder:

@@ -47,7 +47,8 @@ from ..storage import snapshot as snapfmt
 from ..storage.kvstore import KeySpace, KvStore, KvStoreClosed
 from ..storage.log import Log
 from ..utils import native as native_mod
-from ..utils import serde, spans
+from ..observability import trace
+from ..utils import serde
 from ..utils.locks import LockMap
 from ..utils.retry_chain import RetryChainAborted, RetryChainNode
 from . import quorum_scalar as qs
@@ -927,9 +928,8 @@ class Consensus:
     ) -> rt.AppendEntriesReply:
         """Follower-side append path (consensus.cc:1734 do_append_entries),
         serialized per group (append_entries_buffer analog)."""
-        with spans.span("follower.append_total"):
-            async with self._append_lock:
-                return await self._do_append_entries(req)
+        async with self._append_lock:
+            return await self._do_append_entries(req)
 
     async def try_native_append(self, payload: bytes) -> bytes | None:
         """RPC-layer zero-decode fast path: run the native follower
@@ -940,7 +940,8 @@ class Consensus:
         if self._frozen:
             return None  # decode route answers with the frozen reply
         async with self._append_lock:
-            return self.native_append_frame(payload)
+            with trace.section("log_append", self.probe.registry):
+                return self.native_append_frame(payload)
 
     def _reply(self, status: int, seq: int) -> rt.AppendEntriesReply:
         return rt.AppendEntriesReply(
@@ -992,48 +993,49 @@ class Consensus:
         # the leader's log; the commit update below must never run past
         # it (Raft §5.3: min(leaderCommit, index of last new entry)) —
         # a retained local suffix beyond it may be divergent.
-        appended = False
-        last_new_entry = int(req.prev_log_index)
-        for raw in req.batches:
-            batch = RecordBatch.deserialize(raw)
-            base = batch.header.base_offset
-            if batch.header.last_offset <= self._snap_index:
-                # fully covered by our snapshot: committed by definition
-                last_new_entry = batch.header.last_offset
-                continue
-            cur = self.log.offsets()
-            if base <= cur.dirty_offset:
-                local_term = self.log.get_term(base)
-                if local_term == batch.header.term:
+        # the write and its flush hold the loop: one section
+        with trace.section("log_append", self.probe.registry):
+            appended = False
+            last_new_entry = int(req.prev_log_index)
+            for raw in req.batches:
+                batch = RecordBatch.deserialize(raw)
+                base = batch.header.base_offset
+                if batch.header.last_offset <= self._snap_index:
+                    # fully covered by our snapshot: committed by definition
                     last_new_entry = batch.header.last_offset
-                    continue  # duplicate delivery
-                # safety gate BEFORE any destruction: committed data
-                # must never be truncated
-                if self.commit_index >= base:
-                    raise RuntimeError(
-                        f"g{self.group_id}: attempt to truncate committed "
-                        f"offset {base} <= {self.commit_index}"
+                    continue
+                cur = self.log.offsets()
+                if base <= cur.dirty_offset:
+                    local_term = self.log.get_term(base)
+                    if local_term == batch.header.term:
+                        last_new_entry = batch.header.last_offset
+                        continue  # duplicate delivery
+                    # safety gate BEFORE any destruction: committed data
+                    # must never be truncated
+                    if self.commit_index >= base:
+                        raise RuntimeError(
+                            f"g{self.group_id}: attempt to truncate committed "
+                            f"offset {base} <= {self.commit_index}"
+                        )
+                    logger.info(
+                        "g%d: truncating at %d (term conflict %s != %d)",
+                        self.group_id, base, local_term, batch.header.term,
                     )
-                logger.info(
-                    "g%d: truncating at %d (term conflict %s != %d)",
-                    self.group_id, base, local_term, batch.header.term,
-                )
-                self.log.truncate(base)
-                self.arrays.match_index[row, SELF_SLOT] = base - 1
-                self.arrays.flushed_index[row, SELF_SLOT] = min(
-                    int(self.arrays.flushed_index[row, SELF_SLOT]), base - 1
-                )
-                self.arrays.touch()
-            self.log.append_exactly(batch)
-            appended = True
-            last_new_entry = batch.header.last_offset
-        if appended or req.flush:
-            with spans.span("follower.flush"):
+                    self.log.truncate(base)
+                    self.arrays.match_index[row, SELF_SLOT] = base - 1
+                    self.arrays.flushed_index[row, SELF_SLOT] = min(
+                        int(self.arrays.flushed_index[row, SELF_SLOT]), base - 1
+                    )
+                    self.arrays.touch()
+                self.log.append_exactly(batch)
+                appended = True
+                last_new_entry = batch.header.last_offset
+            if appended or req.flush:
                 flushed = self.log.flush()
-            new_offs = self.log.offsets()
-            self.arrays.match_index[row, SELF_SLOT] = new_offs.dirty_offset
-            self.arrays.flushed_index[row, SELF_SLOT] = flushed
-            self.arrays.touch()
+                new_offs = self.log.offsets()
+                self.arrays.match_index[row, SELF_SLOT] = new_offs.dirty_offset
+                self.arrays.flushed_index[row, SELF_SLOT] = flushed
+                self.arrays.touch()
 
         # 5. follower commit index (consensus.cc:2760-2777), capped at
         # the last entry confirmed to match the leader's log
@@ -1462,7 +1464,6 @@ class Consensus:
         if lock.locked():
             return  # a fiber is already driving this follower
         async with lock:
-            spans.add("catchup.enter", 1.0)
             # while this fiber drives the follower, the batched
             # heartbeat skips its slot (consensus::suppress_heartbeats):
             # every dispatch carries term/commit anyway, and a tick-time
@@ -1505,7 +1506,6 @@ class Consensus:
                 return
             rounds += 1
             if rounds > 1:
-                spans.add("catchup.extra_round", 1.0)
                 self.probe.recovery_rounds.inc()
             slot = self._slot_map.get(peer)
             if slot is None:
@@ -1589,8 +1589,7 @@ class Consensus:
                 return await self._dispatch_append_send(
                     peer, row, slot, term, next_idx, prev, prev_term, batches
                 )
-        with spans.span("leader.read"):
-            batches = self.log.read(next_idx, max_bytes=1 << 20) if next_idx <= offs.dirty_offset else []
+        batches = self.log.read(next_idx, max_bytes=1 << 20) if next_idx <= offs.dirty_offset else []
         return await self._dispatch_append_send(
             peer, row, slot, term, next_idx, prev, prev_term, batches
         )
@@ -1608,29 +1607,21 @@ class Consensus:
             return False
         seq = int(self.arrays.next_seq[row, slot]) + 1
         self.arrays.next_seq[row, slot] = seq
-        with spans.span("leader.encode"):
-            req = rt.AppendEntriesRequest(
-                group=self.group_id,
-                node_id=self.node_id,
-                target_node_id=peer,
-                term=term,
-                prev_log_index=prev,
-                prev_log_term=prev_term,
-                commit_index=self.commit_index,
-                seq=seq,
-                flush=True,
-                batches=[b.serialize() for b in batches],
-            ).encode()
-        if spans.ENABLED:
-            spans.add(
-                "leader.rpc_empty" if not batches else "leader.rpc_data", 1.0
-            )
-            if self.group_id == 0:
-                spans.add("leader.rpc_g0", 1.0)
+        req = rt.AppendEntriesRequest(
+            group=self.group_id,
+            node_id=self.node_id,
+            target_node_id=peer,
+            term=term,
+            prev_log_index=prev,
+            prev_log_term=prev_term,
+            commit_index=self.commit_index,
+            seq=seq,
+            flush=True,
+            batches=[b.serialize() for b in batches],
+        ).encode()
         try:
             t_wire = time.monotonic()
-            with spans.span("leader.rpc"):
-                raw = await self._send(peer, rt.APPEND_ENTRIES, req, 5.0)
+            raw = await self._send(peer, rt.APPEND_ENTRIES, req, 5.0)
             self.probe.observe_stage_wire(time.monotonic() - t_wire)
             rep = rt.AppendEntriesReply.decode(raw)
         except Exception:

@@ -35,7 +35,7 @@ from . import shard_state
 from . import types as rt
 from .consensus import Consensus, Role
 from ..models.consensus_state import SELF_SLOT
-from ..utils import spans
+from ..observability import trace
 
 logger = logging.getLogger("raft.heartbeat")
 
@@ -183,8 +183,7 @@ class HeartbeatManager:
         while not self._closed:
             try:
                 t0 = time.perf_counter()
-                with spans.span("hb.tick"):
-                    await self.tick()
+                await self.tick()
                 if self.probe is not None:
                     self.probe.heartbeat_tick_hist.observe(
                         time.perf_counter() - t0
@@ -227,6 +226,46 @@ class HeartbeatManager:
             return
         arrays = next(iter(self._groups.values())).arrays
         epoch0 = arrays.mut_epoch
+        # the build and the fold + scan hold the loop; the send between
+        # them is an await, outside the section
+        metrics = self.probe.registry if self.probe is not None else None
+        with trace.section("tick_host", metrics):
+            sent, same_sent = self._build_frames(plan, arrays)
+
+        async def one_node(peer: int, msg: bytes):
+            try:
+                raw = await self._send(peer, rt.HEARTBEAT, msg, self._rpc_timeout)
+                return peer, raw
+            except Exception:
+                return peer, None
+
+        async def one_same(peer: int, msg: bytes):
+            p = plan[peer]
+            try:
+                raw = await self._send(
+                    peer, rt.HEARTBEAT_SAME, msg, self._rpc_timeout
+                )
+                status, counter = rt.decode_same_reply(raw)
+            except Exception:
+                p.same_epoch = None
+                return
+            if status == rt.SAME_OK and counter == p.same_counter + 1:
+                p.same_counter += 1
+                p.same_ticks += 1
+            else:
+                p.same_epoch = None  # follower diverged: full next tick
+
+        results = await asyncio.gather(
+            *(one_node(peer, entry[3]) for peer, entry in sent.items()),
+            *(one_same(peer, msg) for peer, msg in same_sent.items()),
+        )
+        with trace.section("tick_host", metrics):
+            self._fold_replies(plan, arrays, epoch0, sent, results[: len(sent)])
+            self._kick_laggards(plan, arrays, same_sent)
+
+    def _build_frames(self, plan: dict, arrays) -> tuple[dict, dict]:
+        """(sent, same_sent): each peer's full heartbeat frame with what
+        its fold needs, and the peers that ride HEARTBEAT_SAME."""
         same_sent: dict[int, bytes] = {}
 
         # vector build per peer (build_heartbeats analog): seqs, prevs,
@@ -239,7 +278,6 @@ class HeartbeatManager:
         # slot re-enters the beat + lag scan: the recovery-fallback
         # role of the tick is unchanged.
         sent: dict[int, tuple] = {}
-        t_build = time.perf_counter() if spans.ENABLED else 0.0
         for peer, p in plan.items():
             if (
                 p.same_epoch is not None
@@ -360,43 +398,12 @@ class HeartbeatManager:
                 spliced,
             )
 
-        if spans.ENABLED:
-            spans.add("hb.build", time.perf_counter() - t_build)
+        return sent, same_sent
 
-        async def one_node(peer: int, msg: bytes):
-            try:
-                raw = await self._send(peer, rt.HEARTBEAT, msg, self._rpc_timeout)
-                return peer, raw
-            except Exception:
-                return peer, None
-
-        async def one_same(peer: int, msg: bytes):
-            p = plan[peer]
-            try:
-                raw = await self._send(
-                    peer, rt.HEARTBEAT_SAME, msg, self._rpc_timeout
-                )
-                status, counter = rt.decode_same_reply(raw)
-            except Exception:
-                p.same_epoch = None
-                return
-            if status == rt.SAME_OK and counter == p.same_counter + 1:
-                p.same_counter += 1
-                p.same_ticks += 1
-            else:
-                p.same_epoch = None  # follower diverged: full next tick
-
-        t_send = time.perf_counter() if spans.ENABLED else 0.0
-        results = await asyncio.gather(
-            *(one_node(peer, entry[3]) for peer, entry in sent.items()),
-            *(one_same(peer, msg) for peer, msg in same_sent.items()),
-        )
-        results = results[: len(sent)]
-        t_fold = 0.0
-        if spans.ENABLED:
-            spans.add("hb.send_wait", time.perf_counter() - t_send)
-            t_fold = time.perf_counter()
-
+    def _fold_replies(
+        self, plan: dict, arrays, epoch0: int, sent: dict, results: list
+    ) -> None:
+        """Fold every reply into one device call (or the tick frame)."""
         # fold: flatten every successful reply into one batch
         rows_acc: list[np.ndarray] = []
         slots_acc: list[np.ndarray] = []
@@ -574,17 +581,14 @@ class HeartbeatManager:
             # no heartbeat replies this tick, but the replicate window
             # has pending rows: drain them on the tick cadence too
             frame.flush()
-        t_scan = 0.0
-        if spans.ENABLED:
-            spans.add("hb.fold", time.perf_counter() - t_fold)
-            t_scan = time.perf_counter()
+
+    def _kick_laggards(self, plan: dict, arrays, same_sent: dict) -> None:
         # recovery: schedule catch-up for lagging followers, found with
         # one vector compare per peer (match/flushed vs leader dirty).
         # Slots with a live fiber are excluded — their lag is in-flight
         # replication that fiber is already driving, and spawning a
         # task per group per tick for them is pure overhead (the spawn
         # would bounce off the peer lock anyway).
-        n_spawned = 0
         for peer, p in plan.items():
             if peer in same_sent:
                 continue  # quiesced: nothing moved, nothing to scan
@@ -624,11 +628,6 @@ class HeartbeatManager:
                 c = p.cons[int(i)]
                 if c.role == Role.LEADER:
                     c.kick_catch_up(peer)
-                    n_spawned += 1
-        if spans.ENABLED:
-            spans.add("hb.scan", time.perf_counter() - t_scan)
-            if n_spawned:
-                spans.add("hb.spawned", float(n_spawned))
 
     def _handle_failure(
         self, c: Consensus, peer: int, reply: rt.HeartbeatReply, i: int

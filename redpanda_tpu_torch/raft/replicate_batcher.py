@@ -33,7 +33,6 @@ from typing import TYPE_CHECKING, Optional
 from ..models.record import RecordBatch, RecordBatchBuilder
 from ..models.consensus_state import SELF_SLOT
 from ..observability import trace
-from ..utils import spans
 
 if TYPE_CHECKING:  # pragma: no cover
     from .consensus import Consensus
@@ -198,7 +197,7 @@ class ReplicateBatcher:
         for it in items:
             observe_coalesce(t_append - it.t0)
         with trace.span("raft.append", parent=items[0].span, items=len(items)):
-            with spans.span("batcher.append"):
+            with trace.section("log_append", c.probe.registry):
                 for it in items:
                     it.base, it.last = c.log.append(it.batch, term=term)
                     round_last = it.last
@@ -207,11 +206,9 @@ class ReplicateBatcher:
                     appended.append(it)
         c.probe.observe_append(time.monotonic() - t_append)
         c.probe.note_append(c.ledger_key, sum(it.size for it in items))
-        spans.add("batcher.round_items", float(len(items)))
         self.flush_rounds += 1
         with trace.span("raft.flush", parent=items[0].span):
-            with spans.span("batcher.fsync"):
-                flushed = await c.log.flush_async()
+            flushed = await c.log.flush_async()
         # leadership may have moved while the fsync ran
         if c._closed or c.role != Role.LEADER or c.term != term:
             exc = NotLeaderError(c.leader_id)

@@ -16,7 +16,6 @@ import struct
 from ..rpc import Service, method
 from ..storage import file_sanitizer, iofaults
 from ..utils import native as native_mod
-from ..utils import spans
 from . import types as rt
 
 logger = logging.getLogger("raft.service")
@@ -191,11 +190,10 @@ class RaftService(Service):
         # reply framing in one C call over the raw frame
         # (native/append_frame.cc via Consensus.try_native_append).
         # Debug instrumentation that must observe the Python write path
-        # (spans, file sanitizer, iofault injection) disables it, and
-        # any in-frame anomaly punts to the decode route below.
+        # (file sanitizer, iofault injection) disables it, and any
+        # in-frame anomaly punts to the decode route below.
         if (
-            not spans.ENABLED
-            and not file_sanitizer.enabled()
+            not file_sanitizer.enabled()
             and not iofaults.active()
             and native_mod.append_frame_ready()
             and len(payload) >= 14

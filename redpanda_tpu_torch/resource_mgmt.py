@@ -23,10 +23,12 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import time
 from collections import deque
 from typing import Any, Awaitable, Callable
 
+from .observability import trace
 from .utils.tasks import cancel_and_wait
 
 logger = logging.getLogger("resource_mgmt")
@@ -210,6 +212,87 @@ class FairScheduler:
         }
 
 
+# ---------------------------------------------------------------- loop
+
+
+class LoopMonitor:
+    """Reactor utilization and stall accounting for the asyncio loop
+    (the counterpart of Seastar's reactor utilization and stall
+    detector).
+
+    The loop's selector is hooked once: `select` is the only place an
+    iteration of `BaseEventLoop._run_once` waits, so the time from one
+    `select` returning to the next one being entered is that
+    iteration's busy time. Each iteration is one observation of
+    `reactor_busy_seconds`; one that lasted at least `stall_ms` (the
+    admin server's `blocked_reactor_notify_ms`) is also one of
+    `reactor_stall_seconds`. Two clock reads an iteration. An iteration
+    in which torch.profiler started or stopped is not counted: the
+    profiler's own start-up (seconds, on a card) is not the program's.
+
+    The loop is process-wide, so the families live in exactly one
+    registry, the one `bind` was given: summing over every broker's
+    registry counts each iteration once."""
+
+    def __init__(self, stall_ms: float = 25.0):
+        self.stall_ms = stall_ms
+        self._busy = None
+        self._stall = None
+        self._selectors: list = []
+
+    def bind(self, registry) -> None:
+        """Observe into `registry` from now on (None: observe nowhere)."""
+        if registry is None:
+            self._busy = self._stall = None
+            return
+        self._busy = registry.histogram(
+            "reactor_busy_seconds",
+            "Event-loop time outside select, one observation an iteration",
+        ).observe
+        self._stall = registry.histogram(
+            "reactor_stall_seconds",
+            "Event-loop iterations at or over blocked_reactor_notify_ms",
+        ).observe
+
+    def hook(self, loop) -> None:
+        """Time `loop`'s selector; once a selector (no-op for a loop
+        with no Python selector)."""
+        sel = getattr(loop, "_selector", None)
+        if sel is None or "select" in vars(sel):
+            return
+        inner = sel.select
+        clock = time.perf_counter
+        profiling = trace.profiler_running
+        ready = None
+        profiled = False
+
+        def select(timeout=None):
+            nonlocal ready, profiled
+            t = clock()
+            if (
+                ready is not None
+                and self._busy is not None
+                and profiling() == profiled
+            ):
+                busy = t - ready
+                self._busy(busy)
+                if busy * 1e3 >= self.stall_ms:
+                    self._stall(busy)
+            try:
+                return inner(timeout)
+            finally:
+                profiled = profiling()
+                ready = clock()
+
+        sel.select = select
+        self._selectors.append(sel)
+
+    def unhook(self) -> None:
+        for sel in self._selectors:
+            vars(sel).pop("select", None)
+        self._selectors.clear()
+
+
 # ---------------------------------------------------------------- memory
 
 
@@ -236,10 +319,15 @@ class MemoryGovernor:
         collect+freeze at a known time instead of a surprise gen2
         pause at a random one;
       - track pause times for /metrics (the probe the reference gets
-        from seastar's reactor stall detector).
+        from seastar's reactor stall detector), each pause also the
+        `gc` loop section (observability/trace.section).
 
     Process-global by nature (the collector is); refcounted so
-    multi-broker fixtures start/stop it once.
+    multi-broker fixtures start/stop it once. The loop monitor runs
+    under the same refcount. The process-wide families (the loop
+    monitor's and `loop_section_seconds{section=gc}`) are observed in
+    the registry of the earliest-started broker still running, so the
+    sum over brokers' registries counts each pause and iteration once.
     """
 
     _instance: "MemoryGovernor | None" = None
@@ -263,6 +351,10 @@ class MemoryGovernor:
         self.pause_sum_ms = 0.0
         self.pause_max_ms = 0.0
         self.gen2_total = 0
+        self.loop = LoopMonitor()
+        self._registries: list = []
+        self._owner = None
+        self._gc_section = None
         self._refs = 0
         self._saved_threshold: tuple | None = None
         self._t0 = 0.0
@@ -276,9 +368,13 @@ class MemoryGovernor:
 
     def _gc_cb(self, phase: str, info: dict) -> None:
         if phase == "start":
+            self._gc_section = trace.section("gc", self._owner).__enter__()
             self._t0 = time.perf_counter()
         else:
             dt_ms = (time.perf_counter() - self._t0) * 1e3
+            if self._gc_section is not None:
+                self._gc_section.__exit__(None, None, None)
+                self._gc_section = None
             self.pauses_total += 1
             self.pause_sum_ms += dt_ms
             if dt_ms > self.pause_max_ms:
@@ -286,10 +382,20 @@ class MemoryGovernor:
             if info.get("generation") == 2:
                 self.gen2_total += 1
 
-    def start(self) -> None:
+    def _bind(self) -> None:
+        self._owner = self._registries[0] if self._registries else None
+        self.loop.bind(self._owner)
+
+    def start(self, registry=None) -> None:
+        """Called from a running loop; `registry` is the starting
+        broker's, None for a caller that keeps no metrics."""
         import gc
 
         self._refs += 1
+        if registry is not None:
+            self._registries.append(registry)
+            self._bind()
+        self.loop.hook(asyncio.get_running_loop())
         if self._refs > 1:
             return
         self._saved_threshold = gc.get_threshold()
@@ -310,12 +416,16 @@ class MemoryGovernor:
             gc.collect()
             gc.freeze()
 
-    def stop(self) -> None:
+    def stop(self, registry=None) -> None:
         import gc
 
+        if registry in self._registries:
+            self._registries.remove(registry)
+            self._bind()
         self._refs = max(0, self._refs - 1)
         if self._refs > 0:
             return
+        self.loop.unhook()
         if self._task is not None:
             self._task.cancel()
             self._task = None
@@ -330,6 +440,13 @@ class MemoryGovernor:
         gc.unfreeze()
         gc.collect()
 
+    def _after_fork_child(self) -> None:
+        """A forked worker's families belong to its own brokers: the
+        copies of the parent's registries, which nothing there scrapes,
+        own none of them."""
+        self._registries.clear()
+        self._bind()
+
     def stats(self) -> dict:
         return {
             "gc_pauses_total": self.pauses_total,
@@ -337,3 +454,12 @@ class MemoryGovernor:
             "gc_pause_max_ms": round(self.pause_max_ms, 3),
             "gc_gen2_total": self.gen2_total,
         }
+
+
+def _after_fork_child() -> None:
+    if MemoryGovernor._instance is not None:
+        MemoryGovernor._instance._after_fork_child()
+
+
+if hasattr(os, "register_at_fork"):
+    os.register_at_fork(after_in_child=_after_fork_child)

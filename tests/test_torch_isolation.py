@@ -50,7 +50,7 @@ def _forbidden(name: str) -> bool:
 # the host modules it stands on; the Raft layer: storage, rpc, the
 # consensus, heartbeat and group managers and the utils they import)
 RAFT_LAYER = (
-    *(f"redpanda_tpu_torch.utils.{m}" for m in ("rpsan", "spans", "hbadger", "retry_chain", "token_bucket")),
+    *(f"redpanda_tpu_torch.utils.{m}" for m in ("rpsan", "hbadger", "retry_chain", "token_bucket")),
     *(f"redpanda_tpu_torch.storage{m}" for m in (
         "", ".dirsync", ".iofaults", ".file_sanitizer", ".flush_coalescer", ".probe", ".snapshot", ".kvstore",
         ".batch_cache", ".segment", ".compaction", ".log", ".log_manager")),
